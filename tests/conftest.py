@@ -117,6 +117,11 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without"
+        " one (run on the card with `pytest -m cuda tests/test_torch_*.py`)",
+    )
+    config.addinivalue_line(
+        "markers",
         "chaos: fault-injection soak driven by fabric/chaos.py (always also"
         " marked slow; run with `-m chaos`)",
     )
