@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and hold every
-CUDA kernel of that path against its plain PyTorch version.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and hold every CUDA kernel of those paths against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -11,29 +12,53 @@ nonzero. Phases, in order:
 
 1. ``card``: the card, its power limit, torch and CUDA versions. The
    raw ``nvidia-smi --query-gpu=name,power.limit`` line follows it.
-2. ``build``: nvcc seconds per kernel source (both compile at once) and
-   ptxas's register / shared-memory report.
+2. ``build``: nvcc seconds per kernel source (all three compile at once)
+   and ptxas's register / shared-memory report.
 3. ``flash_fwd``: kernel K1 against its plain version over B in {1, 2},
    S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 and fp32,
    with and without lse; times at the serving prefill shape.
 4. ``paged_decode``: kernel K2 against the gather path at the engine's
    decode shape (B=8, H=8, KV=2, Dh=64, Bs=16, MB=32), lengths in
    1..512 plus a 0-length row and stale table slots; fp32, bf16, int8.
-5. ``serve_exact``: the flagship at full width in fp32, prefill through
+5. ``flash_bwd``: kernels B3 (dQ) and B4 (dK/dV) against
+   ``flash_bwd_plain`` over B in {1, 2}, S in {8, 64, 256, 512} at D=64
+   and S=100 at D=128, H=8 over KV in {2, 8}, causal or not, fp32 and
+   bf16, with and without an lse cotangent, each case checked on its
+   own; then K1 with lse, B3 and B4 against their plain versions on the
+   path's own inputs: the training shape (8, 512, 8, 2, 64, bf16, causal)
+   and ``qualify_slice``'s MHA shape (8, 512, 8, 8, 64); times at the
+   training shape.
+6. ``serve_exact``: the flagship at full width in fp32, prefill through
    K1 and decode through K2: every request's tokens equal the port's
    solo ``generate`` with reference attention.
-6. ``serve``: the flagship in bf16: 16 greedy and sampled requests
+7. ``serve``: the flagship in bf16: 16 greedy and sampled requests
    through an 8-slot engine, then an int8-pool engine with chunked
    admission and a shared prefix; tokens/s, step p50, launch counts.
-7. the kernels line ``{"kernels": [...]}``: per kernel its launches on
-   the main path (phases 5-6), max error, kernel / plain / library ms and
-   the bound.
-8. the last line: ``{"ok": true, "device": {...}}``.
+8. ``train_exact``: the flagship in fp32, 3 AdamW steps on (4, 256)
+   tokens with flash attention (K1 with lse, B3, B4) and 3 with
+   reference attention from the same params: losses, grad norms and the
+   first step's gradients agree.
+9. ``train``: the flagship in bf16 through ``trainer.fit`` on packed
+   synthetic Zipf documents (seq 512, batch 8): 20 steps checkpointed
+   every 10, then a resumed ``fit`` to 24; tokens/s, step p50, one step
+   under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the
+   step fails the phase) and the device's busy share.
+10. ``qualify``: ``qualify_slice()`` at its defaults.
+11. ``timing`` (the whole run's seconds, builds included) and
+    ``launches`` (per path); then the kernels line ``{"kernels": [...]}``:
+    per kernel its launches on its main path (serving: phases 6-7; training: phases 8-10), max
+    error, kernel / plain / library ms and the bound.
+12. the last line: ``{"ok": true, "device": {...}}``.
 
-Tolerances (absolute): K1 fp32 1e-4, bf16 2e-2, lse 1e-4. K2 fp32 1e-4;
-bf16 2e-2 (the kernel keeps P in fp32, the gather path rounds P to bf16
-first). First-token logits of the bf16 engine against the plain path
+Tolerances (absolute unless said): K1 fp32 1e-4, bf16 2e-2, lse 1e-4.
+K2 fp32 1e-4; bf16 2e-2 (the kernel keeps P in fp32, the gather path
+rounds P to bf16 first). B3/B4 relative to each gradient's own max|ref|
+in each case (printed beside the worst error): fp32 1e-4 (other
+summation order); bf16 3e-2 (dS is rounded to bf16 before two
+products). First-token logits of the bf16 engine against the plain path
 5e-2; of the int8-pool engine against an unquantized prefill 1e-1.
+``train_exact``: losses 1e-4, grad norms 1e-3 relative, gradients 1e-4
+relative to max(1, max|ref|) (flash against reference attention, fp32).
 fp32 matmuls run in full fp32 (TF32 off, below).
 """
 
@@ -59,6 +84,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 LSE_TOL = 1e-4
 LOGIT_TOL_BF16 = 5e-2
 LOGIT_TOL_INT8 = 1e-1
@@ -117,11 +143,48 @@ def phase_build() -> None:
     from tpu_composer_torch.ops import _build
 
     t0 = time.perf_counter()
-    seconds = _build.build(["flash_fwd", "paged_decode"])
+    seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
              for name, (_, log) in _build.build_log.items()}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0,
          ptxas=ptxas)
+
+
+TRAIN_SHAPE = (8, 512, 8, 2, 64)  # B, S, H, KV, D of the training path
+QUALIFY_SHAPE = (8, 512, 8, 8, 64)  # qualify_slice's default model: MHA
+
+
+def _attn_inputs(gen, shape, dtype):
+    b, s, h, kv, d = shape
+    q = torch.randn(b, s, h, d, generator=gen).to("cuda", dtype)
+    k = torch.randn(b, s, kv, d, generator=gen).to("cuda", dtype)
+    v = torch.randn(b, s, kv, d, generator=gen).to("cuda", dtype)
+    do = torch.randn(b, s, h, d, generator=gen).to("cuda", dtype)
+    return q, k, v, do
+
+
+def _attn_bounds(shape, dtype, causal: bool = True) -> dict:
+    """Bytes and operations of K1 (without and with lse), B3 and B4 on
+    ``shape``: each input read once, each output written once; 2·D
+    operations per (q, k) pair per product (2 in K1, 3 in B3, 4 in B4),
+    live pairs only."""
+    b, s, h, kv, d = shape
+    e = torch.tensor([], dtype=dtype).element_size()
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    q_bytes, kv_bytes, row_bytes = b * s * h * d * e, b * s * kv * d * e, \
+        b * h * s * 4
+    work = {
+        "flash_fwd": (2 * q_bytes + 2 * kv_bytes, 2),
+        "flash_fwd_lse": (2 * q_bytes + 2 * kv_bytes + row_bytes, 2),
+        "flash_bwd_dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 3),
+        "flash_bwd_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 4),
+    }
+    out = {}
+    for name, (n_bytes, products) in work.items():
+        ms, by = bound_ms(n_bytes, products * 2 * d * pairs, dtype)
+        out[name] = {"bound_ms": ms, "bound_by": by, "bytes": n_bytes,
+                     "operations": products * 2 * d * pairs}
+    return out
 
 
 def phase_flash(gen: torch.Generator) -> dict:
@@ -137,7 +200,7 @@ def phase_flash(gen: torch.Generator) -> dict:
     shapes = [(b, s, d) for b in (1, 2) for s in (8, 64, 256, 512)]
     shapes.append((1, 100, 128))
     for dtype in (torch.float32, torch.bfloat16):
-        worst = worst_lse = 0.0
+        worst = worst_lse = worst_with_lse = 0.0
         for b, s, dd in shapes:
             q = torch.randn(b, s, h, dd, generator=gen).to("cuda", dtype)
             k = torch.randn(b, s, kv, dd, generator=gen).to("cuda", dtype)
@@ -148,11 +211,14 @@ def phase_flash(gen: torch.Generator) -> dict:
                     want, lse_w = flash_fwd_plain(q, k, v, causal,
                                                   with_lse)
                     torch.cuda.synchronize()
-                    worst = max(worst, max_err(got, want))
+                    err = max_err(got, want)
+                    worst = max(worst, err)
                     if with_lse:
+                        worst_with_lse = max(worst_with_lse, err)
                         worst_lse = max(worst_lse, max_err(lse, lse_w))
         name = str(dtype).replace("torch.", "")
-        errs[name] = {"out": worst, "lse": worst_lse}
+        errs[name] = {"out": worst, "lse": worst_lse,
+                      "out_with_lse": worst_with_lse}
         check(worst <= TOL[dtype], f"flash_fwd {name} error {worst}")
         check(worst_lse <= LSE_TOL, f"flash_fwd {name} lse error {worst_lse}")
 
@@ -170,10 +236,9 @@ def phase_flash(gen: torch.Generator) -> dict:
         "library_ms": cuda_ms(
             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
     }
-    pairs = s * (s + 1) // 2  # causal (q, k) pairs
-    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    timing["bound_ms"], timing["bound_by"] = bound_ms(
-        n_bytes, 4 * b * h * pairs * d, dtype)
+    bound =_attn_bounds((b, s, h, kv, d), dtype)["flash_fwd"]
+    timing["bound_ms"], timing["bound_by"] = bound["bound_ms"], \
+        bound["bound_by"]
     timing["max_abs_err"] = errs["bfloat16"]["out"]
     emit("flash_fwd", errors=errs, tol={"fp32": 1e-4, "bf16": 2e-2,
                                        "lse": LSE_TOL}, **timing)
@@ -263,6 +328,132 @@ def phase_paged(gen: torch.Generator) -> dict:
     return timing
 
 
+def _bwd_errors(got, want, dtype, case: str, worst: dict) -> None:
+    """Check each of dq, dk, dv of one case against its plain value,
+    relative to that gradient's own max|ref|, and keep in ``worst`` the
+    worst case of each gradient with its error and scale, and the
+    smallest scale seen."""
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err, scale = max_err(a, w), float(w.float().abs().max())
+        check(0 < scale and err <= BWD_TOL[dtype] * scale,
+              f"flash_bwd {case} {name}: error {err} against max|ref|"
+              f" {scale} (tolerance {BWD_TOL[dtype]} x max|ref|)")
+        least = min(scale, worst.get(name, {}).get("least_max_ref", scale))
+        if name not in worst or err / scale > worst[name]["relative"]:
+            worst[name] = {"relative": err / scale, "abs": err,
+                           "max_ref": scale, "case": case}
+        worst[name]["least_max_ref"] = least
+
+
+def phase_flash_bwd(gen: torch.Generator) -> dict:
+    from tpu_composer_torch.ops.attention import (
+        _delta,
+        flash_bwd_cuda,
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_plain,
+        flash_fwd_cuda,
+        flash_fwd_plain,
+    )
+
+    h = 8
+    shapes = [(b, s, 64) for b in (1, 2) for s in (8, 64, 256, 512)]
+    shapes.append((1, 100, 128))  # ragged length, the other head_dim
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst: dict = {}
+        for b, s, d in shapes:
+            for kv in (2, 8):
+                q, k, v, do = _attn_inputs(gen, (b, s, h, kv, d), dtype)
+                for causal in (False, True):
+                    out, lse = flash_fwd_cuda(q, k, v, causal, with_lse=True)
+                    for with_g in (False, True):
+                        g_lse = (torch.randn(b, h, s, generator=gen).cuda()
+                                 if with_g else None)
+                        got = flash_bwd_cuda(q, k, v, out, lse, do, g_lse,
+                                             causal)
+                        torch.cuda.synchronize()
+                        want = flash_bwd_plain(q, k, v, out, lse, do, g_lse,
+                                               causal)
+                        case = (f"B{b} S{s} D{d} KV{kv} causal={causal}"
+                                f" g_lse={with_g}")
+                        _bwd_errors(got, want, dtype, case, worst)
+        errs[str(dtype).replace("torch.", "")] = worst
+
+    # The path's own inputs: the train step's GQA shape and qualify_slice's
+    # MHA shape, bf16, causal, no lse cotangent. K1 with lse against its
+    # plain version, then B3 and B4 on K1's out and lse.
+    dtype = torch.bfloat16
+    path = {}
+    for label, shape in (("qualify", QUALIFY_SHAPE), ("train", TRAIN_SHAPE)):
+        q, k, v, do = _attn_inputs(gen, shape, dtype)
+        out, lse = flash_fwd_cuda(q, k, v, True, with_lse=True)
+        out_w, lse_w = flash_fwd_plain(q, k, v, True, with_lse=True)
+        got = flash_bwd_cuda(q, k, v, out, lse, do, None, True)
+        torch.cuda.synchronize()
+        e_out, e_lse = max_err(out, out_w), max_err(lse, lse_w)
+        check(e_out <= TOL[dtype], f"flash_fwd_lse {label} error {e_out}")
+        check(e_lse <= LSE_TOL, f"flash_fwd_lse {label} lse error {e_lse}")
+        worst = {}
+        _bwd_errors(got, flash_bwd_plain(q, k, v, out, lse, do, None, True),
+                    dtype, f"{label} {list(shape)}", worst)
+        path[label] = {"shape": list(shape), "out": e_out, "lse": e_lse,
+                       **worst}
+    errs["bfloat16_path"] = path
+
+    # Times at the training shape, on the inputs left by the loop above.
+    # The library yardsticks, timed only: SDPA's forward, and SDPA's
+    # backward on one recorded forward.
+    delta = _delta(out, do)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        sdpa_f = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True))
+    recorded = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_b = cuda_ms(lambda: torch.autograd.grad(
+        recorded, (qt, kt, vt), dot, retain_graph=True))
+    bounds = _attn_bounds(shape, dtype)
+    timing = {
+        "flash_fwd_lse": {
+            "ms": cuda_ms(lambda: flash_fwd_cuda(q, k, v, True, True)),
+            "plain_ms": cuda_ms(lambda: flash_fwd_plain(q, k, v, True,
+                                                        True), iters=10),
+            "library_ms": sdpa_f},
+        "flash_bwd_dq": {
+            "ms": cuda_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                    True)),
+            "library_ms": sdpa_b},
+        "flash_bwd_dkv": {
+            "ms": cuda_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                     True)),
+            "library_ms": sdpa_b},
+    }
+    # The plain backward computes dq, dk and dv (and δ) in one pass; both
+    # kernel rows carry its time.
+    plain_bwd = cuda_ms(lambda: flash_bwd_plain(q, k, v, out, lse, do, None,
+                                                True), iters=10)
+    timing["flash_bwd_dq"]["plain_ms"] = plain_bwd
+    timing["flash_bwd_dkv"]["plain_ms"] = plain_bwd
+    for name in timing:
+        timing[name].update(bounds[name])
+    # The kernels rows carry the errors on the path's own inputs.
+    runs = path.values()
+    timing["flash_fwd_lse"]["max_abs_err"] = max(r["out"] for r in runs)
+    timing["flash_bwd_dq"]["max_abs_err"] = max(r["dq"]["abs"] for r in runs)
+    timing["flash_bwd_dkv"]["max_abs_err"] = max(
+        r[g]["abs"] for r in runs for g in ("dk", "dv"))
+    b, s, h, kv, d = shape
+    emit("flash_bwd", errors=errs, tol={"fp32": 1e-4, "bf16": 3e-2,
+                                        "relative_to": "max|ref| per gradient",
+                                        "flash_fwd_lse": [TOL[dtype], LSE_TOL]},
+         shape=list(shape), dtype="bfloat16", causal=True,
+         b4_ctas=b * kv * -(-s // 64), timing=timing)
+    return timing
+
+
 FLAGSHIP = dict(vocab_size=8192, d_model=512, n_layers=4, n_heads=8,
                 n_kv_heads=2, d_ff=1408, max_seq=512)
 
@@ -343,9 +534,10 @@ def _drive(eng) -> dict:
                                    if decode_only else None)}
 
 
-def _device_share(eng, n_steps: int = 8) -> dict:
-    """Device busy share over a few decode steps (torch.profiler): summed
-    kernel time over host wall time, and the kernels that take it."""
+def _device_share(step, n_steps: int = 8) -> dict:
+    """Device busy share over a few calls of ``step`` (torch.profiler):
+    summed kernel time over host wall time, and the kernels that take
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -353,7 +545,7 @@ def _device_share(eng, n_steps: int = 8) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
@@ -430,7 +622,7 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
         eng.submit(rng.integers(0, cfg.vocab_size, 128).tolist(), 64)
     while eng._waiting:
         eng.step()  # one admission per step
-    results["profile"] = _device_share(eng)
+    results["profile"] = _device_share(eng.step)
     emit("serve_profile", **results["profile"])
     eng.run()
 
@@ -463,6 +655,150 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
     return results
 
 
+def _train_counts() -> dict:
+    from tpu_composer_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
+
+    return {"flash_fwd_lse": flash_fwd_cuda.launches_lse,
+            "flash_bwd_dq": flash_bwd_dq_cuda.launches,
+            "flash_bwd_dkv": flash_bwd_dkv_cuda.launches}
+
+
+def _grads(params, tokens, cfg):
+    from tpu_composer_torch.models.transformer import loss_fn
+    from tpu_composer_torch.parallel.train import tree_leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    return torch.autograd.grad(loss_fn(live, tokens, cfg), tree_leaves(live))
+
+
+def phase_train_exact(seed: int) -> dict:
+    """fp32 flagship: flash attention (K1 with lse, B3, B4) against
+    reference attention through 3 train steps from the same params."""
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        make_train_state,
+        make_train_step,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    batches = [torch.randint(0, FLAGSHIP["vocab_size"], (4, 256),
+                             generator=gen, dtype=torch.int32).cuda()
+               for _ in range(3)]
+    runs = {}
+    for impl in ("flash", "reference"):
+        cfg = ModelConfig(dtype=torch.float32, attn_impl=impl, **FLAGSHIP)
+        tc = TrainConfig(model=cfg)
+        state = make_train_state(tc, seed, "cuda")
+        grads = _grads(state["params"], batches[0], cfg)
+        step = make_train_step(tc)
+        metrics = []
+        for toks in batches:
+            state, m = step(state, toks)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[impl] = (grads, metrics)
+    (g_f, m_f), (g_r, m_r) = runs["flash"], runs["reference"]
+    loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(m_f, m_r))
+    norm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                   for a, b in zip(m_f, m_r))
+    grad_err = max(max_err(a, b) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(g_f, g_r))
+    check(loss_err <= 1e-4, f"train_exact losses differ by {loss_err}")
+    check(norm_err <= 1e-3, f"train_exact grad norms differ by {norm_err}")
+    check(grad_err <= 1e-4, f"train_exact gradients differ by {grad_err}")
+    out = {"losses_flash": [m["loss"] for m in m_f],
+           "losses_reference": [m["loss"] for m in m_r],
+           "grad_norms_flash": [m["grad_norm"] for m in m_f],
+           "max_loss_err": loss_err, "max_grad_norm_rel_err": norm_err,
+           "max_grad_rel_err": grad_err}
+    emit("train_exact", tokens=[4, 256], steps=3, **out)
+    return out
+
+
+def phase_train(seed: int) -> dict:
+    """bf16 flagship through trainer.fit: 20 steps checkpointed every 10,
+    then a resumed fit to 24; step timing, a step that must make no host
+    sync, and the device's busy share."""
+    import tempfile
+
+    from tpu_composer_torch.data import PackedLMDataset, ShardedLoader
+    from tpu_composer_torch.examples.train_lm import zipf_documents
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.train import TrainConfig, make_train_step
+    from tpu_composer_torch.workload.trainer import fit
+
+    cfg = ModelConfig(dtype=torch.bfloat16, attn_impl="flash", **FLAGSHIP)
+    tc = TrainConfig(model=cfg)
+    seq, batch = 512, 8
+    docs = zipf_documents(seed, vocab=FLAGSHIP["vocab_size"])
+    dataset = PackedLMDataset(docs, seq_len=seq, seed=seed)
+    with tempfile.TemporaryDirectory() as cdir:
+        t0 = time.perf_counter()
+        first = fit(tc, dataset, total_steps=20, global_batch=batch,
+                    checkpoint_dir=cdir, checkpoint_every=10, log_every=10,
+                    seed=seed)
+        fit_s = time.perf_counter() - t0
+        second = fit(tc, dataset, total_steps=24, global_batch=batch,
+                     checkpoint_dir=cdir, checkpoint_every=10, log_every=2,
+                     seed=seed)
+    losses = {int(r["step"]): r["loss"] for r in first.history}
+    losses.update({int(r["step"]): r["loss"] for r in second.history})
+    check(second.resumed_from == 20,
+          f"train resumed from {second.resumed_from}, not 20")
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"train losses not finite: {losses}")
+    check(losses[20] < losses[10],
+          f"train loss did not fall: {losses[10]} -> {losses[20]}")
+
+    # Step time on the host clock, each step synchronised, from the
+    # resumed state on the loader's next batches.
+    state, step = second.state, make_train_step(tc)
+    loader = ShardedLoader(dataset, batch, device="cuda", prefetch=False)
+    loader.load_state_dict({"step": 24})
+    batches = iter(loader)
+    times = []
+    for _ in range(8):
+        toks = next(batches)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        state, _ = step(state, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - s0) * 1e3)
+    p50 = float(np.median(times[2:]))
+    toks = next(batches)
+    # A step only queues work: any op in it that makes the host wait for
+    # the card raises here.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = step(state, toks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    profile = _device_share(lambda: step(state, toks), n_steps=3)
+    out = {"losses": losses, "resumed_from": second.resumed_from,
+           "fit_20_steps_s": fit_s,
+           "steps_per_s_logged": [r["steps_per_s"] for r in first.history],
+           "step_ms_p50": p50, "step_ms": times, "host_syncs_in_step": 0,
+           "tokens_per_s": batch * seq / (p50 / 1e3), "profile": profile}
+    emit("train", seq=seq, global_batch=batch, **out)
+    return out
+
+
+def phase_qualify() -> dict:
+    from tpu_composer_torch.workload.acceptance import qualify_slice
+
+    res = qualify_slice()
+    emit("qualify", **res)
+    check(res["attn_impl"] == "flash", f"qualify ran {res['attn_impl']}")
+    check("attn_fallback" not in res, "qualify fell back")
+    check(np.isfinite(res["train_loss"]), "qualify loss not finite")
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -479,26 +815,51 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     card = phase_card()
     phase_build()
     flash = phase_flash(gen)
     paged = phase_paged(gen)
+    bwd = phase_flash_bwd(gen)
 
-    from tpu_composer_torch.ops.attention import flash_fwd_cuda
+    from tpu_composer_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
 
-    # The main path: every count starts at 0 here and is read after it.
-    flash_fwd_cuda.launches = 0
-    paged_decode_cuda.launches = 0
-    exact = phase_serve_exact(rng, args.seed)
+    def reset_counts():
+        flash_fwd_cuda.launches = flash_fwd_cuda.launches_lse = 0
+        paged_decode_cuda.launches = 0
+        flash_bwd_dq_cuda.launches = flash_bwd_dkv_cuda.launches = 0
+
+    # The serving path: every count starts at 0 here and is read after it.
+    reset_counts()
+    phase_serve_exact(rng, args.seed)
     serve = phase_serve(rng, args.seed)
     flash_launches = flash_fwd_cuda.launches
     paged_int8 = serve["int8"]["launches"]["paged_decode"]
     paged_fp = paged_decode_cuda.launches - paged_int8
     check(flash_launches > 0 and paged_fp > 0 and paged_int8 > 0,
-          "a kernel of the main path was never launched")
+          "a kernel of the serving path was never launched")
+
+    # The training path, counted the same way.
+    reset_counts()
+    phase_train_exact(args.seed)
+    phase_train(args.seed)
+    phase_qualify()
+    train_launches = _train_counts()
+    check(all(n > 0 for n in train_launches.values()),
+          f"a kernel of the training path was never launched:"
+          f" {train_launches}")
+    emit("timing", wall_s=time.perf_counter() - t_start)
+    emit("launches", serving={"flash_fwd": flash_launches,
+                              "paged_decode": paged_fp,
+                              "paged_decode_int8": paged_int8},
+         training=train_launches)
 
     def row(name, source, replaces, function, launches, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -511,8 +872,19 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("flash_fwd", "tpu_composer_torch/csrc/flash_fwd.cu",
             "tpu_composer/ops/attention.py:189",
-            "attention.py::_fwd_kernel_nolse (and ::_fwd_kernel, with lse)",
-            flash_launches, flash),
+            "attention.py::_fwd_kernel_nolse", flash_launches, flash),
+        row("flash_fwd_lse", "tpu_composer_torch/csrc/flash_fwd.cu",
+            "tpu_composer/ops/attention.py:83",
+            "attention.py::_fwd_kernel", train_launches["flash_fwd_lse"],
+            bwd["flash_fwd_lse"]),
+        row("flash_bwd_dq", "tpu_composer_torch/csrc/flash_bwd.cu",
+            "tpu_composer/ops/attention.py:285",
+            "attention.py::_dq_kernel", train_launches["flash_bwd_dq"],
+            bwd["flash_bwd_dq"]),
+        row("flash_bwd_dkv", "tpu_composer_torch/csrc/flash_bwd.cu",
+            "tpu_composer/ops/attention.py:324",
+            "attention.py::_dkv_kernel", train_launches["flash_bwd_dkv"],
+            bwd["flash_bwd_dkv"]),
         row("paged_decode", "tpu_composer_torch/csrc/paged_decode.cu",
             "tpu_composer/ops/paged_attention.py:49",
             "paged_attention.py::_kernel", paged_fp, paged["bf16"]),

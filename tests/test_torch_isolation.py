@@ -6,8 +6,9 @@
 - The port calls no finished attention kernel and no compiler
   (``scaled_dot_product_attention``, ``torch.compile``); ``chip_smoke.py``
   may time SDPA as a yardstick, the package may not.
-- The entry points that create tensors default to the card and raise
-  when there is none, unless the caller passes ``device="cpu"``.
+- The entry points that create tensors (serving and training) default
+  to the card and raise when there is none, unless the caller passes
+  ``device="cpu"``.
 - ``chip_smoke.py`` fails without a card, and alone in an empty
   directory.
 """
@@ -74,6 +75,14 @@ def test_cuda_sources_sit_beside_their_wrappers():
         assert "Replaces the Pallas kernels" in src
 
 
+def test_backward_source_holds_both_kernels():
+    src = (PORT / "csrc" / "flash_bwd.cu").read_text()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert f'extern "C" int {name}(' in src
+    assert "Replaces the Pallas kernels" in src
+    assert "atomicAdd" not in src  # one owner per output block
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -94,6 +103,44 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda **kw: params_from_jax(
             {"embed": np.zeros((16, 16), np.float32), "layers": [],
              "ln_f": np.ones(16, np.float32)}, c, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()  # the default is the card
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(device="cuda")
+        call(device="cpu")  # the CPU only when asked for
+
+
+def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
+    from tpu_composer_torch.convert import train_state_from_jax
+    from tpu_composer_torch.data import PackedLMDataset, ShardedLoader
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel import checkpoint
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        make_train_state,
+    )
+    from tpu_composer_torch.workload.acceptance import qualify_slice
+    from tpu_composer_torch.workload.trainer import fit
+
+    tc = TrainConfig(model=ModelConfig(
+        vocab_size=16, d_model=16, n_layers=1, n_heads=2, d_ff=16,
+        max_seq=8, dtype=torch.float32))
+    ds = PackedLMDataset([[1, 2, 3]] * 8, seq_len=8)
+    cpu_state = make_train_state(tc, 0, device="cpu")
+    checkpoint.save(str(tmp_path), cpu_state, step=1)
+    zeros = {"embed": np.zeros((16, 16), np.float32), "layers": [],
+             "ln_f": np.ones(16, np.float32)}
+    jax_state = {"params": zeros, "opt": ((np.int32(0), zeros, zeros),)}
+    calls = [
+        lambda **kw: make_train_state(tc, 0, **kw),
+        lambda **kw: fit(tc, ds, total_steps=1, global_batch=2, **kw),
+        lambda **kw: qualify_slice(batch=1, seq=8, model_config=tc.model,
+                                   steps=1, **kw),
+        lambda **kw: train_state_from_jax(jax_state, tc, **kw),
+        lambda **kw: ShardedLoader(ds, global_batch=2, **kw),
+        lambda **kw: checkpoint.restore(str(tmp_path), tc, **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

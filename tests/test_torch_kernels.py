@@ -7,7 +7,9 @@ so it runs where only the port is installed:
 
 Tolerances (absolute): fp32 1e-4 (other summation order); bf16 2e-2
 (bf16 outputs; K2 keeps P in fp32 where the gather path rounds it to
-bf16); lse 1e-4; int8 pools with fp32 queries 2e-4.
+bf16); lse 1e-4; int8 pools with fp32 queries 2e-4. The backward
+kernels B3/B4, relative to each gradient's own max|ref|: fp32 1e-4; bf16
+3e-2 (dS is rounded to bf16 before two products).
 """
 
 from __future__ import annotations
@@ -50,11 +52,13 @@ def test_flash_kernel_matches_plain(card, dtype, d):
         k = _rand(rng, (b, sk, kv, d), card, dtype)
         v = _rand(rng, (b, sk, kv, d), card, dtype)
         for with_lse in (False, True):
-            before = tattn.flash_fwd_cuda.launches
+            before = (tattn.flash_fwd_cuda.launches
+                      + tattn.flash_fwd_cuda.launches_lse)
             got, lse = tattn.flash_fwd_cuda(q, k, v, causal, with_lse)
             want, lse_w = tattn.flash_fwd_plain(q, k, v, causal, with_lse)
             torch.cuda.synchronize()
-            assert tattn.flash_fwd_cuda.launches == before + 1
+            assert (tattn.flash_fwd_cuda.launches
+                    + tattn.flash_fwd_cuda.launches_lse) == before + 1
             assert got.dtype == dtype and got.shape == q.shape
             torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                        atol=TOL[dtype])
@@ -63,19 +67,93 @@ def test_flash_kernel_matches_plain(card, dtype, d):
                 torch.testing.assert_close(lse, lse_w, rtol=0, atol=1e-4)
 
 
-def test_flash_entry_point_launches_on_cuda_and_refuses_grad(card):
+def test_flash_entry_point_launches_on_cuda_and_its_gradient_path(card):
+    """Without grad the entry point launches K1 without lse; with grad it
+    launches K1 with lse, and backward() launches B3 and B4 once each."""
     rng = np.random.default_rng(1)
     q = _rand(rng, (1, 64, 8, 64), card, torch.bfloat16)
     k = _rand(rng, (1, 64, 2, 64), card, torch.bfloat16)
     before = tattn.flash_fwd_cuda.launches
     tattn.flash_attention(q, k, k, causal=True)
     assert tattn.flash_fwd_cuda.launches == before + 1
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tattn.flash_attention(q.requires_grad_(), k, k)
+    counts = lambda: (tattn.flash_fwd_cuda.launches_lse,  # noqa: E731
+                      tattn.flash_bwd_dq_cuda.launches,
+                      tattn.flash_bwd_dkv_cuda.launches)
+    before = counts()
+    qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
+    out = tattn.flash_attention(qg, kg, kg, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == tuple(b + 1 for b in before)
+    assert qg.grad.shape == q.shape and kg.grad.shape == k.shape
+    assert torch.isfinite(qg.grad.float()).all()
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_fwd_cuda(q[..., :32].contiguous().detach(),
                              k[..., :32].contiguous(),
                              k[..., :32].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_kernels_match_plain(card, dtype, d):
+    rng = np.random.default_rng(3)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}[dtype]
+    for b, s, h, kv, causal, with_g_lse in ((1, 8, 8, 2, True, False),
+                                           (2, 100, 8, 2, False, True),
+                                           (2, 256, 8, 8, True, True),
+                                           (1, 130, 4, 1, True, False)):
+        q = _rand(rng, (b, s, h, d), card, dtype)
+        k = _rand(rng, (b, s, kv, d), card, dtype)
+        v = _rand(rng, (b, s, kv, d), card, dtype)
+        do = _rand(rng, (b, s, h, d), card, dtype)
+        g_lse = (_rand(rng, (b, h, s), card, torch.float32)
+                 if with_g_lse else None)
+        out, lse = tattn.flash_fwd_cuda(q, k, v, causal, with_lse=True)
+        before = (tattn.flash_bwd_dq_cuda.launches,
+                  tattn.flash_bwd_dkv_cuda.launches)
+        got = tattn.flash_bwd_cuda(q, k, v, out, lse, do, g_lse, causal)
+        torch.cuda.synchronize()
+        assert (tattn.flash_bwd_dq_cuda.launches,
+                tattn.flash_bwd_dkv_cuda.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        want = tattn.flash_bwd_plain(q, k, v, out, lse, do, g_lse, causal)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == dtype and a.shape == w.shape, name
+            scale = float(w.float().abs().max())
+            err = float((a.float() - w.float()).abs().max())
+            assert err <= tol * scale, (name, err, scale)
+
+
+def test_train_step_makes_no_host_sync(card):
+    """A train step only queues work: nothing in the forward, the flash
+    backward or AdamW makes the host wait for the card."""
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        make_train_state,
+        make_train_step,
+    )
+
+    cfg = ModelConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=512, max_seq=64,
+                      dtype=torch.bfloat16, attn_impl="flash")
+    tc = TrainConfig(model=cfg)
+    state, step = make_train_state(tc, 0, card), make_train_step(tc)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (2, 64), dtype=np.int32)).to(card)
+    step(state, tokens)  # first call builds the kernels
+    torch.cuda.synchronize()
+    counts = (tattn.flash_bwd_dq_cuda.launches,
+              tattn.flash_bwd_dkv_cuda.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, tokens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (tattn.flash_bwd_dq_cuda.launches,
+            tattn.flash_bwd_dkv_cuda.launches) == (counts[0] + 2,
+                                                   counts[1] + 2)
+    assert bool(torch.isfinite(metrics["loss"]))
 
 
 @pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])

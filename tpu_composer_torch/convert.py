@@ -1,10 +1,15 @@
-"""JAX params (as numpy) -> the port's param tree.
+"""JAX params and train states (as numpy) -> the port's trees.
 
 ``params_from_jax`` takes the JAX package's param pytree with every leaf
 already a numpy array (dicts, lists, and ``(q, scale)`` pairs for int8
 ``QTensor`` leaves) and returns the same tree as torch tensors on
 ``device``. Float leaves are cast to ``config.dtype`` except the norms
 (``ln*``) and quantization scales, which the JAX package keeps in fp32.
+
+``train_state_from_jax`` carries a whole JAX train state across: its
+params, and its optax AdamW state ``(ScaleByAdamState(count, mu, nu),
+EmptyState(), EmptyState())`` as the port's ``{"count", "mu", "nu"}``,
+so k JAX steps can be continued by the port's step k+1.
 
 numpy has no bfloat16: a JAX bf16 array arrives as an ``ml_dtypes``
 array that ``torch.from_numpy`` rejects, so callers upcast it to float32
@@ -42,4 +47,20 @@ def params_from_jax(params_np: Any, config, device: DeviceLike = "cuda"):
         "layers": [{name: leaf(name, w) for name, w in layer.items()}
                    for layer in params_np["layers"]],
         "ln_f": leaf("ln_f", params_np["ln_f"]),
+    }
+
+
+def train_state_from_jax(state_np: Any, tc, device: DeviceLike = "cuda"):
+    """``{"params", "opt"}`` of the JAX package's train step (leaves as
+    numpy) -> the port's train state for ``tc`` (a ``TrainConfig``) on
+    ``device``. ``mu`` and ``nu`` take their params' dtypes, as optax
+    keeps them."""
+    dev = resolve_device(device)
+    count, mu, nu = state_np["opt"][0]  # ScaleByAdamState
+    return {
+        "params": params_from_jax(state_np["params"], tc.model, dev),
+        "opt": {"count": torch.tensor(int(np.asarray(count)),
+                                      dtype=torch.int32, device=dev),
+                "mu": params_from_jax(mu, tc.model, dev),
+                "nu": params_from_jax(nu, tc.model, dev)},
     }

@@ -1,12 +1,12 @@
 """Flagship model: a decoder-only transformer LM on plain tensor trees
-(port of ``tpu_composer/models/transformer.py``, forward half).
+(port of ``tpu_composer/models/transformer.py``).
 
 Params are a dict/list tree with the JAX package's keys and layouts:
 ``{embed (V, D), layers: [{ln1, wo (H, hd, D), ln2, w_gate, w_up, w_down,
 wqkv (D, 3, H, hd) | wq (D, H, hd) + wkv (D, 2, KV, hd)}], ln_f}``.
 RMSNorm and RoPE run in fp32; the tied output head keeps fp32
 accumulation as its output dtype. ``attn_impl="flash"`` routes attention
-through the flash kernel (``ops/attention.py``).
+through the flash kernels (``ops/attention.py``), forward and backward.
 """
 
 from __future__ import annotations
@@ -85,6 +85,31 @@ def init_params(config: ModelConfig, seed: int = 0,
             layer["wkv"] = dense(c.d_model, 2, c.kv_heads, c.head_dim)
         layers.append(layer)
     return {"embed": embed, "layers": layers, "ln_f": ones()}
+
+
+def param_specs(config: ModelConfig) -> Dict:
+    """The JAX package's sharding layout as plain data: per leaf a tuple
+    of mesh-axis names or ``None`` per array dim (``()`` = replicated).
+    'tp' shards heads and the ffn width; nothing reads it before the
+    multi-device slice."""
+    layer = {
+        "ln1": (),
+        "wo": ("tp", None, None),
+        "ln2": (),
+        "w_gate": (None, "tp"),
+        "w_up": (None, "tp"),
+        "w_down": ("tp", None),
+    }
+    if config.kv_heads == config.n_heads:
+        layer["wqkv"] = (None, None, "tp", None)
+    else:
+        layer["wq"] = (None, "tp", None)
+        layer["wkv"] = (None, None, "tp", None)
+    return {
+        "embed": ("tp", None),
+        "layers": [dict(layer) for _ in range(config.n_layers)],
+        "ln_f": (),
+    }
 
 
 def project_qkv(layer: Dict, h: torch.Tensor):
@@ -183,3 +208,14 @@ def forward(params: Dict, tokens: torch.Tensor, config: ModelConfig,
         x = block_forward(layer, x, positions, c, attn)
     x = _rmsnorm(x, params["ln_f"])
     return _tied_logits(x, params["embed"], c.dtype)
+
+
+def loss_fn(params: Dict, tokens: torch.Tensor, config: ModelConfig,
+            attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+    """Next-token cross-entropy on fp32 logits, the mean over B·(S−1)
+    positions."""
+    logits = forward(params, tokens, config, attn_fn)[:, :-1]
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (logz - gold).mean()

@@ -1,7 +1,7 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exports a plain C interface and compiles, on its
-own, into ``build/lib<name>-<hash>.so``; the hash covers the source and
+Each ``csrc/<name>.cu`` exports a plain C interface (one or more entry
+points) and compiles, on its own, into ``build/lib<name>-<hash>.so``; the hash covers the source and
 the flags, so an edited source rebuilds and an unchanged one loads
 straight from the build directory. Nothing is compiled when a module is
 imported: a kernel's wrapper calls :func:`load` when it launches (only
@@ -20,14 +20,16 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
+# --split-compile=0 lets nvcc optimize a source's kernels in parallel,
+# one thread per CPU.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0",
 ]
 
 _lock = threading.Lock()
@@ -95,16 +97,18 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str, argtypes: Sequence) -> Callable:
-    """The C entry point ``name`` of ``csrc/<name>.cu``, bound with
-    ``argtypes`` and returning its ``cudaError_t`` as an int; builds the
-    library first if needed."""
+def load(name: str, argtypes: Sequence, symbol: Optional[str] = None
+         ) -> Callable:
+    """The C entry point ``symbol`` (default ``name``) of
+    ``csrc/<name>.cu``, bound with ``argtypes`` and returning its
+    ``cudaError_t`` as an int; builds the library first if needed."""
+    symbol = symbol or name
     with _lock:
-        fn = _loaded.get(name)
+        fn = _loaded.get(symbol)
         if fn is None:
             build([name])
-            fn = getattr(ctypes.CDLL(str(library_path(name))), name)
+            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
+            _loaded[symbol] = fn
         return fn

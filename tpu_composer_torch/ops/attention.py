@@ -1,20 +1,25 @@
-"""Multi-head attention: reference einsum path and flash attention
-(forward) through the hand-written Hopper kernel ``csrc/flash_fwd.cu``.
+"""Multi-head attention: reference einsum path and flash attention,
+forward and backward, through the hand-written Hopper kernels
+``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (B3 dQ, B4 dK/dV).
 
-Port of ``tpu_composer/ops/attention.py``, forward half. Shapes keep the
-JAX package's layout: q (B, S, H, D), k/v (B, S, KV, D) with KV dividing
-H; grouped K/V heads are fanned in by the kernel, never repeated in
-memory. The flash entry points validate block sizes exactly as the JAX
-ones do (same inputs, same ``ValueError``), then
+Port of ``tpu_composer/ops/attention.py``. Shapes keep the JAX package's
+layout: q (B, S, H, D), k/v (B, S, KV, D) with KV dividing H; grouped
+K/V heads are fanned in by the kernels, never repeated in memory. The
+flash entry points validate block sizes exactly as the JAX ones do (same
+inputs, same ``ValueError``), then
 
-- on CPU tensors run :func:`flash_fwd_plain`, the kernel's arithmetic in
-  plain PyTorch;
-- on CUDA tensors launch the kernel through :func:`flash_fwd_cuda`, or
-  raise. There is no fallback from one to the other.
+- without a gradient to record: on CPU tensors run
+  :func:`flash_fwd_plain`, the kernel's arithmetic in plain PyTorch; on
+  CUDA tensors launch K1 through :func:`flash_fwd_cuda`, or raise;
+- when autograd records (an input requires grad): go through
+  :class:`FlashAttention`, the counterpart of JAX's ``_flash_core`` and
+  ``_flash_core_lse`` custom VJPs. Its forward is K1 with lse; its
+  backward computes δ in PyTorch and then launches B3 and B4
+  (:func:`flash_bwd_cuda`). On CPU tensors the same Function runs
+  :func:`flash_fwd_plain` and :func:`flash_bwd_plain`, so the CPU tests
+  exercise the custom backward that runs on the card.
 
-The backward kernels (dQ, dK/dV) belong to the training slice: on CUDA
-tensors that require grad the entry points raise ``NotImplementedError``
-rather than return a result with no gradient path.
+There is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -98,7 +103,9 @@ def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False
     """Launch kernel K1 (``csrc/flash_fwd.cu``) on contiguous CUDA
     tensors q (B, Sq, H, D), k/v (B, Sk, KV, D) of one dtype (fp32 or
     bf16), D in {64, 128}. Returns (out (B, Sq, H, D), lse (B, H, Sq) fp32
-    or None). ``flash_fwd_cuda.launches`` counts launches."""
+    or None). ``flash_fwd_cuda.launches`` counts launches without lse (the
+    serving prefill), ``flash_fwd_cuda.launches_lse`` those with it (the
+    training forward)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
@@ -131,11 +138,181 @@ def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False
         )
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
-    flash_fwd_cuda.launches += 1
+    if with_lse:
+        flash_fwd_cuda.launches_lse += 1
+    else:
+        flash_fwd_cuda.launches += 1
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.launches_lse = 0
+
+
+def flash_bwd_plain(q, k, v, out, lse, do, g_lse=None, causal: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' arithmetic in one pass, returning (dq, dk,
+    dv) in the dtypes of q, k, v. P = exp(S·scale − lse) in fp32 with the
+    −1e30 causal fill; dP = dO·Vᵀ; δ = rowsum(dO∘O) in fp32, minus
+    ``g_lse`` (the lse cotangent, (B, H, Sq)) when given; dS = P∘(dP − δ)
+    cast to the input dtype before dS·K and dSᵀ·Q; P cast to dO's dtype
+    before Pᵀ·dO; dq and dk × 1/√D at the end, dv unscaled. dk and dv are
+    summed over each GQA group, at KV-head width."""
+    b, sk, kvh, d = k.shape
+    group = q.shape[2] // kvh
+    kr, vr = repeat_kv(q, k, v)
+    scale = 1.0 / d ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    if causal:
+        sq = s.shape[-2]
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(qi >= ki, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr.float())
+    delta = _delta(out, do, g_lse)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = dk.reshape(b, sk, kvh, group, d).sum(3)
+    dv = dv.reshape(b, sk, kvh, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, do, g_lse=None):
+    """δ = rowsum(dO∘O) in fp32 as (B, H, Sq), minus the lse cotangent when
+    lse is differentiated: dL/dlse enters dS as +P·g_lse, so the kernels'
+    dS = P∘(dP − δ) absorbs it as δ − g_lse (attention.py:380-384)."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+# q, k, v, dout, lse, delta, out0 (dq | dk), [out1 (dv)];
+# B, Sq, Sk, H, KV, D, causal, dtype; stream.
+_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    """The backward kernels' input contract; raises on what they do not
+    take."""
+    for name, t, shape in (("q", q, q.shape), ("do", do, q.shape),
+                           ("k", k, k.shape), ("v", v, k.shape)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernels take fp32 or bf16, got {q.dtype}")
+    b, sq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)}")
+    if d not in (64, 128):
+        raise ValueError(f"flash kernels support head_dim 64 or 128, got {d}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(
+                f"{name} must be contiguous fp32 (B, H, Sq) on {q.device}")
+
+
+def _dims(q, k, causal):
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    return (b, sq, sk, h, kv, d, int(causal), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = False):
+    """Launch kernel B3 (``csrc/flash_bwd.cu``, dQ): q/do (B, Sq, H, D),
+    k/v (B, Sk, KV, D), lse and δ (B, H, Sq) fp32, all contiguous on one
+    card. Returns dq like q. ``flash_bwd_dq_cuda.launches`` counts
+    launches."""
+    _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    fn = _build.load("flash_bwd", _DQ_ARGTYPES, symbol="flash_bwd_dq")
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                *_dims(q, k, causal))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {rc}")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False):
+    """Launch kernel B4 (``csrc/flash_bwd.cu``, dK/dV) on the inputs of
+    :func:`flash_bwd_dq_cuda`. Returns (dk, dv) like k and v, summed over
+    each GQA group. ``flash_bwd_dkv_cuda.launches`` counts launches."""
+    _check_bwd(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.load("flash_bwd", _DKV_ARGTYPES, symbol="flash_bwd_dkv")
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *_dims(q, k, causal))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {rc}")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_bwd_cuda(q, k, v, out, lse, do, g_lse=None, causal: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward on the card: δ in PyTorch (as JAX computes it in
+    XLA outside Pallas), then B3 and B4. Same arguments and results as
+    :func:`flash_bwd_plain`."""
+    do = do.to(q.dtype).contiguous()
+    delta = _delta(out, do, g_lse)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward, returning (out, lse) with
+    both outputs differentiable: the counterpart of JAX's ``_flash_core``
+    and ``_flash_core_lse`` custom VJPs (``_flash_core`` differs only in
+    its primal, which here is the no-grad path of :func:`_flash`).
+    Forward: K1 with lse, saving q, k, v, out, lse. Backward: δ in
+    PyTorch, then B3 and B4. A cotangent that does not reach the loss
+    arrives as ``None``: a missing lse cotangent leaves δ as it is, a
+    missing output cotangent is zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.set_materialize_grads(False)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.is_cuda:
+            out, lse = flash_fwd_cuda(q, k, v, causal, with_lse=True)
+        else:
+            out, lse = flash_fwd_plain(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:  # only lse reaches the loss
+            g_out = torch.zeros_like(out)
+        bwd = flash_bwd_cuda if q.is_cuda else flash_bwd_plain
+        return (*bwd(q, k, v, out, lse, g_out, g_lse, ctx.causal), None)
 
 
 def _fit_block(explicit: Optional[int], s: int, default: int) -> int:
@@ -176,13 +353,10 @@ def _flash_prep(q, k, block_q, block_k) -> None:
 
 def _flash(q, k, v, causal, block_q, block_k, with_lse):
     _flash_prep(q, k, block_q, block_k)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
     if not q.is_cuda:
         return flash_fwd_plain(q, k, v, causal, with_lse)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention on CUDA is forward-only: the dQ/dKV kernels"
-            " come with the training slice"
-        )
     return flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                           causal, with_lse)
 
@@ -190,8 +364,8 @@ def _flash(q, k, v, causal, block_q, block_k, with_lse):
 def flash_attention(q, k, v, causal: bool = False,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None):
-    """FlashAttention forward. q (B, S, H, D), k/v (B, S, KV, D) ->
-    (B, S, H, D), KV any divisor of H."""
+    """FlashAttention, differentiable through the flash backward. q (B, S,
+    H, D), k/v (B, S, KV, D) -> (B, S, H, D), KV any divisor of H."""
     return _flash(q, k, v, causal, block_q, block_k, with_lse=False)[0]
 
 
@@ -199,5 +373,5 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
                              block_q: Optional[int] = None,
                              block_k: Optional[int] = None):
     """flash_attention that also returns the per-row logsumexp (B, H, S)
-    fp32."""
+    fp32, differentiable through both outputs."""
     return _flash(q, k, v, causal, block_q, block_k, with_lse=True)
