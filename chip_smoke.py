@@ -15,8 +15,10 @@ nonzero. Phases, in order:
 2. ``build``: nvcc seconds per kernel source (all three compile at once)
    and ptxas's register / shared-memory report.
 3. ``flash_fwd``: kernel K1 against its plain version over B in {1, 2},
-   S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 and fp32,
-   with and without lse; times at the serving prefill shape.
+   S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 (at both
+   CTA heights, 16 and 64 rows) and fp32, with and without lse; times at
+   the serving prefill shape, with the CTA height ``_fwd_rows`` picks
+   there and both heights.
 4. ``paged_decode``: kernel K2 against the gather path at the engine's
    decode shape (B=8, H=8, KV=2, Dh=64, Bs=16, MB=32), lengths in
    1..512 plus a 0-length row and stale table slots; fp32, bf16, int8.
@@ -24,9 +26,12 @@ nonzero. Phases, in order:
    ``flash_bwd_plain`` over B in {1, 2}, S in {8, 64, 256, 512} at D=64
    and S=100 at D=128, H=8 over KV in {2, 8}, causal or not, fp32 and
    bf16, with and without an lse cotangent, each case checked on its
-   own; then K1 with lse, B3 and B4 against their plain versions on the
-   path's own inputs: the training shape (8, 512, 8, 2, 64, bf16, causal)
-   and ``qualify_slice``'s MHA shape (8, 512, 8, 8, 64); times at the
+   own, bf16 GQA cases with B4's group split across CTAs and not; then K1
+   with lse, B3 and B4 against their plain versions on the path's own
+   inputs: the training shape (8, 512, 8, 2, 64, bf16, causal) and
+   ``qualify_slice``'s MHA shape (8, 512, 8, 8, 64); B4 launched twice
+   on the training-shape inputs must give the same bits; the geometry
+   chosen (CTA height, group split, CTA counts) and times at the
    training shape.
 6. ``serve_exact``: the flagship at full width in fp32, prefill through
    K1 and decode through K2: every request's tokens equal the port's
@@ -46,9 +51,17 @@ nonzero. Phases, in order:
 10. ``qualify``: ``qualify_slice()`` at its defaults.
 11. ``timing`` (the whole run's seconds, builds included) and
     ``launches`` (per path); then the kernels line ``{"kernels": [...]}``:
-    per kernel its launches on its main path (serving: phases 6-7; training: phases 8-10), max
-    error, kernel / plain / library ms and the bound.
+    per kernel its launches on its main path (serving: phases 6-7;
+    training: phases 8-10), max error, kernel / plain / library ms
+    (device time), the kernel's issue ms, and the bound.
 12. the last line: ``{"ok": true, "device": {...}}``.
+
+Times (``timed``): ``ms`` is device time, the calls queued behind a
+spin kernel that outlasts the host's issue of all of them, so the CUDA
+events bracket back-to-back device work; ``issue_ms`` is the same calls
+bracketed as the host issues them, which is the host's pace once a call
+takes less device time than its validation, allocation and ctypes call.
+Every kernel, plain and library time is printed in both measures.
 
 Tolerances (absolute unless said): K1 fp32 1e-4, bf16 2e-2, lse 1e-4.
 K2 fp32 1e-4; bf16 2e-2 (the kernel keeps P in fp32, the gather path
@@ -99,20 +112,72 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls
-    (CUDA events; inputs stay warm in L2 between calls)."""
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per device millisecond."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(2_000_000)
+    b.record()
+    b.synchronize()
+    return 2_000_000 / a.elapsed_time(b)
+
+
+def timed(fn, iters: int = 50, warmup: int = 5) -> tuple:
+    """(device ms, issue ms) per call of ``fn`` over ``iters`` back-to-back
+    calls, CUDA events around them, inputs warm in L2.
+
+    issue ms: the events bracket the calls as the host issues them, so a
+    call that takes less device time than the host's work to issue it
+    (validation, allocation, ctypes) is timed at the host's pace.
+    device ms: the same calls queued behind a spin kernel
+    (``torch.cuda._sleep``) that outlasts the host's issue of all of them
+    by a margin, the start event recorded after the spin, so the events
+    bracket back-to-back device work. The start event must still be
+    pending when the last call is queued (the queue was full when the
+    device reached it); if not, the spin doubles and the run repeats.
+    The host blocks once about a thousand launches wait on the stream, so
+    ``iters`` times the launches of one call stays well under that."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    issue_ms = start.elapsed_time(end) / iters
+    spin_ms, cycles_per_ms = 2 * host_ms + 1.0, _spin_cycles_per_ms()
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        filled = not start.query()
+        end.synchronize()
+        if filled:
+            return start.elapsed_time(end) / iters, issue_ms
+        spin_ms *= 2
+    raise RuntimeError("the host never got ahead of the device")
+
+
+def timings(kernel, plain, library=None) -> dict:
+    """Both measures of :func:`timed` for a kernel (one or two launches a
+    call), its plain version (tens of launches a call) and, where there is
+    one, its library yardstick (up to about ten)."""
+    t = {}
+    t["ms"], t["issue_ms"] = timed(kernel)
+    t["plain_ms"], t["plain_issue_ms"] = timed(plain, iters=10)
+    t["library_ms"], t["library_issue_ms"] = (
+        timed(library, iters=20) if library is not None else (None, None))
+    return t
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
@@ -189,6 +254,7 @@ def _attn_bounds(shape, dtype, causal: bool = True) -> dict:
 
 def phase_flash(gen: torch.Generator) -> dict:
     from tpu_composer_torch.ops.attention import (
+        _fwd_rows,
         flash_fwd_cuda,
         flash_fwd_plain,
     )
@@ -196,26 +262,29 @@ def phase_flash(gen: torch.Generator) -> dict:
     h, kv, d = 8, 2, 64
     errs = {}
     # The flagship's head_dim 64 at every shape, and the kernel's other
-    # head_dim, 128, at one ragged length.
+    # head_dim, 128, at one ragged length; bf16 at both CTA heights.
     shapes = [(b, s, d) for b in (1, 2) for s in (8, 64, 256, 512)]
     shapes.append((1, 100, 128))
     for dtype in (torch.float32, torch.bfloat16):
         worst = worst_lse = worst_with_lse = 0.0
+        geometries = (16, 64) if dtype == torch.bfloat16 else (None,)
         for b, s, dd in shapes:
             q = torch.randn(b, s, h, dd, generator=gen).to("cuda", dtype)
             k = torch.randn(b, s, kv, dd, generator=gen).to("cuda", dtype)
             v = torch.randn(b, s, kv, dd, generator=gen).to("cuda", dtype)
             for causal in (False, True):
                 for with_lse in (False, True):
-                    got, lse = flash_fwd_cuda(q, k, v, causal, with_lse)
                     want, lse_w = flash_fwd_plain(q, k, v, causal,
                                                   with_lse)
-                    torch.cuda.synchronize()
-                    err = max_err(got, want)
-                    worst = max(worst, err)
-                    if with_lse:
-                        worst_with_lse = max(worst_with_lse, err)
-                        worst_lse = max(worst_lse, max_err(lse, lse_w))
+                    for rows in geometries:
+                        got, lse = flash_fwd_cuda(q, k, v, causal, with_lse,
+                                                  rows=rows)
+                        torch.cuda.synchronize()
+                        err = max_err(got, want)
+                        worst = max(worst, err)
+                        if with_lse:
+                            worst_with_lse = max(worst_with_lse, err)
+                            worst_lse = max(worst_lse, max_err(lse, lse_w))
         name = str(dtype).replace("torch.", "")
         errs[name] = {"out": worst, "lse": worst_lse,
                       "out_with_lse": worst_with_lse}
@@ -229,14 +298,20 @@ def phase_flash(gen: torch.Generator) -> dict:
     v = torch.randn(b, s, kv, d, generator=gen).to("cuda", dtype)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = _fwd_rows(b, h, s)
     timing = {
         "shape": [b, s, h, kv, d], "dtype": "bfloat16", "causal": True,
-        "ms": cuda_ms(lambda: flash_fwd_cuda(q, k, v, True)),
-        "plain_ms": cuda_ms(lambda: flash_fwd_plain(q, k, v, True)),
-        "library_ms": cuda_ms(
-            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "rows": rows, "ctas": b * h * -(-s // rows),
+        **timings(lambda: flash_fwd_cuda(q, k, v, True),
+                  lambda: flash_fwd_plain(q, k, v, True),
+                  lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
     }
-    bound =_attn_bounds((b, s, h, kv, d), dtype)["flash_fwd"]
+    # Both CTA heights at this shape, device time and issue time.
+    timing["by_rows"] = {
+        str(r): dict(zip(("ms", "issue_ms"), timed(
+            lambda r=r: flash_fwd_cuda(q, k, v, True, rows=r))))
+        for r in (16, 64)}
+    bound = _attn_bounds((b, s, h, kv, d), dtype)["flash_fwd"]
     timing["bound_ms"], timing["bound_by"] = bound["bound_ms"], \
         bound["bound_by"]
     timing["max_abs_err"] = errs["bfloat16"]["out"]
@@ -316,10 +391,9 @@ def phase_paged(gen: torch.Generator) -> dict:
         errs[name] = worst
         check(worst <= TOL[dtype], f"paged_decode {name} error {worst}")
         if name in ("bf16", "int8_q_bf16"):
-            t = {"ms": cuda_ms(lambda: paged_decode_cuda(*args)),
-                 "plain_ms": cuda_ms(lambda: paged_decode_plain(*args)),
-                 "library_ms": None, "max_abs_err": worst,
-                 "lengths": args[4].tolist()}
+            t = {**timings(lambda: paged_decode_cuda(*args),
+                           lambda: paged_decode_plain(*args)),
+                 "max_abs_err": worst, "lengths": args[4].tolist()}
             t["bound_ms"], t["bound_by"] = _paged_bound(args)
             timing[name] = t
     emit("paged_decode", errors=errs,
@@ -348,6 +422,8 @@ def _bwd_errors(got, want, dtype, case: str, worst: dict) -> None:
 def phase_flash_bwd(gen: torch.Generator) -> dict:
     from tpu_composer_torch.ops.attention import (
         _delta,
+        _dkv_split,
+        _fwd_rows,
         flash_bwd_cuda,
         flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda,
@@ -378,6 +454,15 @@ def phase_flash_bwd(gen: torch.Generator) -> dict:
                         case = (f"B{b} S{s} D{d} KV{kv} causal={causal}"
                                 f" g_lse={with_g}")
                         _bwd_errors(got, want, dtype, case, worst)
+                        if dtype == torch.bfloat16 and kv < h:
+                            # B4 with its GQA group in one CTA too (the
+                            # default splits it at these sizes).
+                            delta = _delta(out, do, g_lse)
+                            one = flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                     causal, split=1)
+                            torch.cuda.synchronize()
+                            _bwd_errors((got[0], *one), want, dtype,
+                                        case + " split=1", worst)
         errs[str(dtype).replace("torch.", "")] = worst
 
     # The path's own inputs: the train step's GQA shape and qualify_slice's
@@ -401,42 +486,53 @@ def phase_flash_bwd(gen: torch.Generator) -> dict:
                        **worst}
     errs["bfloat16_path"] = path
 
+    # B4 twice on the training-shape inputs: the same bits (the split
+    # partials are summed in a fixed order, no atomics).
+    delta = _delta(out, do)
+    b, s, h, kv, d = shape
+    split = _dkv_split(b, kv, h // kv, s)
+    twice = [flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+              for x, y in zip(*twice)),
+          "flash_bwd_dkv: two launches on the same inputs differ")
+
     # Times at the training shape, on the inputs left by the loop above.
     # The library yardsticks, timed only: SDPA's forward, and SDPA's
     # backward on one recorded forward.
-    delta = _delta(out, do)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        sdpa_f = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                      enable_gqa=True))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
     recorded = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    sdpa_b = cuda_ms(lambda: torch.autograd.grad(
-        recorded, (qt, kt, vt), dot, retain_graph=True))
-    bounds = _attn_bounds(shape, dtype)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(recorded, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    # The plain backward computes dq, dk and dv (and δ) in one pass, and
+    # SDPA's backward all three: both kernel rows carry their times.
+    def plain_bwd():
+        return flash_bwd_plain(q, k, v, out, lse, do, None, True)
+
     timing = {
-        "flash_fwd_lse": {
-            "ms": cuda_ms(lambda: flash_fwd_cuda(q, k, v, True, True)),
-            "plain_ms": cuda_ms(lambda: flash_fwd_plain(q, k, v, True,
-                                                        True), iters=10),
-            "library_ms": sdpa_f},
-        "flash_bwd_dq": {
-            "ms": cuda_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                    True)),
-            "library_ms": sdpa_b},
-        "flash_bwd_dkv": {
-            "ms": cuda_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                     True)),
-            "library_ms": sdpa_b},
+        "flash_fwd_lse": timings(
+            lambda: flash_fwd_cuda(q, k, v, True, True),
+            lambda: flash_fwd_plain(q, k, v, True, True), sdpa_fwd),
+        "flash_bwd_dq": timings(
+            lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
+            plain_bwd, sdpa_bwd),
+        "flash_bwd_dkv": timings(
+            lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True),
+            plain_bwd, sdpa_bwd),
     }
-    # The plain backward computes dq, dk and dv (and δ) in one pass; both
-    # kernel rows carry its time.
-    plain_bwd = cuda_ms(lambda: flash_bwd_plain(q, k, v, out, lse, do, None,
-                                                True), iters=10)
-    timing["flash_bwd_dq"]["plain_ms"] = plain_bwd
-    timing["flash_bwd_dkv"]["plain_ms"] = plain_bwd
+    bounds = _attn_bounds(shape, dtype)
     for name in timing:
         timing[name].update(bounds[name])
     # The kernels rows carry the errors on the path's own inputs.
@@ -445,12 +541,16 @@ def phase_flash_bwd(gen: torch.Generator) -> dict:
     timing["flash_bwd_dq"]["max_abs_err"] = max(r["dq"]["abs"] for r in runs)
     timing["flash_bwd_dkv"]["max_abs_err"] = max(
         r[g]["abs"] for r in runs for g in ("dk", "dv"))
-    b, s, h, kv, d = shape
+    rows = _fwd_rows(b, h, s)
     emit("flash_bwd", errors=errs, tol={"fp32": 1e-4, "bf16": 3e-2,
                                         "relative_to": "max|ref| per gradient",
                                         "flash_fwd_lse": [TOL[dtype], LSE_TOL]},
          shape=list(shape), dtype="bfloat16", causal=True,
-         b4_ctas=b * kv * -(-s // 64), timing=timing)
+         geometry={"flash_fwd_rows": rows,
+                   "flash_fwd_ctas": b * h * -(-s // rows),
+                   "flash_bwd_dkv_split": split,
+                   "flash_bwd_dkv_ctas": b * kv * -(-s // 64) * split},
+         dkv_bitwise_repeatable=True, timing=timing)
     return timing
 
 
@@ -552,12 +652,17 @@ def _device_share(step, n_steps: int = 8) -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    ours = [e for e in events if any(
+        n in e.key for n in ("flash_fwd", "flash_bwd", "dkv_reduce",
+                             "paged_decode"))]
     return {"steps": n_steps, "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us if busy else None,
             "kernel_launches": sum(e.count for e in events),
             "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3,
-                             e.count] for e in top]}
+                             e.count] for e in top],
+            "port_kernels": [[e.key[:60], e.self_device_time_total / 1e3,
+                              e.count] for e in ours]}
 
 
 def phase_serve(rng: np.random.Generator, seed: int) -> dict:
@@ -865,7 +970,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "function": function,
                 "launches": launches, "max_abs_err": t["max_abs_err"],
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "ms": t["ms"], "issue_ms": t["issue_ms"],
+                "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]}
 

@@ -129,6 +129,27 @@ def test_plain_flash_matches_reference_in_fp32():
         np.testing.assert_allclose(n(got), n(want), atol=FP32_ATOL)
 
 
+@pytest.mark.parametrize("b,h,sq,rows", [
+    (1, 8, 256, 16),    # the serving prefill: 128 CTAs of 16 rows
+    (1, 8, 512, 16),
+    (2, 8, 512, 16),    # 64-row CTAs would give 128 < 132
+    (4, 8, 512, 64),
+    (8, 8, 512, 64),    # the training shape: 512 CTAs of 64 rows
+    (1, 8, 8, 16),
+])
+def test_fwd_rows_fills_the_card(b, h, sq, rows):
+    """K1's CTA height: 64 rows when that grid has a CTA for every one of
+    the card's 132 SMs, else 16, which at the prefill shape gives at least
+    128 CTAs."""
+    assert tattn._fwd_rows(b, h, sq) == rows
+    ctas = b * h * -(-sq // rows)
+    assert ctas >= 132 if rows == 64 else b * h * -(-sq // 64) < 132
+    if (b, h, sq) == (1, 8, 256):
+        assert ctas >= 128
+    if (b, h, sq) == (8, 8, 512):
+        assert ctas == 512
+
+
 def test_cuda_wrapper_never_runs_on_cpu_tensors():
     """The kernel wrapper raises on CPU tensors instead of falling back."""
     q, k, v = _qkv(9, 1, 8, 2, 2, 64)

@@ -155,6 +155,23 @@ def test_grad_path_runs_through_the_flash_function():
         assert tattn.flash_attention(*qkv).grad_fn is None
 
 
+@pytest.mark.parametrize("b,kv,g,sk,split", [
+    (8, 2, 4, 512, 4),   # the training shape: 16 · 8 = 128 CTAs unsplit
+    (8, 8, 1, 512, 1),   # qualify_slice's MHA: nothing to split
+    (1, 2, 4, 100, 4),
+    (32, 2, 4, 512, 2),  # 512 CTAs unsplit: half the group suffices
+    (64, 2, 4, 512, 1),  # 1,024 CTAs unsplit
+    (8, 1, 6, 512, 6),   # the whole group when no divisor fills the card
+])
+def test_dkv_split_fills_the_card(b, kv, g, sk, split):
+    """B4's group split: the smallest divisor of the GQA group that gives
+    four CTAs for each of the 132 SMs, else the whole group; 1 for MHA."""
+    assert tattn._dkv_split(b, kv, g, sk) == split
+    assert g % split == 0
+    if (b, kv, g, sk) == (8, 2, 4, 512):
+        assert b * kv * -(-sk // 64) * split == 512
+
+
 def test_backward_wrappers_never_run_on_cpu_tensors():
     q, k, v, do = (t(x) for x in _inputs(8, 1, 8, 2, 2, 64))
     out, lse = tattn.flash_fwd_plain(q, k, v, with_lse=True)

@@ -9,7 +9,8 @@ Tolerances (absolute): fp32 1e-4 (other summation order); bf16 2e-2
 (bf16 outputs; K2 keeps P in fp32 where the gather path rounds it to
 bf16); lse 1e-4; int8 pools with fp32 queries 2e-4. The backward
 kernels B3/B4, relative to each gradient's own max|ref|: fp32 1e-4; bf16
-3e-2 (dS is rounded to bf16 before two products).
+3e-2 (dS is rounded to bf16 before two products). B4 in bf16 is also
+held to the same bits on two launches.
 """
 
 from __future__ import annotations
@@ -65,6 +66,81 @@ def test_flash_kernel_matches_plain(card, dtype, d):
             if with_lse:
                 assert lse.shape == (b, h, sq)
                 torch.testing.assert_close(lse, lse_w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [16, 64])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_geometries_match_plain(card, d, rows):
+    """K1's tensor-core kernel at both CTA heights, whatever _fwd_rows
+    would pick, over ragged and whole-tile lengths."""
+    rng = np.random.default_rng(5)
+    for s in (8, 100, 130, 512):
+        q = _rand(rng, (2, s, 8, d), card, torch.bfloat16)
+        k = _rand(rng, (2, s, 2, d), card, torch.bfloat16)
+        v = _rand(rng, (2, s, 2, d), card, torch.bfloat16)
+        for causal in (False, True):
+            for with_lse in (False, True):
+                got, lse = tattn.flash_fwd_cuda(q, k, v, causal, with_lse,
+                                                rows=rows)
+                want, lse_w = tattn.flash_fwd_plain(q, k, v, causal,
+                                                    with_lse)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                           atol=TOL[torch.bfloat16])
+                if with_lse:
+                    torch.testing.assert_close(lse, lse_w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv", [8, 2])  # G = 1 (MHA) and G = 4
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_dkv_bf16_split_matches_plain(card, d, kv):
+    """B4's tensor-core kernel with the GQA group split across CTAs and
+    not, against flash_bwd_plain's dk and dv (bf16 tolerance relative to
+    each gradient's max|ref|)."""
+    rng = np.random.default_rng(6)
+    h = 8
+    for s in (8, 100, 130, 512):
+        q = _rand(rng, (2, s, h, d), card, torch.bfloat16)
+        k = _rand(rng, (2, s, kv, d), card, torch.bfloat16)
+        v = _rand(rng, (2, s, kv, d), card, torch.bfloat16)
+        do = _rand(rng, (2, s, h, d), card, torch.bfloat16)
+        for causal in (False, True):
+            out, lse = tattn.flash_fwd_cuda(q, k, v, causal, with_lse=True)
+            for with_g_lse in (False, True):
+                g_lse = (_rand(rng, (2, h, s), card, torch.float32)
+                         if with_g_lse else None)
+                delta = tattn._delta(out, do, g_lse)
+                _, *want = tattn.flash_bwd_plain(q, k, v, out, lse, do,
+                                                 g_lse, causal)
+                for split in sorted({1, h // kv}):
+                    got = tattn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                   causal, split=split)
+                    torch.cuda.synchronize()
+                    for name, a, w in zip(("dk", "dv"), got, want):
+                        scale = float(w.float().abs().max())
+                        err = float((a.float() - w.float()).abs().max())
+                        assert err <= 3e-2 * scale, (name, s, causal, split,
+                                                     err, scale)
+
+
+def test_flash_dkv_bf16_is_deterministic(card):
+    """Two launches of B4 on the same inputs (training shape, the group
+    split over 4 CTAs) give the same bits: a fixed-order reduction, no
+    atomics."""
+    rng = np.random.default_rng(7)
+    b, s, h, kv, d = 8, 512, 8, 2, 64
+    q = _rand(rng, (b, s, h, d), card, torch.bfloat16)
+    k = _rand(rng, (b, s, kv, d), card, torch.bfloat16)
+    v = _rand(rng, (b, s, kv, d), card, torch.bfloat16)
+    do = _rand(rng, (b, s, h, d), card, torch.bfloat16)
+    out, lse = tattn.flash_fwd_cuda(q, k, v, True, with_lse=True)
+    delta = tattn._delta(out, do)
+    assert tattn._dkv_split(b, kv, h // kv, s) == 4
+    first = tattn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    second = tattn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for a, w in zip(first, second):
+        assert torch.equal(a.view(torch.int16), w.view(torch.int16))
 
 
 def test_flash_entry_point_launches_on_cuda_and_its_gradient_path(card):

@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exports a plain C interface (one or more entry
-points) and compiles, on its own, into ``build/lib<name>-<hash>.so``; the hash covers the source and
-the flags, so an edited source rebuilds and an unchanged one loads
+points) and compiles, on its own, into ``build/lib<name>-<hash>.so``; the
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source or header rebuilds and an unchanged one loads
 straight from the build directory. Nothing is compiled when a module is
 imported: a kernel's wrapper calls :func:`load` when it launches (only
 the first call builds and binds), and
@@ -59,8 +60,9 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 

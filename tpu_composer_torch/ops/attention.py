@@ -94,18 +94,51 @@ def flash_fwd_plain(q, k, v, causal: bool = False, with_lse: bool = False
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# q, k, v, out, lse; B, Sq, Sk, H, KV, D, causal, dtype; stream.
-_FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# q, k, v, out, lse; B, Sq, Sk, H, KV, D, causal, dtype, rows; stream.
+_FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# Streaming multiprocessors of one H100 SXM: the grid size the bf16
+# kernels' geometry rules aim to fill.
+_SMS = 132
 
 
-def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False
+def _fwd_rows(b: int, h: int, sq: int) -> int:
+    """Query rows per CTA of K1's bf16 kernel: 64 (a warp per 16 rows)
+    when that grid still has a CTA for every SM, else 16 (the CTA's four
+    warps split the keys), so that a short prefill spreads over the
+    card."""
+    return 64 if b * h * -(-sq // 64) >= _SMS else 16
+
+
+def _dkv_split(b: int, kv: int, g: int, sk: int) -> int:
+    """CTAs along the GQA group of B4's bf16 kernel: the smallest divisor
+    of the group size ``g`` that gives four CTAs for every SM, else the
+    whole group. 1 for MHA."""
+    ctas = b * kv * -(-sk // 64)
+    for split in range(1, g + 1):
+        if g % split == 0 and ctas * split >= 4 * _SMS:
+            return split
+    return g
+
+
+def _check_aligned(**tensors) -> None:
+    """The bf16 kernels copy 16-byte chunks (cp.async)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the bf16"
+                             " kernel")
+
+
+def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False,
+                   rows: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch kernel K1 (``csrc/flash_fwd.cu``) on contiguous CUDA
     tensors q (B, Sq, H, D), k/v (B, Sk, KV, D) of one dtype (fp32 or
     bf16), D in {64, 128}. Returns (out (B, Sq, H, D), lse (B, H, Sq) fp32
-    or None). ``flash_fwd_cuda.launches`` counts launches without lse (the
-    serving prefill), ``flash_fwd_cuda.launches_lse`` those with it (the
-    training forward)."""
+    or None). ``rows`` is the bf16 kernel's query rows per CTA, 16 or 64
+    (default :func:`_fwd_rows`); the fp32 kernel always takes 32.
+    ``flash_fwd_cuda.launches`` counts launches without lse (the serving
+    prefill), ``flash_fwd_cuda.launches_lse`` those with it (the training
+    forward)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
@@ -125,6 +158,11 @@ def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False
         raise ValueError(f"kv heads {kv} must divide query heads {h}")
     if d not in (64, 128):
         raise ValueError(f"flash kernel supports head_dim 64 or 128, got {d}")
+    rows = _fwd_rows(b, h, sq) if rows is None else rows
+    if rows not in (16, 64):
+        raise ValueError(f"rows must be 16 or 64, got {rows}")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -133,7 +171,7 @@ def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False
         rc = flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b, sq, sk, h, kv, d, int(causal), _DTYPE_CODE[q.dtype],
+            b, sq, sk, h, kv, d, int(causal), _DTYPE_CODE[q.dtype], rows,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -190,10 +228,11 @@ def _delta(out, do, g_lse=None):
     return delta.contiguous()
 
 
-# q, k, v, dout, lse, delta, out0 (dq | dk), [out1 (dv)];
-# B, Sq, Sk, H, KV, D, causal, dtype; stream.
+# q, k, v, dout, lse, delta, dq; B, Sq, Sk, H, KV, D, causal, dtype; stream.
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# q, k, v, dout, lse, delta, dk, dv, scratch; B, Sq, Sk, H, KV, D, causal,
+# dtype, split; stream.
+_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> None:
@@ -227,8 +266,7 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
 def _dims(q, k, causal):
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    return (b, sq, sk, h, kv, d, int(causal), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    return (b, sq, sk, h, kv, d, int(causal), _DTYPE_CODE[q.dtype])
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = False):
@@ -242,7 +280,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = False):
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                *_dims(q, k, causal))
+                *_dims(q, k, causal),
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {rc}")
     flash_bwd_dq_cuda.launches += 1
@@ -252,17 +291,39 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = False):
 flash_bwd_dq_cuda.launches = 0
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False):
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False,
+                       split: Optional[int] = None):
     """Launch kernel B4 (``csrc/flash_bwd.cu``, dK/dV) on the inputs of
     :func:`flash_bwd_dq_cuda`. Returns (dk, dv) like k and v, summed over
-    each GQA group. ``flash_bwd_dkv_cuda.launches`` counts launches."""
+    each GQA group. ``split`` is the bf16 kernel's CTAs along the group,
+    dividing H/KV (default :func:`_dkv_split`); above 1 the partial sums
+    go through an fp32 scratch buffer and a second, reducing kernel. The
+    fp32 kernel sums the whole group in one CTA (split 1).
+    ``flash_bwd_dkv_cuda.launches`` counts calls (one or both kernels)."""
     _check_bwd(q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v, do=do)
+        split = _dkv_split(b, kv, h // kv, sk) if split is None else split
+        if split < 1 or (h // kv) % split:
+            raise ValueError(
+                f"split {split} must divide the GQA group {h // kv}")
+    elif split not in (None, 1):
+        raise ValueError("split applies to the bf16 kernel only")
+    else:
+        split = 1
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    scratch = (torch.empty((2, b, sk, kv, split, d), dtype=torch.float32,
+                           device=q.device) if split > 1 else None)
     fn = _build.load("flash_bwd", _DKV_ARGTYPES, symbol="flash_bwd_dkv")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), *_dims(q, k, causal))
+                dv.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None,
+                *_dims(q, k, causal), split,
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {rc}")
     flash_bwd_dkv_cuda.launches += 1
