@@ -13,15 +13,19 @@ nonzero. Phases, in order:
 1. ``card``: the card, its power limit, torch and CUDA versions. The
    raw ``nvidia-smi --query-gpu=name,power.limit`` line follows it.
 2. ``build``: nvcc seconds per kernel source (all three compile at once)
-   and ptxas's register / shared-memory report.
+   and ptxas's report per kernel (registers, spills); a spill in the
+   tensor-core B3 or in K2 fails the phase.
 3. ``flash_fwd``: kernel K1 against its plain version over B in {1, 2},
    S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 (at both
    CTA heights, 16 and 64 rows) and fp32, with and without lse; times at
    the serving prefill shape, with the CTA height ``_fwd_rows`` picks
    there and both heights.
-4. ``paged_decode``: kernel K2 against the gather path at the engine's
-   decode shape (B=8, H=8, KV=2, Dh=64, Bs=16, MB=32), lengths in
-   1..512 plus a 0-length row and stale table slots; fp32, bf16, int8.
+4. ``paged_decode``: kernel K2 (split pass and merge) against the gather
+   path at the engine's decode shape (B=8, H=8, KV=2, Dh=64, Bs=16,
+   MB=32), lengths in 1..512 plus a 0-length row and stale table slots,
+   then full rows (every length 512) and rows inside one chunk (lengths
+   1..64); fp32, bf16, int8. Two launches must give the same bits; the
+   split geometry (chunk, n_split, CTAs) is printed.
 5. ``flash_bwd``: kernels B3 (dQ) and B4 (dK/dV) against
    ``flash_bwd_plain`` over B in {1, 2}, S in {8, 64, 256, 512} at D=64
    and S=100 at D=128, H=8 over KV in {2, 8}, causal or not, fp32 and
@@ -29,10 +33,10 @@ nonzero. Phases, in order:
    own, bf16 GQA cases with B4's group split across CTAs and not; then K1
    with lse, B3 and B4 against their plain versions on the path's own
    inputs: the training shape (8, 512, 8, 2, 64, bf16, causal) and
-   ``qualify_slice``'s MHA shape (8, 512, 8, 8, 64); B4 launched twice
-   on the training-shape inputs must give the same bits; the geometry
-   chosen (CTA height, group split, CTA counts) and times at the
-   training shape.
+   ``qualify_slice``'s MHA shape (8, 512, 8, 8, 64); B3 and B4 launched
+   twice on the training-shape inputs must each give the same bits; the
+   geometry chosen (CTA height, group split, CTA counts) and times at
+   the training shape.
 6. ``serve_exact``: the flagship at full width in fp32, prefill through
    K1 and decode through K2: every request's tokens equal the port's
    solo ``generate`` with reference attention.
@@ -204,15 +208,52 @@ def phase_card() -> dict:
     return card
 
 
+# Kernels that must compile without spills: the tensor-core B3 and K2's
+# two kernels (every instantiation).
+NO_SPILL = ("flash_bwd_dq_tc_kernel", "paged_decode_split_kernel",
+            "paged_decode_merge_kernel")
+
+
+def _ptxas_report(log: str) -> list:
+    """[kernel, template arguments, registers, spill bytes] per kernel
+    from ``nvcc -Xptxas=-v`` output; the names are read from the mangled
+    symbol, its template arguments left mangled."""
+    import re
+
+    rows, current = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(_Z\w+)", ln)
+        if m:
+            name = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?E)?E?v",
+                             m.group(1))
+            current = ([name.group(1), name.group(2) or "", None, 0]
+                       if name else [m.group(1)[:60], "", None, 0])
+            if not rows or rows[-1][:2] != current[:2]:
+                rows.append(current)
+            else:
+                current = rows[-1]
+        elif current is not None and "spill stores" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes spill", ln)]
+            current[3] = max([current[3]] + nums)
+        elif current is not None and "Used" in ln:
+            current[2] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return rows
+
+
 def phase_build() -> None:
     from tpu_composer_torch.ops import _build
 
     t0 = time.perf_counter()
     seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
+    ptxas = {name: _ptxas_report(log)
              for name, (_, log) in _build.build_log.items()}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0,
          ptxas=ptxas)
+    for name, rows in ptxas.items():
+        for kernel, targs, regs, spill in rows:
+            check(not (kernel in NO_SPILL and spill),
+                  f"{name}: {kernel}{targs} spills {spill} bytes")
 
 
 TRAIN_SHAPE = (8, 512, 8, 2, 64)  # B, S, H, KV, D of the training path
@@ -320,16 +361,21 @@ def phase_flash(gen: torch.Generator) -> dict:
     return timing
 
 
-def _paged_inputs(gen: torch.Generator, dtype, quant: bool, dh: int = 64):
+def _paged_inputs(gen: torch.Generator, dtype, quant: bool, dh: int = 64,
+                  max_len: int = 512, full: bool = False):
     """Engine decode shape: 8 rows over a 256-block pool of 16 positions,
     32 table slots per row. Row 0 has length 0; the rest draw lengths in
-    1..512. Owned slots hold distinct ids; the slots past each row's
-    blocks hold stale ids that may name other rows' blocks."""
+    1..max_len; with ``full`` every row has length 512. Owned slots hold
+    distinct ids; the slots past each row's blocks hold stale ids that
+    may name other rows' blocks."""
     from tpu_composer_torch.models.decode import quantize_kv
 
     b, h, kv, bs, mb, n = 8, 8, 2, 16, 32, 256
-    lengths = torch.randint(1, mb * bs + 1, (b,), generator=gen)
-    lengths[0] = 0
+    if full:
+        lengths = torch.full((b,), mb * bs)
+    else:
+        lengths = torch.randint(1, max_len + 1, (b,), generator=gen)
+        lengths[0] = 0
     owned = -(-lengths // bs)
     perm = torch.randperm(n, generator=gen)
     tables = torch.randint(0, n, (b, mb), generator=gen)
@@ -367,38 +413,56 @@ def _paged_bound(args) -> tuple:
 
 def phase_paged(gen: torch.Generator) -> dict:
     from tpu_composer_torch.ops.paged_attention import (
+        _decode_split,
         paged_decode_cuda,
         paged_decode_plain,
     )
 
-    # The flagship's head_dim 64, and the kernel's other head_dim, 128.
-    cases = {"fp32": (torch.float32, False, 64),
-             "bf16": (torch.bfloat16, False, 64),
-             "int8_q_fp32": (torch.float32, True, 64),
-             "int8_q_bf16": (torch.bfloat16, True, 64),
-             "bf16_dh128": (torch.bfloat16, False, 128),
-             "int8_q_fp32_dh128": (torch.float32, True, 128)}
+    # The flagship's head_dim 64, and the kernel's other head_dim, 128;
+    # random lengths (0..512), then full rows and rows inside one chunk.
+    cases = {"fp32": (torch.float32, False, 64, {}),
+             "bf16": (torch.bfloat16, False, 64, {}),
+             "int8_q_fp32": (torch.float32, True, 64, {}),
+             "int8_q_bf16": (torch.bfloat16, True, 64, {}),
+             "bf16_dh128": (torch.bfloat16, False, 128, {}),
+             "int8_q_fp32_dh128": (torch.float32, True, 128, {}),
+             "bf16_full": (torch.bfloat16, False, 64, {"full": True}),
+             "int8_q_fp32_full": (torch.float32, True, 64, {"full": True}),
+             "fp32_one_chunk": (torch.float32, False, 64, {"max_len": 64}),
+             "bf16_one_chunk": (torch.bfloat16, False, 64, {"max_len": 64})}
     errs, timing = {}, {}
-    for name, (dtype, quant, dh) in cases.items():
+    for name, (dtype, quant, dh, kw) in cases.items():
         worst = 0.0
         for _ in range(3):
-            args = _paged_inputs(gen, dtype, quant, dh)
+            args = _paged_inputs(gen, dtype, quant, dh, **kw)
             got = paged_decode_cuda(*args)
             want = paged_decode_plain(*args)
             torch.cuda.synchronize()
-            check(bool((got[0] == 0).all()), f"paged {name}: 0-length row")
+            if not kw.get("full"):
+                check(bool((got[0] == 0).all()),
+                      f"paged {name}: 0-length row")
             worst = max(worst, max_err(got, want))
         errs[name] = worst
         check(worst <= TOL[dtype], f"paged_decode {name} error {worst}")
+        # Two launches on the same inputs: the same bits (the partials
+        # merge in a fixed order, no atomics).
+        again = paged_decode_cuda(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.uint8), again.view(torch.uint8)),
+              f"paged_decode {name}: two launches differ")
         if name in ("bf16", "int8_q_bf16"):
             t = {**timings(lambda: paged_decode_cuda(*args),
                            lambda: paged_decode_plain(*args)),
                  "max_abs_err": worst, "lengths": args[4].tolist()}
             t["bound_ms"], t["bound_by"] = _paged_bound(args)
             timing[name] = t
+    b, kv, bs, mb = 8, 2, 16, 32
+    chunk, n_split = _decode_split(bs, mb)
     emit("paged_decode", errors=errs,
          tol={"fp32": 1e-4, "bf16": 2e-2}, shape=[8, 8, 2, 64, 16, 32, 256],
-         timing=timing)
+         geometry={"chunk": chunk, "n_split": n_split,
+                   "split_ctas": b * kv * n_split},
+         bitwise_repeatable=True, timing=timing)
     return timing
 
 
@@ -486,11 +550,17 @@ def phase_flash_bwd(gen: torch.Generator) -> dict:
                        **worst}
     errs["bfloat16_path"] = path
 
-    # B4 twice on the training-shape inputs: the same bits (the split
-    # partials are summed in a fixed order, no atomics).
+    # B3 and B4 twice on the training-shape inputs: the same bits (each
+    # B3 CTA owns its dQ rows; B4's split partials are summed in a fixed
+    # order; no atomics).
     delta = _delta(out, do)
     b, s, h, kv, d = shape
     split = _dkv_split(b, kv, h // kv, s)
+    twice = [flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    check(torch.equal(twice[0].view(torch.int16), twice[1].view(torch.int16)),
+          "flash_bwd_dq: two launches on the same inputs differ")
     twice = [flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
              for _ in range(2)]
     torch.cuda.synchronize()
@@ -548,9 +618,11 @@ def phase_flash_bwd(gen: torch.Generator) -> dict:
          shape=list(shape), dtype="bfloat16", causal=True,
          geometry={"flash_fwd_rows": rows,
                    "flash_fwd_ctas": b * h * -(-s // rows),
+                   "flash_bwd_dq_ctas": b * h * -(-s // 64),
                    "flash_bwd_dkv_split": split,
                    "flash_bwd_dkv_ctas": b * kv * -(-s // 64) * split},
-         dkv_bitwise_repeatable=True, timing=timing)
+         dq_bitwise_repeatable=True, dkv_bitwise_repeatable=True,
+         timing=timing)
     return timing
 
 

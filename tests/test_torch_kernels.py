@@ -9,8 +9,9 @@ Tolerances (absolute): fp32 1e-4 (other summation order); bf16 2e-2
 (bf16 outputs; K2 keeps P in fp32 where the gather path rounds it to
 bf16); lse 1e-4; int8 pools with fp32 queries 2e-4. The backward
 kernels B3/B4, relative to each gradient's own max|ref|: fp32 1e-4; bf16
-3e-2 (dS is rounded to bf16 before two products). B4 in bf16 is also
-held to the same bits on two launches.
+3e-2 (dS is rounded to bf16 before two products). B3 and B4 in bf16 and
+K2 (split pass and merge) are also held to the same bits on two
+launches.
 """
 
 from __future__ import annotations
@@ -261,3 +262,112 @@ def test_paged_kernel_matches_plain(card, pool, dh):
     assert tpa.paged_decode_cuda.launches == before + 1
     assert (got[0] == 0).all()  # the length-0 row
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("kv", [8, 2])  # G = 1 (MHA) and G = 4
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_dq_bf16_matches_plain(card, d, kv):
+    """B3's tensor-core kernel against flash_bwd_plain's dq, causal and
+    not, with and without an lse cotangent, at a ragged length, a whole
+    number of tiles and a sequence shorter than one tile (bf16 tolerance
+    relative to max|ref|)."""
+    rng = np.random.default_rng(8)
+    h = 8
+    for b, s in ((2, 100), (1, 512), (2, 8)):
+        q = _rand(rng, (b, s, h, d), card, torch.bfloat16)
+        k = _rand(rng, (b, s, kv, d), card, torch.bfloat16)
+        v = _rand(rng, (b, s, kv, d), card, torch.bfloat16)
+        do = _rand(rng, (b, s, h, d), card, torch.bfloat16)
+        for causal in (False, True):
+            out, lse = tattn.flash_fwd_cuda(q, k, v, causal, with_lse=True)
+            for with_g_lse in (False, True):
+                g_lse = (_rand(rng, (b, h, s), card, torch.float32)
+                         if with_g_lse else None)
+                delta = tattn._delta(out, do, g_lse)
+                want = tattn.flash_bwd_plain(q, k, v, out, lse, do, g_lse,
+                                             causal)[0]
+                got = tattn.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                              causal)
+                torch.cuda.synchronize()
+                assert got.dtype == torch.bfloat16 and got.shape == q.shape
+                scale = float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                assert err <= 3e-2 * scale, (s, causal, with_g_lse, err,
+                                             scale)
+
+
+def test_flash_dq_bf16_is_deterministic(card):
+    """Two launches of B3 on the training-shape inputs give the same bits:
+    each CTA alone owns its dQ rows."""
+    rng = np.random.default_rng(9)
+    b, s, h, kv, d = 8, 512, 8, 2, 64
+    q = _rand(rng, (b, s, h, d), card, torch.bfloat16)
+    k = _rand(rng, (b, s, kv, d), card, torch.bfloat16)
+    v = _rand(rng, (b, s, kv, d), card, torch.bfloat16)
+    do = _rand(rng, (b, s, h, d), card, torch.bfloat16)
+    out, lse = tattn.flash_fwd_cuda(q, k, v, True, with_lse=True)
+    delta = tattn._delta(out, do)
+    first = tattn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+    second = tattn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def _paged_case(rng, pool, dh=64):
+    """The engine's decode shape (8 rows, 8 query heads over 2 KV heads,
+    blocks of 16, 32 table slots) with lengths on and around chunk and
+    block edges, a 0-length row and a full row; each row owns distinct
+    blocks, every other slot holds a stale id."""
+    n_blocks, bs, kv, h, mb = 256, 16, 2, 8, 32
+    lengths = np.array([0, 1, 16, 63, 65, 200, 511, 512], np.int32)
+    tables = rng.integers(0, n_blocks, (8, mb)).astype(np.int32)
+    perm, used = rng.permutation(n_blocks), 0
+    for r, n_len in enumerate(lengths):
+        owned = -(-int(n_len) // bs)
+        tables[r, :owned] = perm[used:used + owned]
+        used += owned
+    kf = torch.from_numpy(rng.standard_normal((n_blocks, bs, kv, dh),
+                                              np.float32))
+    vf = torch.from_numpy(rng.standard_normal((n_blocks, bs, kv, dh),
+                                              np.float32))
+    if pool == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
+        qd, tol = torch.float32, 2e-4
+    else:
+        qd = getattr(torch, pool)
+        kp, vp, ks, vs = kf.to(qd), vf.to(qd), None, None
+        tol = TOL[qd]
+    q = torch.from_numpy(rng.standard_normal((8, h, dh), np.float32)).to(qd)
+    args = [x if x is None else x.to("cuda")
+            for x in (q, kp, vp, torch.from_numpy(tables),
+                      torch.from_numpy(lengths), ks, vs)]
+    return args, tol
+
+
+@pytest.mark.parametrize("chunk", [16, 24, 64, 256])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+def test_paged_kernel_split_matches_plain(card, pool, chunk):
+    """K2 at forced chunk sizes (32 down to 2 CTAs a row and KV head;
+    chunks of 24 start inside a block of 16) against the gather path, and
+    against its own split arithmetic."""
+    rng = np.random.default_rng(10)
+    args, tol = _paged_case(rng, pool)
+    got = tpa.paged_decode_cuda(*args, chunk=chunk)
+    want = tpa.paged_decode_plain(*args)
+    split = tpa.paged_decode_split_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (got[0] == 0).all()  # the length-0 row
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(got.float(), split.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_paged_kernel_is_deterministic(card, pool):
+    """Two calls of K2 give the same bits: the partials merge in a fixed
+    order, no atomics."""
+    rng = np.random.default_rng(11)
+    args, _ = _paged_case(rng, pool)
+    first = tpa.paged_decode_cuda(*args)
+    second = tpa.paged_decode_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))

@@ -26,17 +26,37 @@
 // at 3.35 TB/s, so bytes; B4 ≈4.3 GFLOP (4 products per pair) over
 // ≈12.9 MB, ≈4.4 µs at 989 TFLOP/s, so operations.
 //
-// B3, both dtypes, and B4 in fp32 run on CUDA cores: a CTA owns ROWS rows
-// (A and B operands staged once in fp32 shared memory) and streams tiles
-// of COLS rows (X and Y) in a loop that replaces the TPU's sequential grid
-// axis; each owned row belongs to TPR neighbouring threads of one warp,
-// which take every TPR-th streamed row for the two score products and own
-// every TPR-th output column for the accumulation. No row reduction is
-// needed (lse and δ are given). B3: one CTA per (b·H + h, ROWS query
-// rows), looping over the K/V tiles up to the diagonal (causal skip as
-// attention.py:295). B4 in fp32 serves the checking path (train_exact,
-// held to 1e-4 on losses), where no tensor-core product keeps fp32's
-// precision (TF32 keeps ten mantissa bits).
+// In fp32 (the checking path of train_exact, held to 1e-4 on losses) B3
+// and B4 run on CUDA cores, because no tensor-core product keeps fp32's
+// precision (TF32 keeps ten mantissa bits): a CTA owns ROWS rows (A and B
+// operands staged once in fp32 shared memory) and streams tiles of COLS
+// rows (X and Y) in a loop that replaces the TPU's sequential grid axis;
+// each owned row belongs to TPR neighbouring threads of one warp, which
+// take every TPR-th streamed row for the two score products and own every
+// TPR-th output column for the accumulation. No row reduction is needed
+// (lse and δ are given). B3: one CTA per (b·H + h, ROWS query rows),
+// looping over the K/V tiles up to the diagonal (causal skip as
+// attention.py:295). B4: one CTA per (b·KV + kvh, ROWS key rows) over its
+// group's heads. Dispatch is by dtype in the C entry points.
+//
+// B3 in bf16 (the speed path) runs on tensor cores:
+// - One CTA of 4 warps per (b·H + h, 64 query rows); each warp owns 16
+//   rows. Heads vary fastest in the grid and q tiles run from the last,
+//   so the CTAs with the most causal K tiles start first: 512 CTAs at the
+//   training shape. Each CTA is the one owner of its dQ rows: no atomics,
+//   the same bits every run.
+// - Q and dO are copied once by cp.async; at head_dim 64 each warp keeps
+//   its Q and dO fragments in registers, at 128 it re-reads them from
+//   shared memory per tile so that dQ (64 fp32 a thread), S and dP stay
+//   in registers without spills. Each thread keeps lse and δ of its two
+//   accumulator rows in registers. K/V tiles of 64 keys are double
+//   buffered by cp.async.cg, rows padded by 16 bytes.
+// - Per K/V tile, only up to the diagonal: S = Q·Kᵀ and dP = dO·Vᵀ on
+//   mma.sync m16n8k16 with K and V fragments by ldmatrix; P = exp(S·scale
+//   − lse) and dS = P∘(dP − δ) on the fp32 accumulator fragments; dS
+//   packed to bf16 A fragments in registers (the reference's cast) and
+//   dQ += dS·K on the tensor cores, K fragments by ldmatrix.trans. dQ ×
+//   1/√D is rounded to bf16 at the end.
 //
 // B4 in bf16 (the speed path) runs on tensor cores:
 // - One CTA of 4 warps per (b·KV + kvh, z, key tile of 64 rows); each
@@ -67,10 +87,11 @@
 // rows past the sequence load as 0, their P is forced to 0 and their
 // outputs are not written.
 //
-// Shared memory per CTA: B3 (fp32 staging) (4·64·(D+1) + 64·65)·4 bytes,
-// 83,200 at D=64 and 148,736 at D=128; B4 fp32 adds a second 64×65 tile
-// and two 64-float columns: 100,352 and 165,888 bytes; B4 bf16
-// (2·64 + 4·BQ)·(D+8)·2 + 16·BQ bytes: 56,320 at D=64, 70,144 at D=128.
+// Shared memory per CTA: B3 fp32 (4·64·(D+1) + 64·65)·4 bytes, 83,200 at
+// D=64 and 148,736 at D=128; B4 fp32 adds a second 64×65 tile and two
+// 64-float columns: 100,352 and 165,888 bytes; B3 bf16 (2·64 + 4·64)·
+// (D+8)·2 bytes: 55,296 at D=64, 104,448 at D=128; B4 bf16 (2·64 +
+// 4·BQ)·(D+8)·2 + 16·BQ bytes: 56,320 at D=64, 70,144 at D=128.
 
 #include <math.h>
 
@@ -88,19 +109,6 @@ constexpr int CPT = COLS / TPR;       // streamed rows per thread
 constexpr int CHUNK = 16;             // head_dim values held at once
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: the casts the TPU kernels make before a product.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
 template <int D>
 constexpr size_t dq_smem_bytes() {
   return sizeof(float) * (2 * ROWS * (D + 1) + 2 * COLS * (D + 1) +
@@ -112,15 +120,16 @@ constexpr size_t dkv_smem_bytes() {
   return dq_smem_bytes<D>() + sizeof(float) * (ROWS * (COLS + 1) + 2 * COLS);
 }
 
-// Rows [s0, s0 + n) of a (S, stride) slice into dst (n x (D + 1)) as fp32;
-// rows at or past S load as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+// Rows [s0, s0 + n) of a (S, stride) slice into dst (n x (D + 1)); rows
+// at or past S load as 0.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
                                           long stride, int s0, int n, int S) {
   for (int i = threadIdx.x; i < n * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
     const int s = s0 + r;
-    dst[r * (D + 1) + c] = s < S ? to_f(src[s * stride + c]) : 0.f;
+    dst[r * (D + 1) + c] = s < S ? src[s * stride + c] : 0.f;
   }
 }
 
@@ -188,12 +197,16 @@ __device__ __forceinline__ void accumulate(float* acc, const float* w_s,
   }
 }
 
-template <typename T, int D>
+// B3 in fp32 (the checking path of train_exact): CUDA cores. One CTA per
+// (b·H + h, ROWS query rows) loops over the K/V tiles up to the diagonal
+// (attention.py:295).
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Sk, int H, int KV, int causal) {
   static_assert(D % TPR == 0 && D % CHUNK == 0, "head_dim tiling");
   constexpr int DPT = D / TPR;
@@ -202,7 +215,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* do_s = q_s + ROWS * (D + 1);  // ROWS x (D + 1), owned
   float* k_s = do_s + ROWS * (D + 1);  // COLS x (D + 1), streamed
   float* v_s = k_s + COLS * (D + 1);   // COLS x (D + 1), streamed
-  float* ds_s = v_s + COLS * (D + 1);  // ROWS x (COLS + 1), dS in T
+  float* ds_s = v_s + COLS * (D + 1);  // ROWS x (COLS + 1), dS
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -219,8 +232,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long kv_stride = (long)KV * D;
   const long q_off = ((long)b * Sq * H + h) * D;
   const long kv_off = ((long)b * Sk * KV + kvh) * D;
-  load_rows<T, D>(q_s, q + q_off, q_stride, q0, ROWS, Sq);
-  load_rows<T, D>(do_s, dout + q_off, q_stride, q0, ROWS, Sq);
+  load_rows<D>(q_s, q + q_off, q_stride, q0, ROWS, Sq);
+  load_rows<D>(do_s, dout + q_off, q_stride, q0, ROWS, Sq);
   const float lse_r = live ? lse[(long)bh * Sq + qi] : 0.f;
   const float dl_r = live ? delta[(long)bh * Sq + qi] : 0.f;
 
@@ -237,8 +250,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * COLS;
     __syncthreads();  // previous tile consumed (and the owned rows loaded)
-    load_rows<T, D>(k_s, k + kv_off, kv_stride, k0, COLS, Sk);
-    load_rows<T, D>(v_s, v + kv_off, kv_stride, k0, COLS, Sk);
+    load_rows<D>(k_s, k + kv_off, kv_stride, k0, COLS, Sk);
+    load_rows<D>(v_s, v + kv_off, kv_stride, k0, COLS, Sk);
     __syncthreads();
 
     float sc[CPT], dp[CPT];
@@ -250,16 +263,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = sc[j] * scale;
       if (causal && kj > qi) s = NEG_INF;
       const float p = (live && kj < Sk) ? expf(s - lse_r) : 0.f;
-      ds_s[row * (COLS + 1) + c] = round_to<T>(p * (dp[j] - dl_r));
+      ds_s[row * (COLS + 1) + c] = p * (dp[j] - dl_r);
     }
     __syncwarp();  // the row's dS was written by lanes of this warp
     accumulate<D>(acc, ds_s, k_s, row, lane, min(COLS, Sk - k0));
   }
 
   if (live) {
-    T* out = dq + (((long)b * Sq + qi) * H + h) * D + lane;
+    float* out = dq + (((long)b * Sq + qi) * H + h) * D + lane;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) out[TPR * i] = from_f<T>(acc[i] * scale);
+    for (int i = 0; i < DPT; ++i) out[TPR * i] = acc[i] * scale;
   }
 }
 
@@ -301,8 +314,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long q_stride = (long)H * D;
   const long kv_stride = (long)KV * D;
   const long kv_off = ((long)b * Sk * KV + kvh) * D;
-  load_rows<float, D>(k_s, k + kv_off, kv_stride, k0, ROWS, Sk);
-  load_rows<float, D>(v_s, v + kv_off, kv_stride, k0, ROWS, Sk);
+  load_rows<D>(k_s, k + kv_off, kv_stride, k0, ROWS, Sk);
+  load_rows<D>(v_s, v + kv_off, kv_stride, k0, ROWS, Sk);
 
   float acc_k[DPT], acc_v[DPT];
 #pragma unroll
@@ -319,8 +332,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int t = t0; t < nq; ++t) {
       const int q0 = t * COLS;
       __syncthreads();  // previous tile consumed (and the owned rows loaded)
-      load_rows<float, D>(q_s, q + q_off, q_stride, q0, COLS, Sq);
-      load_rows<float, D>(do_s, dout + q_off, q_stride, q0, COLS, Sq);
+      load_rows<D>(q_s, q + q_off, q_stride, q0, COLS, Sq);
+      load_rows<D>(do_s, dout + q_off, q_stride, q0, COLS, Sq);
       for (int i = threadIdx.x; i < COLS; i += NTHREADS) {
         const int s = q0 + i;
         lse_s[i] = s < Sq ? lse[bh * Sq + s] : 0.f;
@@ -582,6 +595,210 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- B3 in bf16: tensor cores ------------------------------------------
+
+constexpr int QROWS = 64;  // query rows per B3 CTA: 4 warps x 16
+constexpr int BK = 64;     // keys per streamed K/V tile
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // Q and dO (owned), two stages of (K, V).
+  return sizeof(bf16) * (size_t)(2 * QROWS + 4 * BK) * (D + PAD);
+}
+
+// Grid (B·H, ceil(Sq/64)): heads vary fastest and q tiles run from the
+// last, so the CTAs with the most causal K tiles start first. Each warp
+// owns 16 query rows; per K/V tile S = Q·Kᵀ and dP = dO·Vᵀ run on the
+// tensor cores, P and dS are formed on the fp32 accumulator fragments
+// (each thread holds two rows, with their lse and δ in registers), and the
+// accumulators of dS over two neighbouring 8-key tiles are, packed to
+// bf16, the A fragment of dQ += dS·K (K fragments by ldmatrix.trans).
+// One CTA an SM as the launch bound lets ptxas take the registers it
+// needs (230 at head_dim 64); the default bound capped it at 168 and
+// spilled.
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Sq, int Sk, int H, int KV, int causal) {
+  static_assert(D % 16 == 0, "head_dim tiling");
+  constexpr int LD = D + PAD;  // shared row stride, elements
+  constexpr int CH = D / 8;    // 16-byte chunks per row
+  constexpr int KC = D / 16;   // k-chunks of Q·Kᵀ and dO·Vᵀ
+  constexpr int NS = BK / 8;   // 8-key column tiles of S and dP
+  constexpr int ND = D / 8;    // 8-column tiles of dQ
+  // Q and dO fragments stay in registers at head_dim 64; at 128 they are
+  // re-read from shared memory for each tile, which keeps the dQ
+  // accumulator (64 floats a thread) and S, dP in registers.
+  constexpr bool HOLD = D <= 64;
+  constexpr int STAGE = 2 * BK * LD;  // K, then V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // QROWS x LD
+  bf16* do_s = q_s + QROWS * LD;                   // QROWS x LD
+  bf16* kv_s = do_s + QROWS * LD;                  // 2 x STAGE
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QROWS;
+  const float scale = 1.0f / sqrtf((float)D);
+
+  const long q_stride = (long)H * D;
+  const long kv_stride = (long)KV * D;
+  const long q_off = ((long)b * Sq * H + h) * D;
+  const bf16* kb = k + ((long)b * Sk * KV + kvh) * D;
+  const bf16* vb = v + ((long)b * Sk * KV + kvh) * D;
+  for (int i = tid; i < QROWS * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8, s = q0 + r;
+    const long off = q_off + min(s, Sq - 1) * q_stride + c;
+    cp_async16(q_s + r * LD + c, q + off, s < Sq);
+    cp_async16(do_s + r * LD + c, dout + off, s < Sq);
+  }
+
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) {
+    // K tiles wholly above the diagonal of this CTA's last row add 0.
+    const int last_q = min(q0 + QROWS, Sq) - 1;
+    n_tiles = min(n_tiles, last_q / BK + 1);
+  }
+  auto load_kv = [&](int t) {
+    bf16* ks = kv_s + (t & 1) * STAGE;
+    bf16* vs = ks + BK * LD;
+    for (int i = tid; i < BK * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * 8, s = t * BK + r;
+      const long off = min(s, Sk - 1) * kv_stride + c;
+      cp_async16(ks + r * LD + c, kb + off, s < Sk);
+      cp_async16(vs + r * LD + c, vb + off, s < Sk);
+    }
+  };
+  load_kv(0);
+  cp_async_commit();
+
+  const int wq0 = q0 + warp * 16;  // this warp's first query row
+  const int rows[2] = {wq0 + g, wq0 + g + 8};
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < Sq;
+    lse_r[r] = in ? lse[(long)bh * Sq + rows[r]] : 0.f;
+    dl_r[r] = in ? delta[(long)bh * Sq + rows[r]] : 0.f;
+  }
+  const bf16* qw = q_s + warp * 16 * LD;
+  const bf16* ow = do_s + warp * 16 * LD;
+  const int a_lane = (lane & 15) * LD + (lane >> 4) * 8;
+  uint32_t qf[HOLD ? KC : 1][4], of[HOLD ? KC : 1][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and at t = 0 the Q and dO tiles)
+    __syncthreads();
+    if constexpr (HOLD) {
+      if (t == 0) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          ldsm_x4(qf[kc], qw + a_lane + kc * 16);
+          ldsm_x4(of[kc], ow + a_lane + kc * 16);
+        }
+      }
+    }
+    const bf16* ks = kv_s + (t & 1) * STAGE;
+    const bf16* vs = ks + BK * LD;
+    const int k0 = t * BK;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ for this warp's 16 rows.
+    float sc[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], oa[4];
+      if constexpr (HOLD) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[kc][e];
+          oa[e] = of[kc][e];
+        }
+      } else {
+        ldsm_x4(qa, qw + a_lane + kc * 16);
+        ldsm_x4(oa, ow + a_lane + kc * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kf[4], vf[4];
+        const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                          kc * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(kf, ks + b_off);
+        ldsm_x4(vf, vs + b_off);
+        mma(sc[2 * np], qa, kf[0], kf[1]);
+        mma(sc[2 * np + 1], qa, kf[2], kf[3]);
+        mma(dp[2 * np], oa, vf[0], vf[1]);
+        mma(dp[2 * np + 1], oa, vf[2], vf[3]);
+      }
+    }
+
+    // P = exp(S·scale − lse) under the −1e30 fill (masked pairs give
+    // exactly 0, keys past Sk too); dS = P∘(dP − δ), kept in sc. Element
+    // e of tile j is (rows[e / 2], key k0 + 8j + 2tq + e % 2).
+    const bool edge = k0 + BK > Sk;
+    const bool diag = causal && k0 + BK - 1 > wq0;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + j * 8 + 2 * tq + (e & 1);
+        float s = sc[j][e] * scale;
+        if (diag && kj > rows[e >> 1]) s = NEG_INF;
+        const float p =
+            (!edge || kj < Sk) ? expf(s - lse_r[e >> 1]) : 0.f;
+        sc[j][e] = p * (dp[j][e] - dl_r[e >> 1]);
+      }
+
+    // dQ += dS·K, dS rounded to bf16 in registers (the reference's cast).
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t da[4] = {pack(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < ND / 2; ++dd) {
+        uint32_t kt[4];
+        ldsm_x4_t(kt, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LD + dd * 16 + (lane >> 4) * 8);
+        mma(acc[2 * dd], da, kt[0], kt[1]);
+        mma(acc[2 * dd + 1], da, kt[2], kt[3]);
+      }
+    }
+    __syncthreads();  // stage t & 1 is refilled at t + 1
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Sq) continue;
+    bf16* orow = dq + (((long)b * Sq + rows[r]) * H + h) * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * r] * scale,
+                                acc[j][2 * r + 1] * scale);
+  }
+}
+
 // dK = (Σ_z part_k[z]) / √D and dV = Σ_z part_v[z], z = 0 … split−1 in
 // that order: the same bits on every run. One thread per 4 columns of a
 // (b, key, kv head) row.
@@ -620,18 +837,35 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-int launch_dq(const Args& a) {
+template <int D>
+int launch_dq_fp32(const Args& a) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static std::atomic<unsigned> attr_set{0};
-  cudaError_t err = smem_limit_once(attr_set, flash_bwd_dq_kernel<T, D>, smem);
+  cudaError_t err = smem_limit_once(attr_set, flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Sq + ROWS - 1) / ROWS, a.B * a.H);
-  flash_bwd_dq_kernel<T, D><<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.Sq, a.Sk, a.H, a.KV, a.causal);
+      static_cast<float*>(a.out0), a.Sq, a.Sk, a.H, a.KV, a.causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_bf16(const Args& a) {
+  constexpr size_t smem = tc::dq_smem_bytes<D>();
+  static std::atomic<unsigned> attr_set{0};
+  cudaError_t err =
+      smem_limit_once(attr_set, tc::flash_bwd_dq_tc_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  using tc::bf16;
+  dim3 grid(a.B * a.H, (a.Sq + tc::QROWS - 1) / tc::QROWS);
+  tc::flash_bwd_dq_tc_kernel<D><<<grid, tc::NT, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.Sq, a.Sk, a.H, a.KV, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -694,12 +928,15 @@ int dispatch(const Args& a, int D, int dtype) {
   return (int)cudaErrorInvalidValue;
 }
 
+// fp32 on CUDA cores, bf16 on tensor cores: dispatch by dtype.
 template <typename T, int D>
 struct DQ {
-  static int run(const Args& a) { return launch_dq<T, D>(a); }
+  static int run(const Args& a) {
+    if constexpr (std::is_same_v<T, float>) return launch_dq_fp32<D>(a);
+    else return launch_dq_bf16<D>(a);
+  }
 };
 
-// fp32 on CUDA cores, bf16 on tensor cores: dispatch by dtype.
 template <typename T, int D>
 struct DKV {
   static int run(const Args& a) {
@@ -711,8 +948,9 @@ struct DKV {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16. Layouts: q/dout/dq (B, Sq, H, D), k/v/dk/dv
-// (B, Sk, KV, D), lse/delta (B, H, Sq) fp32. Each returns a cudaError_t
-// code (0 = launched).
+// (B, Sk, KV, D), lse/delta (B, H, Sq) fp32. The bf16 kernels need
+// 16-byte aligned q, k, v and dout. Each returns a cudaError_t code
+// (0 = launched).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int Sq,

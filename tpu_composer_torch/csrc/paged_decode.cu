@@ -1,265 +1,375 @@
 // K2: paged decode attention for Hopper (sm_90a), fp and int8 pools,
-// plain C interface.
+// plain C interface. Two kernels a call: a split pass and a merge pass
+// (flash-decoding).
 //
 // Replaces the Pallas kernels tpu_composer/ops/paged_attention.py::_kernel
 // (fp pools) and ::_kernel_quant (int8 pools + fp32 scales). Same
 // function: one query token per row attends its cache through the block
-// table; positions >= lengths[b] are -inf with the m_safe / alpha guards
-// of the online softmax; out = acc / max(l, 1e-30), so a row of length 0
-// gives zeros. q, k and v are upcast to fp32 and p stays fp32. int8:
-// the k scale multiplies the score after the 1/√Dh factor, the v scale
-// folds into p before P·V, and l sums the unscaled p.
+// table; positions >= lengths[b] are masked, with the m_safe / alpha
+// guards of the online softmax; out = acc / max(l, 1e-30), so a row of
+// length 0 gives zeros. q, k and v are upcast to fp32 and p stays fp32.
+// int8: the k scale multiplies the score after the 1/√Dh factor, the v
+// scale folds into p before P·V, and l sums the unscaled p.
 //
-// What bounds it on this card: bytes. A decode step reads every live K/V
-// position of every row once and does 4 flops per byte-pair of it, far
-// below the ~295 flops/byte where the tensor cores would become the
-// limit. The design therefore reads each K/V position once per KV head:
-// one CTA per (row b, KV head) holds that head's G = H/KV query rows and
-// scores all of them against each K/V position it loads (the GQA saving),
-// and it walks only the table slots j < ceil(len / Bs), so blocks past a
-// row's length are never read (they would contribute exactly 0). The
-// CTA reads its own block_tables[b, j]; there is no gathered copy of the
-// cache. This first version stages 64 positions at a time in shared
-// memory and uses CUDA-core fp32 FMAs; splitting a long row across CTAs
-// is later work.
+// What bounds it on this card: bytes, and at the engine's decode shape
+// (8 rows, 2 KV heads, up to 512 positions, ≈1 MB of live K/V) the
+// latency of a few dependent memory round trips. A decode step reads
+// every live K/V position once per KV head and does 4 operations per
+// element pair, far below the ~295 operations a byte where the tensor
+// cores would become the limit, so it stays on CUDA cores. The design
+// fills the card and keeps each CTA's chain of memory waits short:
+// - Split pass: one CTA of 4 warps per (b·KV + kvh, z), z = 0 …
+//   n_split−1, attending cache positions [z·C, (z+1)·C) ∩ [0, n_pos) for
+//   the head's G = H/KV query rows (the GQA saving: each K/V position is
+//   read once for all G rows). C (the whole blocks that fit in 64
+//   positions, 64 for larger blocks) and n_split = ceil(MB·Bs / C) come
+//   from shapes only (ops/paged_attention.py::_decode_split): never from
+//   lengths, so the wrapper makes no host read, and never from B, so a
+//   row's sums do not depend on the batch. At the engine shape that is
+//   8 · 2 · 8 = 128 CTAs for 132 SMs.
+// - A CTA whose chunk starts at or past n_pos = min(lengths[b], MB·Bs)
+//   reads no table entry: it writes m = −inf, l = 0 and returns. Idle
+//   engine rows carry stale tables, so a slot past a row's live blocks
+//   is never dereferenced. A live CTA reads each of its block ids once,
+//   then copies its K and V rows into shared memory with 16-byte
+//   cp.async (a bf16 row of Dh 64 is 8 copies, an int8 row 4), rows
+//   padded by 16 bytes so a warp's row-strided reads hit distinct banks.
+// - Warps take the G query rows, lanes the positions: a row's max and
+//   sum combine with warp shuffles, p goes to shared memory, and the
+//   CTA's threads then own (row, column pair) outputs of P·V. Three
+//   barriers a CTA. The partials (m, l, acc[G, Dh]) are fp32, written
+//   to scratch the wrapper allocates.
+// - Merge pass: one thread per (b·H + h, column pair) combines the
+//   n_split partials in the fixed order z = 0 … n_split−1 under the
+//   m_safe / alpha guards, skipping empty chunks, and writes
+//   acc / max(l, 1e-30) in q's dtype. No atomics: two launches give the
+//   same bits.
 //
-// Idle engine rows still get lengths = pos + 1 and stale tables. Every
-// table entry read lies in [0, N) because tables start at 0 and hold only
-// ids popped from the pool; this kernel does not clamp ids.
+// Every table entry read lies in [0, N): tables start at 0 and hold only
+// ids popped from the pool. This kernel does not clamp ids.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int TP = 64;    // cache positions staged per iteration
-constexpr int NT = 128;   // threads per CTA
+using tc::bf16;
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+constexpr int NT = 128;  // threads per CTA, both kernels
 constexpr int WARPS = NT / 32;
+constexpr int MAX_CHUNK = 256;  // cache positions per split CTA, at most
+constexpr size_t SMEM_MAX = 232448;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Σ k[i]·q[i] over the 16 bytes of K at k, added to acc; q is 16-byte
+// aligned fp32 in shared memory.
+__device__ __forceinline__ float dot16(const float* k, const float* q,
+                                      float acc) {
+  const float4 a = *reinterpret_cast<const float4*>(k);
+  const float4 b = *reinterpret_cast<const float4*>(q);
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
 }
 
-size_t smem_floats(int G, int DH) {
-  return (size_t)G * DH        // q
-         + (size_t)TP * (DH + 1)  // k tile
-         + (size_t)TP * DH        // v tile
-         + (size_t)G * TP         // scores / p
-         + (size_t)G * DH         // acc
-         + 2 * TP                 // k, v scales
-         + 3 * (size_t)G;         // m, l, alpha
+__device__ __forceinline__ float dot16(const bf16* k, const float* q,
+                                      float acc) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(k);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 b = *reinterpret_cast<const float4*>(q + 4 * i);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[2 * i]));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[2 * i + 1]));
+    acc = fmaf(lo.x, b.x, acc);
+    acc = fmaf(lo.y, b.y, acc);
+    acc = fmaf(hi.x, b.z, acc);
+    acc = fmaf(hi.y, b.w, acc);
+  }
+  return acc;
 }
 
+__device__ __forceinline__ float dot16(const int8_t* k, const float* q,
+                                      float acc) {
+  const int4 raw = *reinterpret_cast<const int4*>(k);
+  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 b = *reinterpret_cast<const float4*>(q + 4 * i);
+    const char4 c = *reinterpret_cast<const char4*>(&w[i]);
+    acc = fmaf((float)c.x, b.x, acc);
+    acc = fmaf((float)c.y, b.y, acc);
+    acc = fmaf((float)c.z, b.z, acc);
+    acc = fmaf((float)c.w, b.w, acc);
+  }
+  return acc;
+}
+
+// Two neighbouring values as fp32.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Shared memory of a split CTA: K and V rows of the chunk (row stride
+// Dh·sizeof(T) + 16 bytes), then q (G x Dh fp32), p (G x chunk fp32),
+// the k and v scales (chunk fp32 each) and the ids of the blocks the
+// chunk touches (at most chunk / Bs + 2).
+template <typename T, int DH>
+size_t split_smem_bytes(int G, int chunk, int Bs) {
+  return 2 * (size_t)chunk * (DH * sizeof(T) + 16) +
+         sizeof(float) * ((size_t)G * DH + (size_t)G * chunk + 2 * chunk) +
+         sizeof(int) * (size_t)(chunk / Bs + 2);
+}
+
+// Scratch layout, rows r = b·H + h: acc at part[(r·n_split + z)·DH],
+// then (m, l) at part[rows·n_split·DH + (r·n_split + z)·2].
 template <typename TQ, typename TKV, int DH>
 __global__ void __launch_bounds__(NT)
-paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
-                    const TKV* __restrict__ v_pool,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ lengths, TQ* __restrict__ out,
-                    int H, int KV, int Bs, int MB) {
+paged_decode_split_kernel(const TQ* __restrict__ q,
+                          const TKV* __restrict__ k_pool,
+                          const TKV* __restrict__ v_pool,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ part, int H, int KV, int Bs,
+                          int MB, int chunk) {
+  constexpr int VEC = 16 / sizeof(TKV);  // values per 16-byte copy
+  constexpr int CH = DH / VEC;           // copies per row
+  constexpr int LD = DH + VEC;           // shared row stride, elements
   const int G = H / KV;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + G * DH;
-  float* v_s = k_s + TP * (DH + 1);
-  float* s_s = v_s + TP * DH;
-  float* acc_s = s_s + G * TP;
-  float* ks_s = acc_s + G * DH;
-  float* vs_s = ks_s + TP;
-  float* m_s = vs_s + TP;
-  float* l_s = m_s + G;
-  float* a_s = l_s + G;
+  const int n_split = gridDim.y;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TKV* k_s = reinterpret_cast<TKV*>(smem_raw);  // chunk x LD
+  TKV* v_s = k_s + chunk * LD;                   // chunk x LD
+  float* q_s = reinterpret_cast<float*>(v_s + chunk * LD);  // G x DH
+  float* p_s = q_s + G * DH;                                // G x chunk
+  float* ks_s = p_s + G * chunk;
+  float* vs_s = ks_s + chunk;
+  int* blk_s = reinterpret_cast<int*>(vs_s + chunk);
 
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int tid = threadIdx.x;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, z = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool quant = k_scale != nullptr;
-  const float scale = 1.0f / sqrtf((float)DH);
-  // Positions past the table do not exist (the JAX kernel walks MB*Bs).
+  // Positions past the table do not exist (the JAX kernel walks MB·Bs).
   const int n_pos = min(max(lengths[b], 0), MB * Bs);
-  const int* tb = tables + (long)b * MB;
+  const int p0 = z * chunk;
+  const long row0 = (long)b * H + (long)kvh * G;  // the head's first q row
+  const long rows = (long)gridDim.x * G;          // B·H
+  float* acc_out = part + (row0 * n_split + z) * DH;
+  float* ml_out = part + rows * n_split * DH + (row0 * n_split + z) * 2;
 
-  const TQ* qb = q + ((long)b * H + (long)kvh * G) * DH;
-  for (int i = tid; i < G * DH; i += NT) {
-    q_s[i] = to_f(qb[i]);
-    acc_s[i] = 0.f;
+  if (p0 >= n_pos) {  // an empty chunk: weight 0 in the merge
+    for (int g = tid; g < G; g += NT) {
+      ml_out[(long)g * n_split * 2] = -INFINITY;
+      ml_out[(long)g * n_split * 2 + 1] = 0.f;
+    }
+    return;
   }
-  for (int g = tid; g < G; g += NT) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
+  // Position p0 + t lies at offset (o0 + t) % Bs of the chunk's block
+  // (o0 + t) / Bs, counted from the table slot of p0.
+  const int n = min(chunk, n_pos - p0);
+  const int o0 = p0 % Bs;
+  const int* tb = tables + (long)b * MB + p0 / Bs;
+  for (int j = tid; j * Bs < o0 + n; j += NT) blk_s[j] = tb[j];
+  const TQ* qb = q + row0 * DH;
+  for (int i = tid; i < G * DH; i += NT) q_s[i] = to_f(qb[i]);
+  __syncthreads();
+
+  for (int i = tid; i < n * CH; i += NT) {
+    const int t = i / CH, c = (i % CH) * VEC, o = o0 + t;
+    const long row = ((long)blk_s[o / Bs] * Bs + o % Bs) * KV + kvh;
+    cp_async16(k_s + t * LD + c, k_pool + row * DH + c, true);
+    cp_async16(v_s + t * LD + c, v_pool + row * DH + c, true);
   }
-
-  for (int p0 = 0; p0 < n_pos; p0 += TP) {
-    __syncthreads();  // previous tile consumed (and q/acc/m/l initialised)
-    for (int i = tid; i < TP * DH; i += NT) {
-      const int t = i / DH, d = i % DH;
-      const int p = p0 + t;
-      float kv = 0.f, vv = 0.f;
-      if (p < n_pos) {
-        const long row = ((long)tb[p / Bs] * Bs + p % Bs) * KV + kvh;
-        kv = to_f(k_pool[row * DH + d]);
-        vv = to_f(v_pool[row * DH + d]);
-      }
-      k_s[t * (DH + 1) + d] = kv;
-      v_s[t * DH + d] = vv;
+  cp_async_commit();
+  if (quant) {
+    for (int t = tid; t < n; t += NT) {
+      const int o = o0 + t;
+      const long row = ((long)blk_s[o / Bs] * Bs + o % Bs) * KV + kvh;
+      ks_s[t] = k_scale[row];
+      vs_s[t] = v_scale[row];
     }
-    if (quant) {
-      for (int t = tid; t < TP; t += NT) {
-        const int p = p0 + t;
-        float ks = 0.f, vs = 0.f;
-        if (p < n_pos) {
-          const long row = ((long)tb[p / Bs] * Bs + p % Bs) * KV + kvh;
-          ks = k_scale[row];
-          vs = v_scale[row];
-        }
-        ks_s[t] = ks;
-        vs_s[t] = vs;
-      }
-    }
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
-    for (int i = tid; i < G * TP; i += NT) {
-      const int g = i / TP, t = i % TP;
-      float s = -INFINITY;
-      if (p0 + t < n_pos) {
-        const float* qr = q_s + g * DH;
-        const float* kr = k_s + t * (DH + 1);
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-        if (quant) s *= ks_s[t];  // after the 1/sqrt(Dh) factor
-      }
-      s_s[i] = s;
+  // Scores, max and sum: warp w takes query rows g ≡ w (mod 4), its lanes
+  // the positions t ≡ lane (mod 32).
+  const float scale = 1.0f / sqrtf((float)DH);
+  for (int g = warp; g < G; g += WARPS) {
+    const float* qg = q_s + g * DH;
+    float* pg = p_s + g * chunk;
+    float mx = -INFINITY;
+    for (int t = lane; t < n; t += 32) {
+      const TKV* kr = k_s + t * LD;
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < DH; c += VEC) dot = dot16(kr + c, qg + c, dot);
+      float s = dot * scale;
+      if (quant) s *= ks_s[t];  // after the 1/sqrt(Dh) factor
+      pg[t] = s;
+      mx = fmaxf(mx, s);
     }
-    __syncthreads();
-
-    const int warp = tid / 32, lane = tid % 32;
-    for (int g = warp; g < G; g += WARPS) {
-      float* sr = s_s + g * TP;
-      float mx = -INFINITY;
-      for (int t = lane; t < TP; t += 32) mx = fmaxf(mx, sr[t]);
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float alpha = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.f;
-      float ps = 0.f;
-      for (int t = lane; t < TP; t += 32) {
-        const float p = expf(sr[t] - m_safe);  // masked -> 0
-        ps += p;
-        sr[t] = quant ? p * vs_s[t] : p;  // l sums the unscaled p
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      if (lane == 0) {
-        l_s[g] = alpha * l_s[g] + ps;
-        m_s[g] = m_new;
-        a_s[g] = alpha;
-      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_safe = isfinite(mx) ? mx : 0.f;
+    float ps = 0.f;
+    for (int t = lane; t < n; t += 32) {
+      const float p = expf(pg[t] - m_safe);
+      ps += p;
+      pg[t] = quant ? p * vs_s[t] : p;  // l sums the unscaled p
     }
-    __syncthreads();
-
-    const int tmax = min(TP, n_pos - p0);
-    for (int i = tid; i < G * DH; i += NT) {
-      const int g = i / DH, d = i % DH;
-      const float* pr = s_s + g * TP;
-      float pv = 0.f;
-      for (int t = 0; t < tmax; ++t) pv = fmaf(pr[t], v_s[t * DH + d], pv);
-      acc_s[i] = acc_s[i] * a_s[g] + pv;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ps += __shfl_xor_sync(0xffffffffu, ps, off);
+    if (lane == 0) {
+      ml_out[(long)g * n_split * 2] = mx;
+      ml_out[(long)g * n_split * 2 + 1] = ps;
     }
   }
   __syncthreads();
 
-  TQ* ob = out + ((long)b * H + (long)kvh * G) * DH;
-  for (int i = tid; i < G * DH; i += NT)
-    ob[i] = from_f<TQ>(acc_s[i] / fmaxf(l_s[i / DH], 1e-30f));
+  // acc[g][d, d+1] = Σ_t p[g][t] · v[t][d, d+1].
+  for (int i = tid; i < G * DH / 2; i += NT) {
+    const int g = i / (DH / 2), d = (i % (DH / 2)) * 2;
+    const float* pg = p_s + g * chunk;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) {
+      const float2 v = load2(v_s + t * LD + d);
+      a0 = fmaf(pg[t], v.x, a0);
+      a1 = fmaf(pg[t], v.y, a1);
+    }
+    store2(acc_out + (long)g * n_split * DH + d, a0, a1);
+  }
 }
 
+// out[r][d, d+1] from the n_split partials of row r, in the order
+// z = 0 … n_split−1: the same bits on every run.
+template <typename TQ, int DH>
+__global__ void __launch_bounds__(NT)
+paged_decode_merge_kernel(const float* __restrict__ part, TQ* __restrict__ out,
+                          int rows, int n_split) {
+  const long i = (long)blockIdx.x * NT + threadIdx.x;
+  if (i >= (long)rows * (DH / 2)) return;
+  const long r = i / (DH / 2);
+  const int d = (int)(i % (DH / 2)) * 2;
+  const float* acc = part + r * n_split * DH + d;
+  const float* ml = part + (long)rows * n_split * DH + r * n_split * 2;
+  float m = -INFINITY, l = 0.f, a0 = 0.f, a1 = 0.f;
+  for (int z = 0; z < n_split; ++z) {
+    const float mz = ml[2 * z];
+    if (mz == -INFINITY) continue;  // an empty chunk; its acc is unwritten
+    const float m_new = fmaxf(m, mz);
+    const float m_safe = isfinite(m_new) ? m_new : 0.f;
+    const float alpha = isfinite(m) ? expf(m - m_safe) : 0.f;
+    const float beta = expf(mz - m_safe);
+    const float2 az = *reinterpret_cast<const float2*>(acc + (long)z * DH);
+    l = alpha * l + beta * ml[2 * z + 1];
+    a0 = alpha * a0 + beta * az.x;
+    a1 = alpha * a1 + beta * az.y;
+    m = m_new;
+  }
+  const float lc = fmaxf(l, 1e-30f);
+  store2(out + r * DH + d, a0 / lc, a1 / lc);
+}
+
+struct Args {
+  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *tables, *lengths;
+  void *out, *scratch;
+  int B, H, KV, Bs, MB, chunk, n_split;
+  cudaStream_t stream;
+};
+
 template <typename TQ, typename TKV, int DH>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* k_scale, const void* v_scale, const void* tables,
-           const void* lengths, void* out, int B, int H, int KV, int Bs,
-           int MB, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(H / KV, DH);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<TQ, TKV, DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(const Args& a) {
+  const size_t smem = split_smem_bytes<TKV, DH>(a.H / a.KV, a.chunk, a.Bs);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned> attr_set{0};
+  cudaError_t err = smem_limit_once(
+      attr_set, paged_decode_split_kernel<TQ, TKV, DH>, SMEM_MAX);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KV);
-  paged_decode_kernel<TQ, TKV, DH><<<grid, NT, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<TQ*>(out), H, KV, Bs,
-      MB);
+  dim3 grid(a.B * a.KV, a.n_split);
+  paged_decode_split_kernel<TQ, TKV, DH><<<grid, NT, smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k_pool),
+      static_cast<const TKV*>(a.v_pool), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.lengths), static_cast<float*>(a.scratch),
+      a.H, a.KV, a.Bs, a.MB, a.chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long n = (long)a.B * a.H * (DH / 2);
+  paged_decode_merge_kernel<TQ, DH><<<(unsigned)((n + NT - 1) / NT), NT, 0,
+                                      a.stream>>>(
+      static_cast<const float*>(a.scratch), static_cast<TQ*>(a.out),
+      a.B * a.H, a.n_split);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
-int by_dh(int Dh, const void* q, const void* kp, const void* vp,
-          const void* ks, const void* vs, const void* tables,
-          const void* lengths, void* out, int B, int H, int KV, int Bs,
-          int MB, cudaStream_t s) {
-  if (Dh == 64)
-    return launch<TQ, TKV, 64>(q, kp, vp, ks, vs, tables, lengths, out, B, H,
-                               KV, Bs, MB, s);
-  if (Dh == 128)
-    return launch<TQ, TKV, 128>(q, kp, vp, ks, vs, tables, lengths, out, B,
-                                H, KV, Bs, MB, s);
+int by_dh(int Dh, const Args& a) {
+  if (Dh == 64) return launch<TQ, TKV, 64>(a);
+  if (Dh == 128) return launch<TQ, TKV, 128>(a);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename TQ>
-int by_kv(int kv_dtype, int Dh, const void* q, const void* kp,
-          const void* vp, const void* ks, const void* vs, const void* tables,
-          const void* lengths, void* out, int B, int H, int KV, int Bs,
-          int MB, cudaStream_t s) {
-  if (kv_dtype == 0)
-    return by_dh<TQ, float>(Dh, q, kp, vp, nullptr, nullptr, tables, lengths,
-                            out, B, H, KV, Bs, MB, s);
-  if (kv_dtype == 1)
-    return by_dh<TQ, __nv_bfloat16>(Dh, q, kp, vp, nullptr, nullptr, tables,
-                                    lengths, out, B, H, KV, Bs, MB, s);
-  if (kv_dtype == 2 && ks != nullptr && vs != nullptr)
-    return by_dh<TQ, int8_t>(Dh, q, kp, vp, ks, vs, tables, lengths, out, B,
-                             H, KV, Bs, MB, s);
+int by_kv(int kv_dtype, int Dh, const Args& a) {
+  const bool scaled = a.k_scale != nullptr && a.v_scale != nullptr;
+  const bool unscaled = a.k_scale == nullptr && a.v_scale == nullptr;
+  if (kv_dtype == 0 && unscaled) return by_dh<TQ, float>(Dh, a);
+  if (kv_dtype == 1 && unscaled) return by_dh<TQ, bf16>(Dh, a);
+  if (kv_dtype == 2 && scaled) return by_dh<TQ, int8_t>(Dh, a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q/out (B, H, Dh); pools (N, Bs, KV, Dh); scales (N, Bs, KV) fp32 (int8
-// pools only, else null); tables (B, MB) int32; lengths (B,) int32.
-// q_dtype: 0 fp32, 1 bf16. kv_dtype: 0 fp32, 1 bf16, 2 int8.
-// Returns a cudaError_t code (0 = launched).
+// q/out (B, H, Dh); pools (N, Bs, KV, Dh), 16-byte aligned; scales
+// (N, Bs, KV) fp32 (int8 pools only, else null); tables (B, MB) int32;
+// lengths (B,) int32. chunk: cache positions per split CTA, 1 to 256;
+// n_split = ceil(MB·Bs / chunk). scratch: fp32,
+// B·H·n_split·(Dh + 2) floats. q_dtype: 0 fp32, 1 bf16. kv_dtype: 0 fp32,
+// 1 bf16, 2 int8. Returns a cudaError_t code (0 = both kernels launched).
 extern "C" int paged_decode(const void* q, const void* k_pool,
                             const void* v_pool, const void* k_scale,
                             const void* v_scale, const void* tables,
-                            const void* lengths, void* out, int B, int H,
-                            int KV, int Dh, int Bs, int MB, int q_dtype,
+                            const void* lengths, void* out, void* scratch,
+                            int B, int H, int KV, int Dh, int Bs, int MB,
+                            int chunk, int n_split, int q_dtype,
                             int kv_dtype, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || Bs <= 0 || MB <= 0)
+  if (B <= 0 || KV <= 0 || H % KV != 0 || Bs <= 0 || MB <= 0 ||
+      chunk < 1 || chunk > MAX_CHUNK ||
+      n_split != (MB * Bs + chunk - 1) / chunk || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0)
-    return by_kv<float>(kv_dtype, Dh, q, k_pool, v_pool, k_scale, v_scale,
-                        tables, lengths, out, B, H, KV, Bs, MB, s);
-  if (q_dtype == 1)
-    return by_kv<__nv_bfloat16>(kv_dtype, Dh, q, k_pool, v_pool, k_scale,
-                                v_scale, tables, lengths, out, B, H, KV, Bs,
-                                MB, s);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
+               scratch, B, H, KV, Bs, MB, chunk, n_split,
+               static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0) return by_kv<float>(kv_dtype, Dh, a);
+  if (q_dtype == 1) return by_kv<bf16>(kv_dtype, Dh, a);
   return (int)cudaErrorInvalidValue;
 }

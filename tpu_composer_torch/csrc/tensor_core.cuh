@@ -1,5 +1,5 @@
-// Building blocks of the tensor-core kernels in flash_fwd.cu and
-// flash_bwd.cu (sm_90a): asynchronous 16- and 4-byte copies into shared
+// Building blocks of the kernels in flash_fwd.cu, flash_bwd.cu and
+// paged_decode.cu (sm_90a): asynchronous 16- and 4-byte copies into shared
 // memory, ldmatrix fragment loads, the bf16 mma.sync m16n8k16 product, and
 // the once-per-device shared-memory limit. Each source that includes it
 // gets its own internal copy.

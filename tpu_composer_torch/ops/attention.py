@@ -121,11 +121,11 @@ def _dkv_split(b: int, kv: int, g: int, sk: int) -> int:
 
 
 def _check_aligned(**tensors) -> None:
-    """The bf16 kernels copy 16-byte chunks (cp.async)."""
+    """The bf16 flash kernels and K2 copy 16-byte chunks (cp.async)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the bf16"
-                             " kernel")
+            raise ValueError(f"{name} must be 16-byte aligned: the kernel"
+                             " copies 16-byte chunks")
 
 
 def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False,
@@ -272,9 +272,12 @@ def _dims(q, k, causal):
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = False):
     """Launch kernel B3 (``csrc/flash_bwd.cu``, dQ): q/do (B, Sq, H, D),
     k/v (B, Sk, KV, D), lse and δ (B, H, Sq) fp32, all contiguous on one
-    card. Returns dq like q. ``flash_bwd_dq_cuda.launches`` counts
-    launches."""
+    card. bf16 runs on the tensor cores (one CTA per 64 query rows of a
+    head), fp32 on CUDA cores. Returns dq like q.
+    ``flash_bwd_dq_cuda.launches`` counts launches."""
     _check_bwd(q, k, v, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     fn = _build.load("flash_bwd", _DQ_ARGTYPES, symbol="flash_bwd_dq")
     with torch.cuda.device(q.device):
