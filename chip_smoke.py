@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and hold every CUDA kernel of those paths against its plain PyTorch
-version.
+"""Drive the PyTorch port's serving, speculative-decoding and training
+paths, dense and MoE, on one NVIDIA GPU and hold every CUDA kernel of
+those paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -24,7 +24,8 @@ nonzero. Phases, in order:
    path at the engine's decode shape (B=8, H=8, KV=2, Dh=64, Bs=16,
    MB=32), lengths in 1..512 plus a 0-length row and stale table slots,
    then full rows (every length 512) and rows inside one chunk (lengths
-   1..64); fp32, bf16, int8. Two launches must give the same bits; the
+   1..64); fp32, bf16, int8; and at the MoE engine's MHA shape (KV=8,
+   G=1, lengths 0..320). Two launches must give the same bits; the
    split geometry (chunk, n_split, CTAs) is printed.
 5. ``flash_bwd``: kernels B3 (dQ) and B4 (dK/dV) against
    ``flash_bwd_plain`` over B in {1, 2}, S in {8, 64, 256, 512} at D=64
@@ -43,22 +44,48 @@ nonzero. Phases, in order:
 7. ``serve``: the flagship in bf16: 16 greedy and sampled requests
    through an 8-slot engine, then an int8-pool engine with chunked
    admission and a shared prefix; tokens/s, step p50, launch counts.
-8. ``train_exact``: the flagship in fp32, 3 AdamW steps on (4, 256)
+8. ``moe_serve_exact``: the MoE flagship (``MoEConfig()``: vocab 32000,
+   d_model 512, 4 layers, 8 MHA heads, d_ff 1408, 8 experts top-2 on
+   layers 1 and 3) in fp32 with capacity_factor 4.0 (so the solo
+   prefill drops nothing), a 4-slot engine with chunked admission and K2
+   decode: every request's tokens equal its solo ``generate``.
+9. ``moe_serve``: the MoE flagship in bf16, two 8-slot engines with
+   chunked admission and a shared 64-token prefix, a bf16 pool (K2 fp)
+   and an int8 pool (K2 int8), 16 greedy and sampled requests each;
+   first-token logits against the drop-free plain path (an empty dense
+   cache, fp or int8 as the pool, and ``decode_chunk`` over the prompt in
+   the engine's chunks, reference attention);
+   tokens/s, decode step p50, a profile of 8 decode steps with the MoE
+   FFN's share.
+10. ``speculative``: the MoE flagship in fp32 (prefill through K1) as
+    target, its int8-quantized self as draft, gamma 4, 3 prompts of
+    32-200 tokens, 64 new tokens, through ``speculative_generate`` and
+    ``paged_speculative_generate``: tokens equal target-only greedy
+    ``generate``; acceptance (the drafts accepted, 64 − 1 − rounds, over
+    rounds × gamma), tokens/s of each beside ``generate``'s, host syncs
+    a round.
+11. ``train_exact``: the flagship in fp32, 3 AdamW steps on (4, 256)
    tokens with flash attention (K1 with lse, B3, B4) and 3 with
    reference attention from the same params: losses, grad norms and the
    first step's gradients agree.
-9. ``train``: the flagship in bf16 through ``trainer.fit`` on packed
+12. ``train``: the flagship in bf16 through ``trainer.fit`` on packed
    synthetic Zipf documents (seq 512, batch 8): 20 steps checkpointed
    every 10, then a resumed ``fit`` to 24; tokens/s, step p50, one step
    under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the
    step fails the phase) and the device's busy share.
-10. ``qualify``: ``qualify_slice()`` at its defaults.
-11. ``timing`` (the whole run's seconds, builds included) and
-    ``launches`` (per path); then the kernels line ``{"kernels": [...]}``:
-    per kernel its launches on its main path (serving: phases 6-7;
-    training: phases 8-10), max error, kernel / plain / library ms
+13. ``qualify``: ``qualify_slice()`` at its defaults.
+14. ``train_moe``: the MoE flagship in fp32, 3 steps on (4, 256) tokens
+    with flash attention (K1 with lse, B3, B4) and 3 with reference
+    attention from the same params (the tokens whose top-1 expert
+    differs between the two are counted); then bf16 at seq 512, batch 8,
+    12 steps on packed Zipf documents: step p50 and tokens/s.
+15. ``timing`` (the whole run's seconds, builds included, and each
+    phase's) and ``launches`` (per path: serving is phases 6-7,
+    moe_serving 8-9, speculative 10, training 11-13, moe_training 14);
+    then the kernels line ``{"kernels": [...]}``: per kernel its launches
+    summed over every path, max error, kernel / plain / library ms
     (device time), the kernel's issue ms, and the bound.
-12. the last line: ``{"ok": true, "device": {...}}``.
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -73,9 +100,14 @@ rounds P to bf16 first). B3/B4 relative to each gradient's own max|ref|
 in each case (printed beside the worst error): fp32 1e-4 (other
 summation order); bf16 3e-2 (dS is rounded to bf16 before two
 products). First-token logits of the bf16 engine against the plain path
-5e-2; of the int8-pool engine against an unquantized prefill 1e-1.
+5e-2; of the int8-pool engine against an unquantized prefill 1e-1 (the
+same for the MoE engines, against the drop-free plain path).
 ``train_exact``: losses 1e-4, grad norms 1e-3 relative, gradients 1e-4
 relative to max(1, max|ref|) (flash against reference attention, fp32).
+``train_moe``: losses 1e-3 relative (one flipped routing choice moves
+one token's FFN). Token streams (``serve_exact``, ``moe_serve_exact``,
+``speculative``): equal; on a mismatch the target's top-2 logit gap at
+the first diverging token is printed (under 1e-4 names float drift).
 fp32 matmuls run in full fp32 (TF32 off, below).
 """
 
@@ -362,15 +394,16 @@ def phase_flash(gen: torch.Generator) -> dict:
 
 
 def _paged_inputs(gen: torch.Generator, dtype, quant: bool, dh: int = 64,
-                  max_len: int = 512, full: bool = False):
+                  max_len: int = 512, full: bool = False, kv: int = 2):
     """Engine decode shape: 8 rows over a 256-block pool of 16 positions,
-    32 table slots per row. Row 0 has length 0; the rest draw lengths in
-    1..max_len; with ``full`` every row has length 512. Owned slots hold
-    distinct ids; the slots past each row's blocks hold stale ids that
-    may name other rows' blocks."""
+    32 table slots per row, 8 query heads over ``kv`` KV heads (2 for the
+    dense flagship, 8 for the MHA MoE flagship). Row 0 has length 0; the
+    rest draw lengths in 1..max_len; with ``full`` every row has length
+    512. Owned slots hold distinct ids; the slots past each row's blocks
+    hold stale ids that may name other rows' blocks."""
     from tpu_composer_torch.models.decode import quantize_kv
 
-    b, h, kv, bs, mb, n = 8, 8, 2, 16, 32, 256
+    b, h, bs, mb, n = 8, 8, 16, 32, 256
     if full:
         lengths = torch.full((b,), mb * bs)
     else:
@@ -429,7 +462,13 @@ def phase_paged(gen: torch.Generator) -> dict:
              "bf16_full": (torch.bfloat16, False, 64, {"full": True}),
              "int8_q_fp32_full": (torch.float32, True, 64, {"full": True}),
              "fp32_one_chunk": (torch.float32, False, 64, {"max_len": 64}),
-             "bf16_one_chunk": (torch.bfloat16, False, 64, {"max_len": 64})}
+             "bf16_one_chunk": (torch.bfloat16, False, 64, {"max_len": 64}),
+             # The MoE engine's shape: MHA, G = 1, lengths 0..320.
+             "fp32_mha": (torch.float32, False, 64, {"kv": 8, "max_len": 320}),
+             "bf16_mha": (torch.bfloat16, False, 64,
+                          {"kv": 8, "max_len": 320}),
+             "int8_q_bf16_mha": (torch.bfloat16, True, 64,
+                                 {"kv": 8, "max_len": 320})}
     errs, timing = {}, {}
     for name, (dtype, quant, dh, kw) in cases.items():
         worst = 0.0
@@ -450,7 +489,7 @@ def phase_paged(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(got.view(torch.uint8), again.view(torch.uint8)),
               f"paged_decode {name}: two launches differ")
-        if name in ("bf16", "int8_q_bf16"):
+        if name in ("bf16", "int8_q_bf16", "bf16_mha", "int8_q_bf16_mha"):
             t = {**timings(lambda: paged_decode_cuda(*args),
                            lambda: paged_decode_plain(*args)),
                  "max_abs_err": worst, "lengths": args[4].tolist()}
@@ -460,8 +499,10 @@ def phase_paged(gen: torch.Generator) -> dict:
     chunk, n_split = _decode_split(bs, mb)
     emit("paged_decode", errors=errs,
          tol={"fp32": 1e-4, "bf16": 2e-2}, shape=[8, 8, 2, 64, 16, 32, 256],
+         mha_shape=[8, 8, 8, 64, 16, 32, 256],
          geometry={"chunk": chunk, "n_split": n_split,
-                   "split_ctas": b * kv * n_split},
+                   "split_ctas": b * kv * n_split,
+                   "split_ctas_mha": b * 8 * n_split},
          bitwise_repeatable=True, timing=timing)
     return timing
 
@@ -630,12 +671,48 @@ FLAGSHIP = dict(vocab_size=8192, d_model=512, n_layers=4, n_heads=8,
                 n_kv_heads=2, d_ff=1408, max_seq=512)
 
 
+# The full-width MoE flagship: MoEConfig()'s defaults, bf16 and a fp32
+# router unless a phase says otherwise.
+MOE_FLAGSHIP = dict(vocab_size=32000, d_model=512, n_layers=4, n_heads=8,
+                    d_ff=1408, max_seq=2048, n_experts=8, top_k=2,
+                    capacity_factor=1.25, moe_period=2)
+DEVICE = "cuda"
+
+
 def _counts() -> dict:
-    from tpu_composer_torch.ops.attention import flash_fwd_cuda
+    """Every kernel wrapper's launch count, by kernel row."""
+    from tpu_composer_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
 
     return {"flash_fwd": flash_fwd_cuda.launches,
-            "paged_decode": paged_decode_cuda.launches}
+            "flash_fwd_lse": flash_fwd_cuda.launches_lse,
+            "flash_bwd_dq": flash_bwd_dq_cuda.launches,
+            "flash_bwd_dkv": flash_bwd_dkv_cuda.launches,
+            "paged_decode": paged_decode_cuda.launches,
+            "paged_decode_int8": paged_decode_cuda.launches_int8}
+
+
+def _reset_counts() -> None:
+    from tpu_composer_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
+    from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
+
+    flash_fwd_cuda.launches = flash_fwd_cuda.launches_lse = 0
+    flash_bwd_dq_cuda.launches = flash_bwd_dkv_cuda.launches = 0
+    paged_decode_cuda.launches = paged_decode_cuda.launches_int8 = 0
+
+
+def _launched(before: dict, kernels) -> dict:
+    """Launches of ``kernels`` since the counts ``before``."""
+    after = _counts()
+    return {k: after[k] - before[k] for k in kernels}
 
 
 def phase_serve_exact(rng: np.random.Generator, seed: int) -> dict:
@@ -654,8 +731,7 @@ def phase_serve_exact(rng: np.random.Generator, seed: int) -> dict:
                for n in (20, 64, 131, 256)]
     reqs = [eng.submit(p, 24) for p in prompts]
     eng.run()
-    after = _counts()
-    launches = {k: after[k] - before[k] for k in after}
+    launches = _launched(before, ("flash_fwd", "paged_decode"))
     for req, p in zip(reqs, prompts):
         solo = generate(params, torch.tensor([p], device="cuda"), ref,
                         max_new_tokens=24)[0].tolist()
@@ -685,6 +761,26 @@ def _make_recording_engine():
     return RecordingEngine
 
 
+def _submit_all(eng, rng, vocab: int, seed: int, new_tokens: int,
+                prefix=None) -> list:
+    """16 requests of 16-256 tokens (the even ones after ``prefix`` when
+    given), the odd ones sampled (temperature 0.8, top-k 50, top-p
+    0.95)."""
+    reqs = []
+    for i in range(16):
+        n = int(rng.integers(16, 257))
+        prompt = rng.integers(0, vocab, n).tolist()
+        if prefix is not None and i % 2 == 0:
+            prompt = prefix.tokens + prompt
+            kw = {"prefix": prefix}
+        else:
+            kw = {}
+        if i % 2:
+            kw.update(temperature=0.8, top_k=50, top_p=0.95, seed=seed + i)
+        reqs.append(eng.submit(prompt, new_tokens, **kw))
+    return reqs
+
+
 def _drive(eng) -> dict:
     """Run the engine to completion, timing every step on the host clock
     (each step ends in a host read of the picked tokens)."""
@@ -706,10 +802,11 @@ def _drive(eng) -> dict:
                                    if decode_only else None)}
 
 
-def _device_share(step, n_steps: int = 8) -> dict:
+def _device_share(step, n_steps: int = 8, ranges=()) -> dict:
     """Device busy share over a few calls of ``step`` (torch.profiler):
     summed kernel time over host wall time, and the kernels that take
-    it."""
+    it; for each ``record_function`` range named in ``ranges``, its host
+    time and the device time of the kernels launched inside it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -720,8 +817,12 @@ def _device_share(step, n_steps: int = 8) -> dict:
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    # A range shows on the device too (as an annotation spanning its
+    # kernels and the gaps between them): kernels only here.
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in events if any(
@@ -734,7 +835,12 @@ def _device_share(step, n_steps: int = 8) -> dict:
             "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3,
                              e.count] for e in top],
             "port_kernels": [[e.key[:60], e.self_device_time_total / 1e3,
-                              e.count] for e in ours]}
+                              e.count] for e in ours],
+            "ranges": {e.key: {"host_ms": e.cpu_time_total / 1e3,
+                               "device_ms": e.device_time_total / 1e3,
+                               "calls": e.count}
+                       for e in averages if e.key in ranges
+                       and e.device_type == torch.autograd.DeviceType.CPU}}
 
 
 def phase_serve(rng: np.random.Generator, seed: int) -> dict:
@@ -756,19 +862,7 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
         return logits[0].float().cpu()
 
     def submit_all(eng, prefix=None):
-        reqs = []
-        for i in range(16):
-            n = int(rng.integers(16, 257))
-            prompt = rng.integers(0, cfg.vocab_size, n).tolist()
-            if prefix is not None and i % 2 == 0:
-                prompt = prefix.tokens + prompt
-                kw = {"prefix": prefix}
-            else:
-                kw = {}
-            if i % 2:
-                kw.update(temperature=0.8, top_k=50, top_p=0.95, seed=seed + i)
-            reqs.append(eng.submit(prompt, new_tokens, **kw))
-        return reqs
+        return _submit_all(eng, rng, cfg.vocab_size, seed, new_tokens, prefix)
 
     results = {}
     # Engine A: bucketed admission (prefill through K1), bf16 pool (K2).
@@ -778,8 +872,7 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
     eng.first_logits = {}
     reqs = submit_all(eng)
     stats = _drive(eng)
-    after = _counts()
-    launches = {k: after[k] - before[k] for k in after}
+    launches = _launched(before, ("flash_fwd", "paged_decode"))
     check(all(r.done and len(r.tokens) == new_tokens for r in reqs),
           "bf16 engine left a request unfinished")
     check(int(eng.cache.free_top) == 256, "bf16 engine pool did not drain")
@@ -813,8 +906,7 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
     handle = eng.register_prefix(rng.integers(0, cfg.vocab_size, 64).tolist())
     reqs = submit_all(eng, prefix=handle)
     stats = _drive(eng)
-    after = _counts()
-    launches = {k: after[k] - before[k] for k in after}
+    launches = _launched(before, ("flash_fwd", "paged_decode_int8"))
     check(all(r.done and len(r.tokens) == new_tokens for r in reqs),
           "int8 engine left a request unfinished")
     eng.close_prefix(handle)
@@ -830,18 +922,6 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
                            launches=launches, first_logit_err=worst)
     emit("serve", engine="int8_chunked_prefix", **results["int8"])
     return results
-
-
-def _train_counts() -> dict:
-    from tpu_composer_torch.ops.attention import (
-        flash_bwd_dkv_cuda,
-        flash_bwd_dq_cuda,
-        flash_fwd_cuda,
-    )
-
-    return {"flash_fwd_lse": flash_fwd_cuda.launches_lse,
-            "flash_bwd_dq": flash_bwd_dq_cuda.launches,
-            "flash_bwd_dkv": flash_bwd_dkv_cuda.launches}
 
 
 def _grads(params, tokens, cfg):
@@ -976,6 +1056,373 @@ def phase_qualify() -> dict:
     return res
 
 
+def _first_divergence(got: list, want: list) -> int:
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def _top2_gap(params, cfg, seq: list) -> float:
+    """The model's top-2 logit gap for the token after ``seq``."""
+    from tpu_composer_torch.models.moe import forward
+
+    with torch.no_grad():
+        logits, _ = forward(params, torch.tensor([seq], device=DEVICE), cfg)
+    top = torch.topk(logits[0, -1], 2).values
+    return float(top[0] - top[1])
+
+
+def _check_tokens(label: str, got: list, want: list, params, cfg,
+                  prompt: list) -> None:
+    """Tokens equal, or fail naming the first diverging token and the
+    target's top-2 logit gap there (under 1e-4: float drift between
+    chunked and stepwise sums, not a logic fault)."""
+    if got == want:
+        return
+    i = _first_divergence(got, want)
+    gap = _top2_gap(params, cfg, prompt + want[:i])
+    print(f"{label}: first diverging token {i}, target top-2 logit gap "
+          f"{gap:.3e}", flush=True)
+    check(False, f"{label} diverged from target-only greedy at token {i} "
+                 f"(top-2 gap {gap:.3e})")
+
+
+def _recording_routes(fn):
+    """(``fn()``, the experts each routing call chose, (B, S, K) each):
+    ``moe._route`` is patched for the call."""
+    from tpu_composer_torch.models import moe
+
+    route, seen = moe._route, []
+
+    def recording(logits, top_k, capacity):
+        out = route(logits, top_k, capacity)
+        seen.append(out[0])
+        return out
+
+    moe._route = recording
+    try:
+        return fn(), seen
+    finally:
+        moe._route = route
+
+
+def _moved_choices(routes, other) -> int:
+    """(token, layer) pairs whose set of chosen experts differs."""
+    return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+               for a, b in zip(routes, other))
+
+
+def _moe_ffn_ranged():
+    """Patch ``moe._moe_ffn`` to run inside a ``record_function`` range
+    named "moe_ffn" (for a profile); returns the restore function."""
+    from tpu_composer_torch.models import moe
+
+    inner = moe._moe_ffn
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("moe_ffn"):
+            return inner(*args, **kw)
+
+    moe._moe_ffn = ranged
+    return lambda: setattr(moe, "_moe_ffn", inner)
+
+
+def phase_moe_serve_exact(rng: np.random.Generator, seed: int) -> dict:
+    """fp32 MoE flagship, capacity_factor 4.0: the engine (chunked
+    admission, K2 decode) against each request's solo generate with
+    reference attention."""
+    from tpu_composer_torch.models.decode import generate
+    from tpu_composer_torch.models.moe import MoEConfig, init_params
+    from tpu_composer_torch.models.serving import ContinuousBatchingEngine
+
+    cfg = MoEConfig(dtype=torch.float32, attn_impl="flash",
+                    **{**MOE_FLAGSHIP, "capacity_factor": 4.0})
+    ref = dataclasses.replace(cfg, attn_impl="reference")
+    params = init_params(cfg, seed=seed, device=DEVICE)
+    before = _counts()
+    eng = ContinuousBatchingEngine(params, cfg, slots=4, num_blocks=128,
+                                   block_size=16, blocks_per_row=32,
+                                   attn_impl="kernel", prefill_chunk=64)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 64, 131, 256)]
+    reqs = [eng.submit(p, 24) for p in prompts]
+    eng.run()
+    launches = _launched(before, ("paged_decode",))
+    for req, p in zip(reqs, prompts):
+        solo = generate(params, torch.tensor([p], device=DEVICE), ref,
+                        max_new_tokens=24)[0].tolist()
+        _check_tokens(f"moe_serve_exact request {req.req_id}", req.tokens,
+                      solo, params, ref, p)
+    check(launches["paged_decode"] > 0,
+          f"moe_serve_exact did not launch K2: {launches}")
+    check(int(eng.cache.free_top) == 128, "moe_serve_exact pool did not drain")
+    emit("moe_serve_exact", requests=len(reqs), tokens_equal=True,
+         launches=launches)
+    return launches
+
+
+def phase_moe_serve(rng: np.random.Generator, seed: int) -> dict:
+    """bf16 MoE flagship through two chunked-admission engines with a
+    shared prefix: a bf16 pool (K2 fp) and an int8 pool (K2 int8)."""
+    from tpu_composer_torch.models.decode import decode_chunk, init_kv_cache
+    from tpu_composer_torch.models.moe import MoEConfig, init_params
+
+    cfg = MoEConfig(dtype=torch.bfloat16, attn_impl="flash", **MOE_FLAGSHIP)
+    ref = dataclasses.replace(cfg, attn_impl="reference")
+    params = init_params(cfg, seed=seed, device=DEVICE)
+    Engine = _make_recording_engine()
+    new_tokens = 64
+
+    def plain_first_logits(req, kv_quant):
+        # Drop-free routing, as the engine's chunks route: an empty dense
+        # cache and decode_chunk over the prompt (not prefill, whose
+        # capacity rule may drop tokens the chunks keep). The cache is as
+        # long as an engine row and the chunks are the engine's (the
+        # prefix, then 64 tokens at a time), so the sums run over the
+        # same lengths: a router near-tie then resolves the same way.
+        start = req.prefix.n_tokens if req.prefix is not None else 0
+        cuts = ([0] if start else []) + list(range(start, len(req.prompt),
+                                                   64)) + [len(req.prompt)]
+        cache = init_kv_cache(ref, 1, max_seq=512, quant=kv_quant,
+                              device=DEVICE)
+        toks = torch.tensor([req.prompt], device=DEVICE)
+        for a, b in zip(cuts, cuts[1:]):
+            logits, cache = decode_chunk(params, cache, toks[:, a:b], ref)
+        return logits[0, -1].float().cpu()
+
+    results = {}
+    for name, kv_quant, kernel, tol in (
+            ("bf16", False, "paged_decode", LOGIT_TOL_BF16),
+            ("int8", True, "paged_decode_int8", LOGIT_TOL_INT8)):
+        before = _counts()
+        eng = Engine(params, cfg, slots=8, num_blocks=256, block_size=16,
+                     blocks_per_row=32, attn_impl="kernel",
+                     kv_quant=kv_quant, prefill_chunk=64)
+        eng.first_logits = {}
+        handle = eng.register_prefix(
+            rng.integers(0, cfg.vocab_size, 64).tolist())
+        reqs = _submit_all(eng, rng, cfg.vocab_size, seed, new_tokens,
+                           prefix=handle)
+        stats = _drive(eng)
+        launches = _launched(before, (kernel,))
+        check(all(r.done and len(r.tokens) == new_tokens for r in reqs),
+              f"MoE {name} engine left a request unfinished")
+        eng.close_prefix(handle)
+        check(int(eng.cache.free_top) == 256,
+              f"MoE {name} engine pool did not drain")
+        check(launches[kernel] > 0,
+              f"MoE {name} engine did not launch {kernel}: {launches}")
+        # The int8 pool is held to the plain path over an int8 dense
+        # cache (the same quantized K/V). Beside it: its distance from an
+        # fp cache, and how many (token, layer) routing choices the int8
+        # K/V moved.
+        plain = {r.req_id: _recording_routes(
+            lambda r=r: plain_first_logits(r, kv_quant)) for r in reqs}
+        worst = max(max_err(eng.first_logits[i], logits)
+                    for i, (logits, _) in plain.items())
+        check(worst <= tol, f"MoE {name} first-token logits off by {worst}")
+        extra = {}
+        if kv_quant:
+            fp = {r.req_id: _recording_routes(
+                lambda r=r: plain_first_logits(r, False)) for r in reqs}
+            extra["first_logit_err_vs_fp_cache"] = max(
+                max_err(eng.first_logits[i], fp[i][0]) for i in fp)
+            extra["routing_moved_vs_fp_cache"] = sum(
+                _moved_choices(plain[i][1], fp[i][1]) for i in fp)
+            extra["routing_token_layers"] = sum(
+                x.shape[0] * x.shape[1] for _, routes in plain.values()
+                for x in routes)
+        gen_tokens = sum(len(r.tokens) for r in reqs)
+        results[name] = dict(stats, tokens=gen_tokens,
+                             tokens_per_s=gen_tokens / stats["wall_s"],
+                             launches=launches, first_logit_err=worst,
+                             tol=tol, **extra)
+        emit("moe_serve", engine=name, **results[name])
+        if name != "bf16":
+            continue
+        # The device's share of a decode step, 8 requests in 8 slots, and
+        # the MoE FFN's part of it.
+        for _ in range(8):
+            eng.submit(rng.integers(0, cfg.vocab_size, 128).tolist(), 64)
+        while eng._waiting or eng._admitting:
+            eng.step()
+        restore = _moe_ffn_ranged()
+        try:
+            results["profile"] = _device_share(eng.step, ranges=("moe_ffn",))
+        finally:
+            restore()
+        emit("moe_serve_profile", **results["profile"])
+        eng.run()
+    return results
+
+
+def phase_speculative(rng: np.random.Generator, seed: int) -> dict:
+    """fp32 MoE flagship (prefill through K1) verified against its
+    int8-quantized self, dense and paged caches, against target-only
+    greedy generate."""
+    import warnings
+
+    from tpu_composer_torch.models import speculative as spec
+    from tpu_composer_torch.models.decode import generate
+    from tpu_composer_torch.models.moe import MoEConfig, init_params
+    from tpu_composer_torch.models.quant import quantize_decode_params
+
+    cfg = MoEConfig(dtype=torch.float32, attn_impl="flash", **MOE_FLAGSHIP)
+    params = init_params(cfg, seed=seed, device=DEVICE)
+    draft = quantize_decode_params(params)
+    gamma, new, max_seq = 4, 64, 512
+
+    # Count verify rounds per call (the loop is the port's own).
+    loop, rounds = spec._speculative_loop, []
+
+    def counted(*args, verify, **kw):
+        calls = [0]
+
+        def counting_verify(cache, chunk):
+            calls[0] += 1
+            return verify(cache, chunk)
+
+        out = loop(*args, verify=counting_verify, **kw)
+        rounds.append(calls[0])
+        return out
+
+    runs = {
+        "generate": lambda p: generate(params, p, cfg, max_new_tokens=new,
+                                       max_seq=max_seq),
+        "dense": lambda p: spec.speculative_generate(
+            params, draft, p, cfg, max_new_tokens=new, gamma=gamma,
+            max_seq=max_seq),
+        "paged": lambda p: spec.paged_speculative_generate(
+            params, draft, p, cfg, num_blocks=32, block_size=16,
+            max_new_tokens=new, gamma=gamma),
+    }
+    seconds = {k: 0.0 for k in runs}
+    per_round = {"dense": [], "paged": []}
+    before = _counts()
+    spec._speculative_loop = counted
+    try:
+        for n in (32, 100, 200):
+            prompt = rng.integers(0, cfg.vocab_size, n).tolist()
+            p = torch.tensor([prompt], device=DEVICE)
+            out = {}
+            for name, run in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[name] = run(p)[0].tolist()
+                torch.cuda.synchronize()
+                seconds[name] += time.perf_counter() - t0
+                if name != "generate":
+                    per_round[name].append(rounds[-1])
+            for name in ("dense", "paged"):
+                _check_tokens(f"speculative {name} (prompt {n})", out[name],
+                              out["generate"], params, cfg, prompt)
+        # Host syncs of one call each, on the shortest prompt: every one
+        # the sync debug mode reports.
+        syncs = {}
+        p = torch.tensor([rng.integers(0, cfg.vocab_size, 32).tolist()],
+                         device=DEVICE)
+        for name in ("dense", "paged"):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    runs[name](p)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs[name] = {"syncs": sum("synchroniz" in str(w.message)
+                                        for w in seen),
+                           "rounds": rounds[-1]}
+    finally:
+        spec._speculative_loop = loop
+    launches = _launched(before, ("flash_fwd",))
+    check(launches["flash_fwd"] > 0, "speculative did not launch K1")
+    tokens = 3 * new
+    out = {"gamma": gamma, "prompts": [32, 100, 200], "new_tokens": new,
+           "tokens_equal": True, "launches": launches,
+           "rounds": per_round,
+           # Each round accepts a drafts and adds a + 1 tokens: the
+           # drafts accepted are new − 1 − rounds (the last round's
+           # overshoot aside), over rounds × gamma proposed.
+           "acceptance": {k: sum(new - 1 - r for r in v) / (gamma * sum(v))
+                          for k, v in per_round.items()},
+           "tokens_per_s": {k: tokens / v for k, v in seconds.items()},
+           "host_syncs": syncs}
+    emit("speculative", **out)
+    return out
+
+
+def phase_train_moe(seed: int) -> dict:
+    """fp32 MoE flagship, flash against reference attention over 3 steps;
+    then bf16 at seq 512, batch 8, 12 steps on packed Zipf documents."""
+    from tpu_composer_torch.data import PackedLMDataset, ShardedLoader
+    from tpu_composer_torch.examples.train_lm import zipf_documents
+    from tpu_composer_torch.models import moe
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        make_train_state,
+        make_train_step,
+        tree_leaves,
+    )
+
+    vocab = MOE_FLAGSHIP["vocab_size"]
+    gen = torch.Generator().manual_seed(seed)
+    batches = [torch.randint(0, vocab, (4, 256), generator=gen,
+                             dtype=torch.int32).to(DEVICE)
+               for _ in range(3)]
+    losses, top1 = {}, {}
+    for impl in ("flash", "reference"):
+        cfg = moe.MoEConfig(dtype=torch.float32, attn_impl=impl,
+                            **MOE_FLAGSHIP)
+        tc = TrainConfig(model=cfg)
+        state = make_train_state(tc, seed, DEVICE)
+        with torch.no_grad():  # the first batch's top-1 experts
+            _, seen = _recording_routes(
+                lambda: moe.forward(state["params"], batches[0], cfg))
+        top1[impl] = [x[..., 0] for x in seen]
+        step = make_train_step(tc)
+        losses[impl] = [float(step(state, toks)[1]["loss"])
+                        for toks in batches]
+    flips = sum(int((a != b).sum())
+                for a, b in zip(top1["flash"], top1["reference"]))
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses["flash"], losses["reference"]))
+    check(rel <= 1e-3, f"train_moe fp32 losses differ by {rel} relative")
+    exact = {"losses_flash": losses["flash"],
+             "losses_reference": losses["reference"],
+             "max_loss_rel_err": rel, "top1_expert_flips": flips,
+             "routed_tokens": 4 * 256 * len(top1["flash"])}
+
+    cfg = moe.MoEConfig(dtype=torch.bfloat16, attn_impl="flash",
+                        **MOE_FLAGSHIP)
+    tc = TrainConfig(model=cfg)
+    seq, batch = 512, 8
+    dataset = PackedLMDataset(zipf_documents(seed, vocab=vocab), seq_len=seq,
+                              seed=seed)
+    loader = iter(ShardedLoader(dataset, batch, device=DEVICE,
+                                prefetch=False))
+    state, step = make_train_state(tc, seed, DEVICE), make_train_step(tc)
+    bf16_losses, times = [], []
+    for _ in range(12):
+        toks = next(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        bf16_losses.append(float(m["loss"]))
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in tree_leaves(state["params"]))
+    check(finite and all(np.isfinite(bf16_losses)),
+          f"train_moe bf16 not finite: {bf16_losses}")
+    check(bf16_losses[-1] < bf16_losses[0],
+          f"train_moe loss did not fall: {bf16_losses[0]} -> "
+          f"{bf16_losses[-1]}")
+    p50 = float(np.median(times[2:]))
+    out = {"exact": exact, "losses_bf16": bf16_losses, "step_ms": times,
+           "step_ms_p50": p50, "tokens_per_s": batch * seq / (p50 / 1e3)}
+    emit("train_moe", seq=seq, global_batch=batch, **out)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -995,53 +1442,54 @@ def main() -> int:
     t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
-    card = phase_card()
-    phase_build()
-    flash = phase_flash(gen)
-    paged = phase_paged(gen)
-    bwd = phase_flash_bwd(gen)
+    seconds = {}
 
-    from tpu_composer_torch.ops.attention import (
-        flash_bwd_dkv_cuda,
-        flash_bwd_dq_cuda,
-        flash_fwd_cuda,
-    )
-    from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
+    def timed_phase(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t0
+        return out
 
-    def reset_counts():
-        flash_fwd_cuda.launches = flash_fwd_cuda.launches_lse = 0
-        paged_decode_cuda.launches = 0
-        flash_bwd_dq_cuda.launches = flash_bwd_dkv_cuda.launches = 0
+    card = timed_phase("card", phase_card)
+    timed_phase("build", phase_build)
+    flash = timed_phase("flash_fwd", phase_flash, gen)
+    paged = timed_phase("paged_decode", phase_paged, gen)
+    bwd = timed_phase("flash_bwd", phase_flash_bwd, gen)
 
-    # The serving path: every count starts at 0 here and is read after it.
-    reset_counts()
-    phase_serve_exact(rng, args.seed)
-    serve = phase_serve(rng, args.seed)
-    flash_launches = flash_fwd_cuda.launches
-    paged_int8 = serve["int8"]["launches"]["paged_decode"]
-    paged_fp = paged_decode_cuda.launches - paged_int8
-    check(flash_launches > 0 and paged_fp > 0 and paged_int8 > 0,
-          "a kernel of the serving path was never launched")
+    # Each main path: every count is set to 0 just before its phases run
+    # and read just after; each of the path's kernels must have launched.
+    paths = {}
+    for name, kernels, phases in (
+            ("serving", ("flash_fwd", "paged_decode", "paged_decode_int8"),
+             (("serve_exact", phase_serve_exact, rng, args.seed),
+              ("serve", phase_serve, rng, args.seed))),
+            ("moe_serving", ("paged_decode", "paged_decode_int8"),
+             (("moe_serve_exact", phase_moe_serve_exact, rng, args.seed),
+              ("moe_serve", phase_moe_serve, rng, args.seed))),
+            ("speculative", ("flash_fwd",),
+             (("speculative", phase_speculative, rng, args.seed),)),
+            ("training", ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"),
+             (("train_exact", phase_train_exact, args.seed),
+              ("train", phase_train, args.seed),
+              ("qualify", phase_qualify))),
+            ("moe_training",
+             ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"),
+             (("train_moe", phase_train_moe, args.seed),))):
+        _reset_counts()
+        for phase_name, fn, *fn_args in phases:
+            timed_phase(phase_name, fn, *fn_args)
+        paths[name] = _counts()
+        check(all(paths[name][k] > 0 for k in kernels),
+              f"a kernel of the {name} path was never launched:"
+              f" {paths[name]}")
+    emit("timing", wall_s=time.perf_counter() - t_start, phase_s=seconds)
+    emit("launches", **paths)
 
-    # The training path, counted the same way.
-    reset_counts()
-    phase_train_exact(args.seed)
-    phase_train(args.seed)
-    phase_qualify()
-    train_launches = _train_counts()
-    check(all(n > 0 for n in train_launches.values()),
-          f"a kernel of the training path was never launched:"
-          f" {train_launches}")
-    emit("timing", wall_s=time.perf_counter() - t_start)
-    emit("launches", serving={"flash_fwd": flash_launches,
-                              "paged_decode": paged_fp,
-                              "paged_decode_int8": paged_int8},
-         training=train_launches)
-
-    def row(name, source, replaces, function, launches, t):
+    def row(name, source, replaces, function, t):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "function": function,
-                "launches": launches, "max_abs_err": t["max_abs_err"],
+                "launches": sum(c[name] for c in paths.values()),
+                "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "issue_ms": t["issue_ms"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1050,26 +1498,22 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("flash_fwd", "tpu_composer_torch/csrc/flash_fwd.cu",
             "tpu_composer/ops/attention.py:189",
-            "attention.py::_fwd_kernel_nolse", flash_launches, flash),
+            "attention.py::_fwd_kernel_nolse", flash),
         row("flash_fwd_lse", "tpu_composer_torch/csrc/flash_fwd.cu",
             "tpu_composer/ops/attention.py:83",
-            "attention.py::_fwd_kernel", train_launches["flash_fwd_lse"],
-            bwd["flash_fwd_lse"]),
+            "attention.py::_fwd_kernel", bwd["flash_fwd_lse"]),
         row("flash_bwd_dq", "tpu_composer_torch/csrc/flash_bwd.cu",
             "tpu_composer/ops/attention.py:285",
-            "attention.py::_dq_kernel", train_launches["flash_bwd_dq"],
-            bwd["flash_bwd_dq"]),
+            "attention.py::_dq_kernel", bwd["flash_bwd_dq"]),
         row("flash_bwd_dkv", "tpu_composer_torch/csrc/flash_bwd.cu",
             "tpu_composer/ops/attention.py:324",
-            "attention.py::_dkv_kernel", train_launches["flash_bwd_dkv"],
-            bwd["flash_bwd_dkv"]),
+            "attention.py::_dkv_kernel", bwd["flash_bwd_dkv"]),
         row("paged_decode", "tpu_composer_torch/csrc/paged_decode.cu",
             "tpu_composer/ops/paged_attention.py:49",
-            "paged_attention.py::_kernel", paged_fp, paged["bf16"]),
+            "paged_attention.py::_kernel", paged["bf16"]),
         row("paged_decode_int8", "tpu_composer_torch/csrc/paged_decode.cu",
             "tpu_composer/ops/paged_attention.py:41",
-            "paged_attention.py::_kernel_quant", paged_int8,
-            paged["int8_q_bf16"]),
+            "paged_attention.py::_kernel_quant", paged["int8_q_bf16"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"], "count": card["count"]}}),

@@ -88,18 +88,30 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _moe_config():
+    from tpu_composer_torch.models.moe import MoEConfig
+
+    return MoEConfig(vocab_size=16, d_model=16, n_layers=2, n_heads=2,
+                     d_ff=16, max_seq=16, dtype=torch.float32, n_experts=2)
+
+
 def test_entry_points_raise_without_a_card(no_card):
     from tpu_composer_torch.convert import params_from_jax
+    from tpu_composer_torch.models import moe
     from tpu_composer_torch.models.decode import init_kv_cache
     from tpu_composer_torch.models.paged import init_paged_cache
     from tpu_composer_torch.models.transformer import ModelConfig, init_params
 
     c = ModelConfig(vocab_size=16, d_model=16, n_layers=1, n_heads=2,
                     d_ff=16, max_seq=16, dtype=torch.float32)
+    mc = _moe_config()
     calls = [
         lambda **kw: init_params(c, 0, **kw),
         lambda **kw: init_kv_cache(c, 1, **kw),
         lambda **kw: init_paged_cache(c, 1, 4, 4, **kw),
+        lambda **kw: moe.init_params(mc, 0, **kw),
+        lambda **kw: init_kv_cache(mc, 1, **kw),
+        lambda **kw: init_paged_cache(mc, 1, 4, 4, **kw),
         lambda **kw: params_from_jax(
             {"embed": np.zeros((16, 16), np.float32), "layers": [],
              "ln_f": np.ones(16, np.float32)}, c, **kw),
@@ -161,6 +173,28 @@ def test_engine_follows_its_params_device(no_card):
     req = eng.submit([1, 2], 3)
     eng.run()
     assert len(req.tokens) == 3 and eng.cache.k_pool.device.type == "cpu"
+
+
+def test_speculative_caches_follow_the_prompt_device(no_card):
+    """The speculative functions take no device: their caches and output
+    lie on the prompt's device, so CPU tensors run on the CPU without a
+    card (and CUDA tensors would run on the card)."""
+    from tpu_composer_torch.models import moe
+    from tpu_composer_torch.models.speculative import (
+        paged_speculative_generate,
+        speculative_generate,
+    )
+
+    mc = _moe_config()
+    params = moe.init_params(mc, 0, device="cpu")
+    prompt = torch.tensor([[1, 2, 3]])
+    for out in (
+        speculative_generate(params, params, prompt, mc, max_new_tokens=4,
+                             gamma=2),
+        paged_speculative_generate(params, params, prompt, mc, num_blocks=2,
+                                   block_size=4, max_new_tokens=4, gamma=2),
+    ):
+        assert out.device.type == "cpu" and out.shape == (1, 4)
 
 
 def _run_smoke(cwd, script):

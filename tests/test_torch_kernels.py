@@ -255,11 +255,47 @@ def test_paged_kernel_matches_plain(card, pool, dh):
     q = torch.from_numpy(rng.standard_normal((b, h, dh), np.float32)).to(qd)
     args = [x if x is None else x.to(card)
             for x in (q, kp, vp, tables, lengths, ks, vs)]
-    before = tpa.paged_decode_cuda.launches
+    counter = "launches_int8" if pool == "int8" else "launches"
+    before = getattr(tpa.paged_decode_cuda, counter)
     got = tpa.paged_decode_attention(*args)
     want = tpa.paged_decode_plain(*args)
     torch.cuda.synchronize()
-    assert tpa.paged_decode_cuda.launches == before + 1
+    assert getattr(tpa.paged_decode_cuda, counter) == before + 1
+    assert (got[0] == 0).all()  # the length-0 row
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+def test_paged_kernel_mha_engine_shape(card, pool):
+    """K2 at G = 1, the MoE engine's decode shape: 8 rows, 8 query heads
+    over 8 KV heads of 64, blocks of 16, 32 table slots, lengths 0-320
+    with stale slots past each row's blocks."""
+    rng = np.random.default_rng(12)
+    n_blocks, bs, kv, h, mb, dh = 256, 16, 8, 8, 32, 64
+    lengths = np.array([0, 1, 15, 64, 65, 130, 257, 320], np.int32)
+    tables = rng.integers(0, n_blocks, (8, mb)).astype(np.int32)
+    perm, used = rng.permutation(n_blocks), 0
+    for r, n_len in enumerate(lengths):
+        owned = -(-int(n_len) // bs)
+        tables[r, :owned] = perm[used:used + owned]
+        used += owned
+    kf, vf = (torch.from_numpy(rng.standard_normal((n_blocks, bs, kv, dh),
+                                                   np.float32))
+              for _ in range(2))
+    if pool == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
+        qd, tol = torch.float32, 2e-4
+    else:
+        qd = getattr(torch, pool)
+        kp, vp, ks, vs = kf.to(qd), vf.to(qd), None, None
+        tol = TOL[qd]
+    q = torch.from_numpy(rng.standard_normal((8, h, dh), np.float32)).to(qd)
+    args = [x if x is None else x.to(card)
+            for x in (q, kp, vp, torch.from_numpy(tables),
+                      torch.from_numpy(lengths), ks, vs)]
+    got = tpa.paged_decode_attention(*args)
+    want = tpa.paged_decode_plain(*args)
+    torch.cuda.synchronize()
     assert (got[0] == 0).all()  # the length-0 row
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 

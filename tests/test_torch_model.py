@@ -101,10 +101,18 @@ def test_quantize_decode_params_matches_jax(kv_heads):
 
 
 def test_quantize_decode_params_rejects_moe_stacks():
+    """A 3-dim expert stack (E, D, F) is no longer refused: it takes
+    per-(expert, channel) scales, as the JAX package's ``_MOE_FFN``."""
     _, _, _, tp = world(0)
-    layer = dict(tp["layers"][0], w_gate=torch.zeros(2, 32, 64))
-    with pytest.raises(ValueError, match="MoE"):
-        tquant.quantize_decode_params({**tp, "layers": [layer]})
+    stack = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((2, 32, 64), np.float32))
+    layer = dict(tp["layers"][0], w_gate=stack)
+    got = tquant.quantize_decode_params({**tp, "layers": [layer]})
+    got = got["layers"][0]["w_gate"]
+    want = jquant.quantize_weight(jnp.asarray(n(stack)), (1,))
+    assert got.scale.shape == (2, 1, 64)
+    np.testing.assert_array_equal(n(got.q), n(want.q))
+    np.testing.assert_array_equal(n(got.scale), n(want.scale))
 
 
 # -- transformer / convert -----------------------------------------------------

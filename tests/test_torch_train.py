@@ -14,7 +14,12 @@ Tolerances, each with its reason:
   a JAX state carried 2 steps in, atol 1e-6 (one fp32 AdamW update of
   lr 3e-4 differs by float association only);
 - gradient accumulation: the tolerances of tests/test_parallel.py
-  (loss rtol 1e-5, grad_norm rtol 1e-4, params rtol 2e-4 atol 2e-6).
+  (loss rtol 1e-5, grad_norm rtol 1e-4, params rtol 2e-4 atol 2e-6);
+- MoE: a JAX state carried in and stepped twice, losses rtol 1e-4 (the
+  router's argmax sees logits that differ by float association, so one
+  flipped choice must stay inside it);
+- ``fit`` resumed from a checkpoint: the uninterrupted run's losses, rtol
+  1e-6 (the same steps on the same batches, on one device).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import optax
 import pytest
 import torch
 
-from tests.torch_parity import configs, n, t, to_numpy, world
+from tests.torch_parity import configs, moe_configs, n, t, to_numpy, world
 from tpu_composer.models import transformer as jtr
 from tpu_composer.parallel.mesh import make_mesh
 from tpu_composer.parallel.train import TrainConfig as JaxTrainConfig
@@ -58,8 +63,9 @@ def _leaf_close(got, want, rel):
     assert err <= rel * max(1.0, float(np.abs(want).max())), err
 
 
-def _jax_mesh():
-    return make_mesh({"dp": 1, "sp": 1, "tp": 1}, devices=jax.devices()[:1])
+def _jax_mesh(**axes):
+    return make_mesh({"dp": 1, **axes, "sp": 1, "tp": 1},
+                     devices=jax.devices()[:1])
 
 
 # -- the model's training half -----------------------------------------------
@@ -239,6 +245,85 @@ def test_multi_device_fields_are_refused(kw, exc):
         ttrain.make_train_step(ttc)
     with pytest.raises(exc, match=match):
         ttrain.make_train_state(ttc, device="cpu")
+
+
+def test_moe_pipeline_is_refused_as_in_jax():
+    _, tc = moe_configs()
+    ttc = ttrain.TrainConfig(model=tc, pipeline_microbatches=2)
+    with pytest.raises(ValueError, match="dense model only"):
+        ttrain.make_train_step(ttc)
+
+
+def _moe_setup():
+    jc, tc = moe_configs(n_kv_heads=2, attn_impl="flash")
+    jtc, ttc = JaxTrainConfig(model=jc), ttrain.TrainConfig(model=tc)
+    assert ttc.is_moe and jtc.is_moe
+    mesh = _jax_mesh(ep=1)
+    jstep, sharding = jax_train_step(jtc, mesh)
+    return jtc, ttc, jax_train_state(jtc, jax.random.key(1), mesh), jstep, \
+        sharding
+
+
+def test_moe_state_from_jax_steps_as_jax():
+    """An MoE train state made by the JAX package, carried into the port,
+    then two steps in both on the same tokens: equal losses and grad
+    norms, and the router with its moments stays fp32."""
+    jtc, ttc, jstate, jstep, sharding = _moe_setup()
+    tstate = train_state_from_jax(to_numpy(jstate), ttc, "cpu")
+    tstep = ttrain.make_train_step(ttc)
+    for i in range(2):
+        toks = _tokens(40 + i, vocab=128)
+        jstate, jm = jstep(jstate, jax.device_put(toks, sharding))
+        tstate, tm = tstep(tstate, torch.from_numpy(toks))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    want = to_numpy(jstate)["params"]["layers"][1]["w_router"]
+    got = tstate["params"]["layers"][1]["w_router"]
+    np.testing.assert_allclose(n(got), want, atol=1e-6, rtol=0)
+
+
+def test_moe_bf16_state_keeps_the_router_fp32():
+    jc, tc = moe_configs("bfloat16")
+    jtc, ttc = JaxTrainConfig(model=jc), ttrain.TrainConfig(model=tc)
+    jstate = jax_train_state(jtc, jax.random.key(0), _jax_mesh(ep=1))
+    state = train_state_from_jax(to_numpy(jstate), ttc, "cpu")
+    for tree in (state["params"], state["opt"]["mu"], state["opt"]["nu"]):
+        assert tree["layers"][1]["w_router"].dtype == torch.float32
+        assert tree["layers"][1]["w_gate"].dtype == torch.bfloat16
+    mine = ttrain.make_train_state(ttc, seed=0, device="cpu")
+    assert mine["opt"]["mu"]["layers"][1]["w_router"].dtype == torch.float32
+
+
+def test_moe_fit_resumes_on_the_same_losses(tmp_path):
+    """``trainer.fit`` and the checkpoints take an MoE state unchanged: a
+    run stopped at step 4 and resumed to 6 logs the uninterrupted run's
+    losses."""
+    from tpu_composer_torch.data import PackedLMDataset
+    from tpu_composer_torch.workload.trainer import fit
+
+    _, tc = moe_configs()
+    ttc = ttrain.TrainConfig(model=tc)
+    rng = np.random.default_rng(50)
+    docs = [rng.integers(1, 128, int(rng.integers(4, 40))).tolist()
+            for _ in range(64)]
+    ds = PackedLMDataset(docs, seq_len=16, seed=0)
+    whole = fit(ttc, ds, total_steps=6, global_batch=2, log_every=1,
+                device="cpu")
+    fit(ttc, ds, total_steps=4, global_batch=2, checkpoint_dir=str(tmp_path),
+        checkpoint_every=2, log_every=1, device="cpu")
+    resumed = fit(ttc, ds, total_steps=6, global_batch=2,
+                  checkpoint_dir=str(tmp_path), checkpoint_every=2,
+                  log_every=1, device="cpu")
+    assert resumed.resumed_from == 4 and resumed.step == 6
+    want = {r["step"]: r["loss"] for r in whole.history}
+    for r in resumed.history:
+        np.testing.assert_allclose(r["loss"], want[r["step"]], rtol=1e-6)
+    router = resumed.state["params"]["layers"][1]["w_router"]
+    assert router.dtype == torch.float32
+    torch.testing.assert_close(
+        router, whole.state["params"]["layers"][1]["w_router"])
 
 
 def test_train_config_defaults_match_jax():

@@ -9,14 +9,21 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tpu_composer.models.moe import MoEConfig as JaxMoEConfig
+from tpu_composer.models.moe import init_params as jax_moe_init_params
 from tpu_composer.models.transformer import ModelConfig as JaxConfig
 from tpu_composer.models.transformer import init_params as jax_init_params
 from tpu_composer_torch.convert import params_from_jax
+from tpu_composer_torch.models.moe import MoEConfig as TorchMoEConfig
 from tpu_composer_torch.models.transformer import ModelConfig as TorchConfig
 
 # The serving tests' scale (tests/test_serving.py).
 SMALL = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
              d_ff=64, max_seq=128)
+# tests/test_moe.py's tiny MoE: layer 1 of 2 routes over 4 experts, top-2.
+MOE_SMALL = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, d_ff=64,
+                 max_seq=64, n_experts=4, top_k=2, capacity_factor=2.0,
+                 moe_period=2)
 
 
 def configs(dtype: str = "float32", **kw):
@@ -26,14 +33,26 @@ def configs(dtype: str = "float32", **kw):
             TorchConfig(dtype=getattr(torch, dtype), **fields))
 
 
-def to_numpy(tree):
-    """A JAX pytree as numpy, float leaves upcast to float32 (numpy has no
-    bfloat16; the upcast is exact)."""
-    def leaf(a):
-        a = np.asarray(a)
-        return a if a.dtype.kind in "iub" else a.astype(np.float32)
+def moe_configs(dtype: str = "float32", **kw):
+    """(JAX MoEConfig, port MoEConfig) with the same fields."""
+    fields = {**MOE_SMALL, **kw}
+    return (JaxMoEConfig(dtype=getattr(jnp, dtype), **fields),
+            TorchMoEConfig(dtype=getattr(torch, dtype), **fields))
 
-    return jax.tree_util.tree_map(leaf, tree)
+
+def moe_world(seed: int = 0, dtype: str = "float32", **kw):
+    """(jax config, jax params, port config, port params on the CPU) for
+    the MoE family."""
+    jc, tc = moe_configs(dtype, **kw)
+    jp = jax_moe_init_params(jc, jax.random.key(seed))
+    return jc, jp, tc, params_from_jax(to_numpy(jp), tc, device="cpu")
+
+
+def to_numpy(tree):
+    """A JAX pytree as numpy, each leaf in its own dtype: a bf16 leaf is an
+    ``ml_dtypes`` bfloat16 array, which ``convert.params_from_jax`` reads
+    as bf16 (use :func:`n` for float32 values to compare)."""
+    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def world(seed: int = 0, dtype: str = "float32", **kw):

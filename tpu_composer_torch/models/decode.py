@@ -1,5 +1,5 @@
-"""KV-cached autoregressive decoding for the dense transformer (port of
-``tpu_composer/models/decode.py``, dense half).
+"""KV-cached autoregressive decoding for the dense and MoE transformers
+(port of ``tpu_composer/models/decode.py``).
 
 Prefill runs the prompt once and captures each layer's K/V; generation
 is then a loop of single-token steps against a cache pre-allocated at
@@ -13,16 +13,25 @@ draw by inverse CDF from one uniform number per row per token, taken from
 a CPU ``torch.Generator`` seeded with ``seed``: generated token t uses
 draw t. JAX's categorical stream cannot be reproduced, so agreement with
 the JAX package is greedy-only; the filters themselves agree exactly.
+
+MoE capacity: ``prefill`` is the training forward and routes the whole
+prompt as one group with the capacity-factor rule, so it may drop
+tokens past an expert's capacity. ``decode_chunk`` and ``decode_step``
+route DROP-FREE (capacity = chunk length, which no expert can
+overflow), so a T-token chunk computes exactly what T single steps
+would: the invariant speculative verify rests on. The two agree
+whenever the prompt's forward dropped nothing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from tpu_composer_torch.device import DeviceLike, resolve_device
+from tpu_composer_torch.models.moe import MoEConfig, ffn_delta
 from tpu_composer_torch.models.quant import (
     embedding_lookup,
     quantize_weight,
@@ -35,8 +44,18 @@ from tpu_composer_torch.models.transformer import (
     _select_attn,
     _tied_logits,
     project_qkv,
-    swiglu_ffn,
 )
+
+AnyConfig = Union[ModelConfig, MoEConfig]
+
+
+def _ffn_delta(h, layer, layer_idx: int, c: AnyConfig,
+               drop_free: bool = False):
+    """The FFN residual through the shared MoE-or-dense branch
+    (``models/moe.ffn_delta``), its aux loss dropped: inference trains no
+    router. The decode paths pass ``drop_free=True``; prefill keeps the
+    training forward's capacity rule."""
+    return ffn_delta(h, layer, layer_idx, c, drop_free=drop_free)[0]
 
 
 class KVCache(NamedTuple):
@@ -81,7 +100,7 @@ def _append_quantized(vals, scales, layer_idx: int, new, pos):
             _rowwise_update(scales[layer_idx], sc, pos))
 
 
-def init_kv_cache(config: ModelConfig, batch: int,
+def init_kv_cache(config: AnyConfig, batch: int,
                   max_seq: Optional[int] = None, quant: bool = False,
                   device: DeviceLike = "cuda") -> KVCache:
     c = config
@@ -159,14 +178,16 @@ def _last_real(x, prompt_lens):
     return x[rows, prompt_lens.long() - 1]
 
 
-def prefill(params: Dict, tokens: torch.Tensor, config: ModelConfig,
+def prefill(params: Dict, tokens: torch.Tensor, config: AnyConfig,
             max_seq: Optional[int] = None, quant: bool = False,
             prompt_lens: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt (B, S_prompt), filling a fresh cache on the tokens'
     device. Returns each row's last-real-position logits (B, vocab) fp32
     and the primed cache. Ragged batches: right-pad and pass
-    ``prompt_lens`` (B,)."""
+    ``prompt_lens`` (B,). MoE configs refuse ragged batches: routing
+    shares one capacity group across the padded row, so pads would
+    affect real tokens."""
     c = config
     attn = _select_attn(c, None)
     b, s_p = tokens.shape
@@ -174,6 +195,12 @@ def prefill(params: Dict, tokens: torch.Tensor, config: ModelConfig,
     if s_p > cap:
         raise ValueError(f"prompt length {s_p} exceeds cache capacity {cap}")
     if prompt_lens is not None:
+        if isinstance(c, MoEConfig):
+            raise ValueError(
+                "ragged prompts are dense-only: MoE routing shares one"
+                " capacity group across the padded row, so pad tokens"
+                " would affect real ones"
+            )
         prompt_lens = torch.as_tensor(prompt_lens, device=tokens.device)
         _check_prompt_lens(prompt_lens, b, s_p)
     cache = init_kv_cache(c, b, max_seq, quant=quant, device=tokens.device)
@@ -193,7 +220,7 @@ def prefill(params: Dict, tokens: torch.Tensor, config: ModelConfig,
             cache.v[li, :, :s_p] = v
         o = attn(q, k, v, causal=True).to(c.dtype)
         x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
-        x = x + swiglu_ffn(_rmsnorm(x, layer["ln2"]), layer, c.dtype)
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c)
     x = _rmsnorm(x, params["ln_f"])
     logits = _tied_logits(_last_real(x, prompt_lens), params["embed"], c.dtype)
     length = (torch.full((b,), s_p, dtype=torch.int32, device=tokens.device)
@@ -202,10 +229,10 @@ def prefill(params: Dict, tokens: torch.Tensor, config: ModelConfig,
 
 
 def decode_chunk(params: Dict, cache: KVCache, tokens: torch.Tensor,
-                 config: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+                 config: AnyConfig) -> Tuple[torch.Tensor, KVCache]:
     """T tokens (B, T) in, per-position next-token logits (B, T, vocab)
     out, cache advanced by T (written in place). Token i attends the cache
-    plus chunk tokens 0..i."""
+    plus chunk tokens 0..i. MoE layers route drop-free."""
     c = config
     b, t = tokens.shape
     pos = cache.length
@@ -227,14 +254,15 @@ def decode_chunk(params: Dict, cache: KVCache, tokens: torch.Tensor,
                               k_scale=ks_cache, v_scale=vs_cache,
                               q_positions=positions)
         x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
-        x = x + swiglu_ffn(_rmsnorm(x, layer["ln2"]), layer, c.dtype)
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
+                           drop_free=True)
     x = _rmsnorm(x, params["ln_f"])
     logits = _tied_logits(x, params["embed"], c.dtype)
     return logits, cache._replace(length=pos + t)
 
 
 def decode_step(params: Dict, cache: KVCache, token: torch.Tensor,
-                config: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+                config: AnyConfig) -> Tuple[torch.Tensor, KVCache]:
     """One token (B,) in, next-token logits (B, vocab) out."""
     logits, cache = decode_chunk(params, cache, token[:, None], config)
     return logits[:, 0], cache
@@ -272,7 +300,7 @@ def sample_categorical(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return idx.clamp_max(logits.shape[-1] - 1).to(torch.int32)
 
 
-def generate(params: Dict, prompt: torch.Tensor, config: ModelConfig,
+def generate(params: Dict, prompt: torch.Tensor, config: AnyConfig,
              max_new_tokens: int, temperature: float = 0.0,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
              seed: int = 0, max_seq: Optional[int] = None,

@@ -35,18 +35,19 @@ import torch
 
 from tpu_composer_torch.device import DeviceLike, resolve_device
 from tpu_composer_torch.models.decode import (
+    AnyConfig,
     _cached_attention,
+    _ffn_delta,
     _last_real,
     _project_qkv,
     quantize_kv,
 )
+from tpu_composer_torch.models.moe import MoEConfig
 from tpu_composer_torch.models.quant import embedding_lookup, resolve
 from tpu_composer_torch.models.transformer import (
-    ModelConfig,
     _rmsnorm,
     _select_attn,
     _tied_logits,
-    swiglu_ffn,
 )
 from tpu_composer_torch.ops.paged_attention import paged_decode_attention
 
@@ -93,7 +94,7 @@ class PagedKVCache(NamedTuple):
         return self.k_scale is not None
 
 
-def init_paged_cache(config: ModelConfig, batch: int, num_blocks: int,
+def init_paged_cache(config: AnyConfig, batch: int, num_blocks: int,
                      block_size: int = 16,
                      blocks_per_row: Optional[int] = None,
                      quant: bool = False,
@@ -362,7 +363,7 @@ def _write_kv_layer(cache: PagedKVCache, li: int, index, k, v):
             cache.v_scale[li])
 
 
-def paged_prefill(params: Dict, tokens: torch.Tensor, config: ModelConfig,
+def paged_prefill(params: Dict, tokens: torch.Tensor, config: AnyConfig,
                   cache: PagedKVCache, prompt_lens=None):
     """Admit EVERY row and run the prompt: paged_prefill_rows over all
     slots. Returns (last-real-position logits (B, vocab), cache, ok)."""
@@ -373,14 +374,19 @@ def paged_prefill(params: Dict, tokens: torch.Tensor, config: ModelConfig,
 
 
 def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
-                       config: ModelConfig, cache: PagedKVCache, slot_ids,
+                       config: AnyConfig, cache: PagedKVCache, slot_ids,
                        prompt_lens=None):
     """Admit ``R`` requests (tokens (R, S)) into the named, currently
     released batch slots of a live cache and prefill them; every other
     slot is untouched. Returns (last-position logits (R, vocab), cache,
     ok); ``ok`` False = the pool could not cover the admission and the
-    cache is unchanged. Ragged rows allocate by the padded length."""
+    cache is unchanged. Ragged rows allocate by the padded length (dense
+    models only: MoE routing would let pads affect real tokens). MoE
+    layers route with the training forward's capacity rule, as
+    ``decode.prefill`` does."""
     c = config
+    if isinstance(c, MoEConfig) and prompt_lens is not None:
+        raise ValueError("ragged prompts are dense-only (see decode.prefill)")
     attn = _select_attn(c, None)
     r, s_p = tokens.shape
     b = cache.block_tables.shape[0]
@@ -404,7 +410,7 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
         _write_kv_layer(cache, li, index, k, v)
         o = attn(q, k, v, causal=True).to(c.dtype)
         x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
-        x = x + swiglu_ffn(_rmsnorm(x, layer["ln2"]), layer, c.dtype)
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c)
     x = _rmsnorm(x, params["ln_f"])
     if prompt_lens is not None:
         prompt_lens = _on(cache, prompt_lens)
@@ -419,7 +425,7 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
 
 
 def paged_decode_chunk(params: Dict, cache: PagedKVCache,
-                       tokens: torch.Tensor, config: ModelConfig,
+                       tokens: torch.Tensor, config: AnyConfig,
                        attn_impl: str = "gather", active=None):
     """T tokens (B, T) in -> (per-position logits (B, T, vocab), cache,
     ok): token i attends the cache plus chunk tokens 0..i. T=1 is a decode
@@ -430,7 +436,9 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
     logits are meaningless. ``active`` (B,) masks rows: idle slots compute
     garbage logits but write nothing and never advance.
     ``attn_impl="kernel"`` reads through the paged decode kernel on T=1
-    steps; chunks read through the gather path."""
+    steps; chunks read through the gather path. MoE layers route
+    drop-free, each row its own group, so idle rows never displace live
+    ones."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
@@ -461,7 +469,8 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
                 v_scale=None if vsp is None else _paged_read(vsp, tables),
             )
         x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
-        x = x + swiglu_ffn(_rmsnorm(x, layer["ln2"]), layer, c.dtype)
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
+                           drop_free=True)
     x = _rmsnorm(x, params["ln_f"])
     logits = _tied_logits(x, params["embed"], c.dtype)
     if not ok:
@@ -470,7 +479,7 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
 
 
 def paged_decode_step(params: Dict, cache: PagedKVCache,
-                      token: torch.Tensor, config: ModelConfig,
+                      token: torch.Tensor, config: AnyConfig,
                       attn_impl: str = "gather", active=None):
     """One token (B,) in -> (next-token logits (B, vocab), cache, ok)."""
     logits, cache, ok = paged_decode_chunk(
@@ -479,7 +488,7 @@ def paged_decode_step(params: Dict, cache: PagedKVCache,
     return logits[:, 0], cache, ok
 
 
-def paged_generate(params: Dict, prompt: torch.Tensor, config: ModelConfig,
+def paged_generate(params: Dict, prompt: torch.Tensor, config: AnyConfig,
                    max_new_tokens: int, num_blocks: int,
                    block_size: int = 16, prompt_lens=None,
                    attn_impl: str = "gather",

@@ -1,5 +1,5 @@
 """Weight-only int8 quantization for serving (port of
-``tpu_composer/models/quant.py``, dense half).
+``tpu_composer/models/quant.py``).
 
 Symmetric per-OUTPUT-channel: the scale covers every axis that survives
 the weight's contraction, so ``einsum(x, q) * scale`` is exactly
@@ -54,11 +54,13 @@ _CONTRACT_AXES = {
     "embed": (1,),     # bsd,vd->bsv (and row-lookup, same per-row scale)
 }
 _DENSE_FFN = {"w_gate": (0,), "w_up": (0,), "w_down": (0,)}
+_MOE_FFN = {"w_gate": (1,), "w_up": (1,), "w_down": (1,)}  # ebcd,edf->ebcf
 
 
 def quantize_decode_params(params: Dict) -> Dict:
-    """Quantize a dense model tree's matmul weights for decode; layer
-    norms stay fp. (MoE expert stacks are not ported yet.)"""
+    """Quantize a model tree's matmul weights for decode, dense or MoE:
+    expert stacks (E, ·, ·) get per-(expert, channel) scales; layer norms
+    and MoE routers stay fp."""
 
     def q_layer(layer: Dict) -> Dict:
         out = {}
@@ -66,12 +68,8 @@ def quantize_decode_params(params: Dict) -> Dict:
             if name in _CONTRACT_AXES:
                 out[name] = quantize_weight(w, _CONTRACT_AXES[name])
             elif name in _DENSE_FFN:
-                if w.dim() != 2:
-                    raise ValueError(
-                        f"{name} has {w.dim()} dims: MoE expert stacks are "
-                        "not ported yet"
-                    )
-                out[name] = quantize_weight(w, _DENSE_FFN[name])
+                axes = _MOE_FFN[name] if w.dim() == 3 else _DENSE_FFN[name]
+                out[name] = quantize_weight(w, axes)
             else:
                 out[name] = w
         return out

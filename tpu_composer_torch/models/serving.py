@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the paged KV cache (port of
-``tpu_composer/models/serving.py``, dense models).
+``tpu_composer/models/serving.py``), for the dense and MoE models.
 
 One decode step over a fixed number of batch slots runs forever;
 requests stream in and out of slots between steps. A finished row
@@ -13,6 +13,12 @@ produces. Sampling is per request (temperature / top-k / top-p / seed):
 each request draws from its own CPU ``torch.Generator`` seeded with
 ``Request.seed``, one uniform number per generated token, token t from
 draw t, exactly as the solo ``generate(..., seed=seed)`` run does.
+
+MoE models need chunked admission (``prefill_chunk``): a bucketed
+prefill runs the training forward over the padded row, whose shared
+capacity group lets pads push real tokens past an expert's capacity,
+while a chunk routes drop-free. Equality with the solo run then holds
+whenever the solo prefill itself drops nothing.
 
 The port runs eagerly; JAX's ``jit`` has no counterpart here. Prompt
 lengths are still padded to power-of-two buckets, because the padded
@@ -28,7 +34,8 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_composer_torch.models.decode import sample_categorical
+from tpu_composer_torch.models.decode import AnyConfig, sample_categorical
+from tpu_composer_torch.models.moe import MoEConfig
 from tpu_composer_torch.models.paged import (
     admit,
     attach_prefix,
@@ -41,7 +48,6 @@ from tpu_composer_torch.models.paged import (
     release,
 )
 from tpu_composer_torch.models.quant import QTensor
-from tpu_composer_torch.models.transformer import ModelConfig
 
 
 @dataclass
@@ -136,7 +142,7 @@ class ContinuousBatchingEngine:
     scheduled, so the pool can never run out mid-flight; the paged
     layer's all-or-nothing ok-flags stay as defense in depth."""
 
-    def __init__(self, params: Dict, config: ModelConfig, slots: int,
+    def __init__(self, params: Dict, config: AnyConfig, slots: int,
                  num_blocks: int, block_size: int = 16,
                  attn_impl: str = "gather", eos_id: Optional[int] = None,
                  blocks_per_row: Optional[int] = None,
@@ -147,7 +153,14 @@ class ContinuousBatchingEngine:
         reads decode steps through the paged decode kernel. ``kv_quant``
         stores the pool int8. ``prefill_chunk`` switches admission to
         CHUNKED prefill: the prompt streams through fixed-size chunks, one
-        per engine step, while every other slot keeps decoding."""
+        per engine step, while every other slot keeps decoding; MoE
+        models require it."""
+        if isinstance(config, MoEConfig) and prefill_chunk is None:
+            raise ValueError(
+                "MoE serving requires chunked admission: pass "
+                "prefill_chunk (bucketed prefill's padded training-"
+                "forward routing would let pads affect real tokens)"
+            )
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
@@ -268,8 +281,11 @@ class ContinuousBatchingEngine:
     def register_prefix(self, tokens: List[int]) -> PrefixHandle:
         """Prefill ``tokens`` once into pool blocks and return a handle
         requests can attach to (``submit(..., prefix=h)``). Length must be
-        a nonzero multiple of block_size. Staging borrows a free slot for
-        the prefill; the blocks then detach into the handle."""
+        a nonzero multiple of block_size, and for MoE models of
+        prefill_chunk too (chunk pads would be routed): an MoE prefix is
+        staged through ``admit`` and one chunk per ``prefill_chunk``
+        tokens, a dense one through a bucketed prefill. Staging borrows a
+        free slot; the blocks then detach into the handle."""
         if self.prefill_chunk is None:
             raise ValueError(
                 "register_prefix requires chunked admission (pass"
@@ -286,28 +302,59 @@ class ContinuousBatchingEngine:
         slot = self._free_slot()
         if slot is None:
             raise RuntimeError("no free slot to stage the prefix prefill")
-        staged = -(-self._pad_len(p_n) // self.block_size)
+        moe = isinstance(self.config, MoEConfig)
+        if moe and p_n % self.prefill_chunk:
+            raise ValueError(
+                f"MoE prefixes must be a multiple of prefill_chunk "
+                f"({self.prefill_chunk}): chunk pads would be routed"
+            )
+        staged = -(-(p_n if moe else self._pad_len(p_n)) // self.block_size)
         if (int(self._reserved.sum()) + self._prefix_reserved + staged
                 > self.num_blocks):
             raise RuntimeError(
                 "pool cannot hold the prefix alongside the blocks "
                 "reserved for in-flight requests"
             )
-        pad = self._pad_len(p_n)
-        buf = np.zeros((1, pad), np.int64)
-        buf[0, :p_n] = tokens
-        _, cache, ok = paged_prefill_rows(
-            self.params, torch.as_tensor(buf, device=self.device),
-            self.config, self.cache, slot_ids=[slot], prompt_lens=[p_n])
-        if not ok:
-            raise RuntimeError("pool cannot hold the prefix")
-        self.cache, ids, n_total = detach_row_keep_blocks(cache, slot)
+        if moe:
+            self._stage_moe_prefix(slot, tokens)
+        else:
+            pad = self._pad_len(p_n)
+            buf = np.zeros((1, pad), np.int64)
+            buf[0, :p_n] = tokens
+            _, cache, ok = paged_prefill_rows(
+                self.params, torch.as_tensor(buf, device=self.device),
+                self.config, self.cache, slot_ids=[slot], prompt_lens=[p_n])
+            if not ok:
+                raise RuntimeError("pool cannot hold the prefix")
+            self.cache = cache
+        self.cache, ids, n_total = detach_row_keep_blocks(self.cache, slot)
         n_total = int(n_total)
         if n_total > k:  # chunk-pad blocks past the prefix: free them
             self.cache = drop_blocks(self.cache, ids[k:], n_total - k)
         self._prefix_reserved += k
         return PrefixHandle(tokens=list(tokens), block_ids=ids[:k].clone(),
                             n_blocks=k)
+
+    def _stage_moe_prefix(self, slot: int, tokens: List[int]) -> None:
+        """Admit ``slot`` for exactly the prefix and stream it through
+        ``prefill_chunk``-token chunks (drop-free routing, no pads)."""
+        c_sz = self.prefill_chunk
+        mask = self._row_mask(slot)
+        cache, ok = admit(self.cache, mask, mask * len(tokens))
+        if not ok:
+            raise RuntimeError("pool cannot hold the prefix")
+        self.cache = cache
+        active = mask.astype(bool)
+        for i in range(0, len(tokens), c_sz):
+            chunk = np.zeros((self.slots, c_sz), np.int64)
+            chunk[slot] = tokens[i:i + c_sz]
+            _, cache, ok = paged_decode_chunk(
+                self.params, self.cache,
+                torch.as_tensor(chunk, device=self.device), self.config,
+                attn_impl=self.attn_impl, active=active)
+            if not ok:
+                raise RuntimeError("pool cannot hold the prefix")
+            self.cache = cache
 
     def _release_handle_ref(self, handle: PrefixHandle) -> None:
         handle.refs -= 1

@@ -148,7 +148,9 @@ def paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths,
     positions (1 to 256; default :func:`_decode_split`) into an fp32
     scratch buffer, then the merge
     pass. Reads nothing back from the card.
-    ``paged_decode_cuda.launches`` counts calls (two kernels each)."""
+    ``paged_decode_cuda.launches`` counts calls on fp pools and
+    ``paged_decode_cuda.launches_int8`` those on int8 pools (two kernels
+    a call)."""
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "lengths": lengths}
     if k_scale is not None:
@@ -204,11 +206,15 @@ def paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths,
         )
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
-    paged_decode_cuda.launches += 1
+    if k_scale is None:
+        paged_decode_cuda.launches += 1
+    else:
+        paged_decode_cuda.launches_int8 += 1
     return out
 
 
 paged_decode_cuda.launches = 0
+paged_decode_cuda.launches_int8 = 0
 
 
 def paged_decode_attention(

@@ -1,5 +1,5 @@
 """The training step on one card (port of ``tpu_composer/parallel/train.py``,
-the single-device subset).
+the single-device subset), for the dense and MoE models.
 
 ``make_train_step(tc)`` returns ``step(state, tokens) -> (state,
 {"loss", "grad_norm"})``: forward and loss through autograd (the flash
@@ -11,18 +11,22 @@ shaped and typed like the params.
 
 What needs more than one device waits for the multi-device slice:
 ``sp_impl``/``sp_inner`` other than their defaults and
-``pipeline_microbatches > 0`` raise ``NotImplementedError``.
+``pipeline_microbatches > 0`` raise ``NotImplementedError`` (the latter a
+``ValueError`` for MoE, as in the JAX package, whose pipeline takes the
+dense model only). The 'ep' mesh axis waits with them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
 
 from tpu_composer_torch.device import DeviceLike
+from tpu_composer_torch.models import moe as moe_mod
 from tpu_composer_torch.models import transformer as dense_mod
+from tpu_composer_torch.models.moe import MoEConfig
 from tpu_composer_torch.models.transformer import ModelConfig
 
 _SP_IMPLS = ("ring", "zigzag", "ulysses")
@@ -36,7 +40,7 @@ ADAM_EPS = 1e-8
 
 @dataclass(frozen=True)
 class TrainConfig:
-    model: ModelConfig = ModelConfig()
+    model: Union[ModelConfig, MoEConfig] = ModelConfig()
     learning_rate: float = 3e-4
     weight_decay: float = 0.01
     # Sequence parallelism applies when a mesh's sp axis is > 1: never on
@@ -49,6 +53,13 @@ class TrainConfig:
     # optimizer update; the accumulated gradient is exactly the
     # full-batch gradient (equal microbatch sizes, fp32 accumulators).
     grad_accum_steps: int = 1
+
+    @property
+    def is_moe(self) -> bool:
+        return isinstance(self.model, MoEConfig)
+
+    def _model_mod(self):
+        return moe_mod if self.is_moe else dense_mod
 
 
 def check_single_card(tc: TrainConfig) -> None:
@@ -63,6 +74,9 @@ def check_single_card(tc: TrainConfig) -> None:
         raise NotImplementedError(
             f"sp_impl={tc.sp_impl!r}, sp_inner={tc.sp_inner!r} need sequence"
             " parallelism over several devices: port slice 4")
+    if tc.pipeline_microbatches > 0 and tc.is_moe:
+        raise ValueError(
+            "pipeline parallelism currently supports the dense model only")
     if tc.pipeline_microbatches > 0:
         raise NotImplementedError(
             "pipeline_microbatches > 0 needs a pipeline over several devices:"
@@ -103,9 +117,10 @@ def init_opt_state(params) -> Dict:
 def make_train_state(tc: TrainConfig, seed: int = 0,
                      device: DeviceLike = "cuda") -> Dict:
     """``{"params", "opt"}``: the model's params from ``seed``
-    (``transformer.init_params``) and a fresh AdamW state."""
+    (``transformer.init_params`` or ``moe.init_params``) and a fresh
+    AdamW state."""
     check_single_card(tc)
-    params = dense_mod.init_params(tc.model, seed=seed, device=device)
+    params = tc._model_mod().init_params(tc.model, seed=seed, device=device)
     return {"params": params, "opt": init_opt_state(params)}
 
 
@@ -165,11 +180,12 @@ def make_train_step(tc: TrainConfig) -> Callable:
     updated in place and returned (JAX donates it, ``train.py:398``)."""
     check_single_card(tc)
     cfg = tc.model
+    loss_fn = tc._model_mod().loss_fn
     accum = tc.grad_accum_steps
 
     def value_and_grad(params, tokens) -> Tuple[torch.Tensor, List]:
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss = dense_mod.loss_fn(live, tokens, cfg)
+        loss = loss_fn(live, tokens, cfg)
         return loss.detach(), list(torch.autograd.grad(loss,
                                                        tree_leaves(live)))
 
