@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, speculative-decoding and training
-paths, dense and MoE, on one NVIDIA GPU and hold every CUDA kernel of
-those paths against its plain PyTorch version.
+paths, dense and MoE, one rank and several ranks over a device mesh, on
+one NVIDIA GPU and hold every CUDA kernel of those paths against its
+plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -37,13 +38,18 @@ nonzero. Phases, in order:
    ``qualify_slice``'s MHA shape (8, 512, 8, 8, 64); B3 and B4 launched
    twice on the training-shape inputs must each give the same bits; the
    geometry chosen (CTA height, group split, CTA counts) and times at
-   the training shape.
+   the training shape; then the multi-rank path's blocks (bf16): a
+   ring block of sp = 2 at seq 512, the causal diagonal and a whole
+   off-diagonal block, each with a live lse cotangent, and Ulysses'
+   gathered sequence over half the heads, (8, 512, 4, 1, 64).
 6. ``serve_exact``: the flagship at full width in fp32, prefill through
    K1 and decode through K2: every request's tokens equal the port's
    solo ``generate`` with reference attention.
 7. ``serve``: the flagship in bf16: 16 greedy and sampled requests
    through an 8-slot engine, then an int8-pool engine with chunked
-   admission and a shared prefix; tokens/s, step p50, launch counts.
+   admission and a shared prefix; tokens/s, step p50, launch counts;
+   one mid-flight decode step of each engine through K2 against the
+   gather path on copies of the same cache (``k2_midflight``).
 8. ``moe_serve_exact``: the MoE flagship (``MoEConfig()``: vocab 32000,
    d_model 512, 4 layers, 8 MHA heads, d_ff 1408, 8 experts top-2 on
    layers 1 and 3) in fp32 with capacity_factor 4.0 (so the solo
@@ -56,7 +62,7 @@ nonzero. Phases, in order:
    cache, fp or int8 as the pool, and ``decode_chunk`` over the prompt in
    the engine's chunks, reference attention);
    tokens/s, decode step p50, a profile of 8 decode steps with the MoE
-   FFN's share.
+   FFN's share; K2 mid-flight against the gather path, as in ``serve``.
 10. ``speculative``: the MoE flagship in fp32 (prefill through K1) as
     target, its int8-quantized self as draft, gamma 4, 3 prompts of
     32-200 tokens, 64 new tokens, through ``speculative_generate`` and
@@ -72,20 +78,42 @@ nonzero. Phases, in order:
    synthetic Zipf documents (seq 512, batch 8): 20 steps checkpointed
    every 10, then a resumed ``fit`` to 24; tokens/s, step p50, one step
    under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the
-   step fails the phase) and the device's busy share.
+   step fails the phase), the device's busy share, and the step's device
+   ms with the tied head's two routes in turns (bf16 operands into an
+   fp32 output, and both upcast first).
 13. ``qualify``: ``qualify_slice()`` at its defaults.
 14. ``train_moe``: the MoE flagship in fp32, 3 steps on (4, 256) tokens
     with flash attention (K1 with lse, B3, B4) and 3 with reference
     attention from the same params (the tokens whose top-1 expert
     differs between the two are counted); then bf16 at seq 512, batch 8,
     12 steps on packed Zipf documents: step p50 and tokens/s.
-15. ``timing`` (the whole run's seconds, builds included, and each
+15. ``mesh_train``: a world of 2 ranks and one of 4, spawned on the one
+    card over gloo (NCCL refuses two ranks on one GPU, so every
+    collective is staged through the host), each rank on the card and
+    its kernels built by phase 2. The fp32 flagship (tokens (4, 256), 3
+    AdamW steps from the same params) over sp = 2 ring, zigzag and
+    Ulysses with the flash inner, ring with the einsum inner, tp = 2,
+    dp = 2 and (world 4) sp = 4 zigzag: losses, grad norms and the first
+    step's gradients (gathered to rank 0) against ``train_exact``'s
+    one-process flash step; the fp32 MoE flagship over ep = 2 and
+    (world 4) ep = 2 x sp = 2 Ulysses/flash against ``train_moe``'s
+    losses, with the flipped top-1 choices; the bf16 flagship at seq
+    512, global batch 8, 12 steps over sp = 2 ring/flash: the loss
+    falls, per rank its step p50 and K1-with-lse, B3 and B4 launches a
+    step. Ranks print nothing to stdout and send the parent their
+    results; a rank's failure or a world past its deadline fails the
+    phase, and no rank is left running.
+16. ``mesh_nccl``: one rank over NCCL: ``fit`` 3 steps over
+    ``make_mesh`` of the card gives the meshless ``fit``'s losses bit
+    for bit; ``allreduce_bandwidth_gbps`` reports 0.0.
+17. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
-    moe_serving 8-9, speculative 10, training 11-13, moe_training 14);
-    then the kernels line ``{"kernels": [...]}``: per kernel its launches
-    summed over every path, max error, kernel / plain / library ms
-    (device time), the kernel's issue ms, and the bound.
-16. the last line: ``{"ok": true, "device": {...}}``.
+    moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
+    mesh_training 15-16, its ranks' counts summed in); then the kernels
+    line ``{"kernels": [...]}``: per kernel its launches summed over
+    every path, max error, kernel / plain / library ms (device time),
+    the kernel's issue ms, and the bound.
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -105,7 +133,9 @@ same for the MoE engines, against the drop-free plain path).
 ``train_exact``: losses 1e-4, grad norms 1e-3 relative, gradients 1e-4
 relative to max(1, max|ref|) (flash against reference attention, fp32).
 ``train_moe``: losses 1e-3 relative (one flipped routing choice moves
-one token's FFN). Token streams (``serve_exact``, ``moe_serve_exact``,
+one token's FFN). ``mesh_train``: the dense checks as ``train_exact``,
+against the one-process flash step; MoE losses 1e-3 relative. K2
+mid-flight against the gather path: 5e-2 (bf16 pool), 1e-1 (int8). Token streams (``serve_exact``, ``moe_serve_exact``,
 ``speculative``): equal; on a mismatch the target's top-2 logit gap at
 the first diverging token is printed (under 1e-4 names float drift).
 fp32 matmuls run in full fp32 (TF32 off, below).
@@ -652,6 +682,37 @@ def phase_flash_bwd(gen: torch.Generator) -> dict:
     timing["flash_bwd_dq"]["max_abs_err"] = max(r["dq"]["abs"] for r in runs)
     timing["flash_bwd_dkv"]["max_abs_err"] = max(
         r[g]["abs"] for r in runs for g in ("dk", "dv"))
+
+    # The multi-rank training path's blocks (phase mesh_train's run,
+    # bf16): a ring block of sp = 2 at seq 512 (the causal diagonal and a
+    # whole off-diagonal block, each with the lse cotangent the ring's
+    # merge sends) and Ulysses' gathered sequence over half the heads.
+    mesh_path = {}
+    for label, mshape, causal, with_g in (
+            ("ring_diagonal", (8, 256, 8, 2, 64), True, True),
+            ("ring_offdiagonal", (8, 256, 8, 2, 64), False, True),
+            ("ulysses", (8, 512, 4, 1, 64), True, False)):
+        q, k, v, do = _attn_inputs(gen, mshape, dtype)
+        out, lse = flash_fwd_cuda(q, k, v, causal, with_lse=True)
+        out_w, lse_w = flash_fwd_plain(q, k, v, causal, with_lse=True)
+        g_lse = (torch.randn(mshape[0], mshape[2], mshape[1],
+                             generator=gen).cuda() if with_g else None)
+        got = flash_bwd_cuda(q, k, v, out, lse, do, g_lse, causal)
+        torch.cuda.synchronize()
+        e_out, e_lse = max_err(out, out_w), max_err(lse, lse_w)
+        check(e_out <= TOL[dtype], f"flash_fwd_lse {label} error {e_out}")
+        check(e_lse <= LSE_TOL, f"flash_fwd_lse {label} lse error {e_lse}")
+        worst = {}
+        _bwd_errors(got, flash_bwd_plain(q, k, v, out, lse, do, g_lse,
+                                         causal),
+                    dtype, f"{label} {list(mshape)}", worst)
+        bq, sq, hq, kvq, _ = mshape
+        mesh_path[label] = {
+            "shape": list(mshape), "causal": causal, "g_lse": with_g,
+            "out": e_out, "lse": e_lse, **worst,
+            "flash_fwd_rows": _fwd_rows(bq, hq, sq),
+            "flash_bwd_dkv_split": _dkv_split(bq, kvq, hq // kvq, sq)}
+    errs["bfloat16_mesh_path"] = mesh_path
     rows = _fwd_rows(b, h, s)
     emit("flash_bwd", errors=errs, tol={"fp32": 1e-4, "bf16": 3e-2,
                                         "relative_to": "max|ref| per gradient",
@@ -696,7 +757,8 @@ def _counts() -> dict:
             "paged_decode_int8": paged_decode_cuda.launches_int8}
 
 
-def _reset_counts() -> None:
+def _set_counts(counts: dict) -> None:
+    """Set every kernel wrapper's launch count (``_counts``' keys)."""
     from tpu_composer_torch.ops.attention import (
         flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda,
@@ -704,9 +766,55 @@ def _reset_counts() -> None:
     )
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
 
-    flash_fwd_cuda.launches = flash_fwd_cuda.launches_lse = 0
-    flash_bwd_dq_cuda.launches = flash_bwd_dkv_cuda.launches = 0
-    paged_decode_cuda.launches = paged_decode_cuda.launches_int8 = 0
+    flash_fwd_cuda.launches = counts["flash_fwd"]
+    flash_fwd_cuda.launches_lse = counts["flash_fwd_lse"]
+    flash_bwd_dq_cuda.launches = counts["flash_bwd_dq"]
+    flash_bwd_dkv_cuda.launches = counts["flash_bwd_dkv"]
+    paged_decode_cuda.launches = counts["paged_decode"]
+    paged_decode_cuda.launches_int8 = counts["paged_decode_int8"]
+
+
+def _reset_counts() -> None:
+    _set_counts(dict.fromkeys(_counts(), 0))
+
+
+class _uncounted:
+    """Launches inside this block are put back out of the counts: the
+    comparisons of a kernel with its plain version do not count toward a
+    path's launches."""
+
+    def __enter__(self):
+        self.saved = _counts()
+
+    def __exit__(self, *exc):
+        _set_counts(self.saved)
+        return False
+
+
+def _k2_against_gather(eng) -> dict:
+    """One mid-flight decode step of ``eng`` through K2 and through the
+    gather path, each on its own copy of the engine's cache (the engine
+    itself does not move): the live rows' logits and their distance."""
+    from tpu_composer_torch.models.paged import paged_decode_step
+
+    admitting = {st["slot"] for st in eng._admitting}
+    active = np.array([r is not None and s not in admitting
+                       for s, r in enumerate(eng._slot_req)], bool)
+    token = torch.as_tensor(eng._next_token, device=eng.device)
+    lengths = eng.cache.length.cpu().numpy()[active]
+    logits = {}
+    with _uncounted():
+        for impl in ("kernel", "gather"):
+            cache = eng.cache._replace(**{
+                f: v.clone() for f, v in eng.cache._asdict().items()
+                if torch.is_tensor(v)})
+            out, _, ok = paged_decode_step(eng.params, cache, token,
+                                           eng.config, attn_impl=impl,
+                                           active=active)
+            check(bool(ok), "K2 check: the pool copy ran out of blocks")
+            logits[impl] = out[torch.from_numpy(active).to(out.device)]
+    return {"rows": int(active.sum()), "lengths": lengths.tolist(),
+            "err": max_err(logits["kernel"], logits["gather"])}
 
 
 def _launched(before: dict, kernels) -> dict:
@@ -783,11 +891,19 @@ def _submit_all(eng, rng, vocab: int, seed: int, new_tokens: int,
 
 def _drive(eng) -> dict:
     """Run the engine to completion, timing every step on the host clock
-    (each step ends in a host read of the picked tokens)."""
+    (each step ends in a host read of the picked tokens). At the first
+    decode-only step after the 10th with two rows or more in flight, K2
+    is held against the gather path (untimed: ``k2_midflight``)."""
     steps, decode_only = [], []
+    k2 = None
     t0 = time.perf_counter()
     while eng._waiting or any(r is not None for r in eng._slot_req):
         quiet = not eng._waiting and not eng._admitting
+        if (k2 is None and quiet and len(steps) >= 10
+                and sum(r is not None for r in eng._slot_req) >= 2):
+            t_check = time.perf_counter()
+            k2 = _k2_against_gather(eng)
+            t0 += time.perf_counter() - t_check
         s0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
@@ -796,7 +912,8 @@ def _drive(eng) -> dict:
         if quiet:
             decode_only.append(dt)
     wall = time.perf_counter() - t0
-    return {"wall_s": wall, "steps": len(steps),
+    check(k2 is not None, "no decode step was in flight for the K2 check")
+    return {"wall_s": wall, "steps": len(steps), "k2_midflight": k2,
             "step_ms_p50": float(np.median(steps)),
             "decode_step_ms_p50": (float(np.median(decode_only))
                                    if decode_only else None)}
@@ -881,6 +998,9 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
     worst = max(max_err(eng.first_logits[r.req_id],
                         plain_first_logits(r.prompt)) for r in reqs)
     check(worst <= LOGIT_TOL_BF16, f"bf16 first-token logits off by {worst}")
+    check(stats["k2_midflight"]["err"] <= LOGIT_TOL_BF16,
+          f"bf16 engine: K2 mid-flight logits off the gather path by"
+          f" {stats['k2_midflight']['err']}")
     gen_tokens = sum(len(r.tokens) for r in reqs)
     results["bf16"] = dict(stats, tokens=gen_tokens,
                            tokens_per_s=gen_tokens / stats["wall_s"],
@@ -916,6 +1036,9 @@ def phase_serve(rng: np.random.Generator, seed: int) -> dict:
     worst = max(max_err(eng.first_logits[r.req_id],
                         plain_first_logits(r.prompt)) for r in reqs)
     check(worst <= LOGIT_TOL_INT8, f"int8 first-token logits off by {worst}")
+    check(stats["k2_midflight"]["err"] <= LOGIT_TOL_INT8,
+          f"int8 engine: K2 mid-flight logits off the gather path by"
+          f" {stats['k2_midflight']['err']}")
     gen_tokens = sum(len(r.tokens) for r in reqs)
     results["int8"] = dict(stats, tokens=gen_tokens,
                            tokens_per_s=gen_tokens / stats["wall_s"],
@@ -973,6 +1096,8 @@ def phase_train_exact(seed: int) -> dict:
            "max_loss_err": loss_err, "max_grad_norm_rel_err": norm_err,
            "max_grad_rel_err": grad_err}
     emit("train_exact", tokens=[4, 256], steps=3, **out)
+    # The one-process flash step is the mesh phase's reference.
+    out["ref_grads"] = [g.cpu() for g in g_f]
     return out
 
 
@@ -1036,13 +1161,41 @@ def phase_train(seed: int) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     profile = _device_share(lambda: step(state, toks), n_steps=3)
+    tied_head = _tied_head_ab(lambda: step(state, toks))
     out = {"losses": losses, "resumed_from": second.resumed_from,
+           "tied_head_device_ms_per_step": tied_head,
            "fit_20_steps_s": fit_s,
            "steps_per_s_logged": [r["steps_per_s"] for r in first.history],
            "step_ms_p50": p50, "step_ms": times, "host_syncs_in_step": 0,
            "tokens_per_s": batch * seq / (p50 / 1e3), "profile": profile}
     emit("train", seq=seq, global_batch=batch, **out)
     return out
+
+
+def _tied_head_ab(step, n_steps: int = 3) -> dict:
+    """Device ms of a train step with the tied head's two routes, in
+    turns (upcast, bf16, bf16, upcast): the bf16 operands into an fp32
+    output (``aten::mm.dtype``, the port's route on the card) and both
+    operands upcast to fp32 first (the route before it)."""
+    from tpu_composer_torch.models import transformer
+    from tpu_composer_torch.models.quant import resolve
+
+    def upcast(x, embed, dtype):
+        return torch.einsum("...d,vd->...v", x.float(),
+                            resolve(embed, dtype).float())
+
+    route = transformer._tied_logits
+    runs = {"bf16_mm_fp32_out": [], "fp32_upcast": []}
+    try:
+        for name in ("fp32_upcast", "bf16_mm_fp32_out", "bf16_mm_fp32_out",
+                     "fp32_upcast"):
+            transformer._tied_logits = upcast if name == "fp32_upcast" \
+                else route
+            prof = _device_share(step, n_steps=n_steps)
+            runs[name].append(prof["device_busy_ms"] / n_steps)
+    finally:
+        transformer._tied_logits = route
+    return runs
 
 
 def phase_qualify() -> dict:
@@ -1220,6 +1373,9 @@ def phase_moe_serve(rng: np.random.Generator, seed: int) -> dict:
         worst = max(max_err(eng.first_logits[i], logits)
                     for i, (logits, _) in plain.items())
         check(worst <= tol, f"MoE {name} first-token logits off by {worst}")
+        check(stats["k2_midflight"]["err"] <= tol,
+              f"MoE {name} engine: K2 mid-flight logits off the gather"
+              f" path by {stats['k2_midflight']['err']}")
         extra = {}
         if kv_quant:
             fp = {r.req_id: _recording_routes(
@@ -1386,7 +1542,8 @@ def phase_train_moe(seed: int) -> dict:
     rel = max(abs(a - b) / abs(b)
               for a, b in zip(losses["flash"], losses["reference"]))
     check(rel <= 1e-3, f"train_moe fp32 losses differ by {rel} relative")
-    exact = {"losses_flash": losses["flash"],
+    exact = {"ref_top1": [x.cpu() for x in top1["flash"]],
+             "losses_flash": losses["flash"],
              "losses_reference": losses["reference"],
              "max_loss_rel_err": rel, "top1_expert_flips": flips,
              "routed_tokens": 4 * 256 * len(top1["flash"])}
@@ -1417,9 +1574,376 @@ def phase_train_moe(seed: int) -> dict:
           f"train_moe loss did not fall: {bf16_losses[0]} -> "
           f"{bf16_losses[-1]}")
     p50 = float(np.median(times[2:]))
+    ref_top1 = exact.pop("ref_top1")
     out = {"exact": exact, "losses_bf16": bf16_losses, "step_ms": times,
            "step_ms_p50": p50, "tokens_per_s": batch * seq / (p50 / 1e3)}
     emit("train_moe", seq=seq, global_batch=batch, **out)
+    out["ref_top1"] = ref_top1
+    return out
+
+
+# The multi-rank phase (mesh_train): worlds of ranks spawned on the one
+# card, over gloo (NCCL refuses two ranks on one GPU), every collective
+# staged through the host. A collective that waits longer than the
+# group's timeout raises; a world that has not reported by its deadline
+# is killed and fails the phase.
+MESH_GROUP_TIMEOUT_S = 120
+MESH_DEADLINE_S = 600
+# (label, task, mesh axes, sp_impl, sp_inner) per world.
+MESH_WORLD_2 = (
+    ("sp2_ring_flash", "dense_exact", {"sp": 2}, "ring", "flash"),
+    ("sp2_zigzag_flash", "dense_exact", {"sp": 2}, "zigzag", "flash"),
+    ("sp2_ulysses_flash", "dense_exact", {"sp": 2}, "ulysses", "flash"),
+    ("sp2_ring_einsum", "dense_exact", {"sp": 2}, "ring", "einsum"),
+    ("tp2", "dense_exact", {"tp": 2}, "ring", "einsum"),
+    ("dp2", "dense_exact", {"dp": 2}, "ring", "einsum"),
+    ("moe_ep2", "moe_exact", {"ep": 2}, "ring", "einsum"),
+    ("run_sp2_ring_flash", "run", {"sp": 2}, "ring", "flash"),
+)
+MESH_WORLD_4 = (
+    ("sp4_zigzag_flash", "dense_exact", {"sp": 4}, "zigzag", "flash"),
+    ("moe_ep2_sp2_ulysses_flash", "moe_exact", {"ep": 2, "sp": 2},
+     "ulysses", "flash"),
+)
+
+
+def _mesh_dense_exact(dev, ref, axes, sp_impl, sp_inner) -> dict:
+    """The fp32 flagship over ``axes``: the first batch's gradients,
+    gathered to rank 0 and held there against the one-process flash
+    step's, then 3 AdamW steps from the same params."""
+    import torch.distributed as dist
+
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.mesh import make_mesh
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        gather_params,
+        make_grad_fn,
+        make_train_state,
+        make_train_step,
+        tree_leaves,
+        tree_unflatten,
+    )
+
+    cfg = ModelConfig(dtype=torch.float32, attn_impl="flash", **FLAGSHIP)
+    tc = TrainConfig(model=cfg, sp_impl=sp_impl, sp_inner=sp_inner)
+    mesh = make_mesh(axes, dev.type)
+    batches = [b.to(dev) for b in ref["batches"]]
+    state = make_train_state(tc, ref["seed"], dev, mesh)
+    _, grads, _ = make_grad_fn(tc, mesh)(state["params"], batches[0])
+    full = gather_params(tc, tree_unflatten(state["params"], grads), mesh)
+    grad_err = None
+    if dist.get_rank() == 0:
+        grad_err = max(max_err(g, r.to(dev)) / max(1.0, float(r.abs().max()))
+                       for g, r in zip(tree_leaves(full), ref["grads"]))
+    del full, grads
+    step = make_train_step(tc, mesh)
+    losses, norms = [], []
+    for toks in batches:
+        state, m = step(state, toks)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms, "grad_err": grad_err}
+
+
+def _mesh_moe_exact(dev, ref, axes, sp_impl, sp_inner) -> dict:
+    """The fp32 MoE flagship over ``axes``: the top-1 experts of this
+    rank's rows of the first batch, against the one-process model's, and
+    3 AdamW steps from the same params."""
+    from tpu_composer_torch.models import moe
+    from tpu_composer_torch.parallel import train
+    from tpu_composer_torch.parallel.mesh import axis_size, make_mesh
+
+    cfg = moe.MoEConfig(dtype=torch.float32, attn_impl="flash",
+                        **MOE_FLAGSHIP)
+    tc = train.TrainConfig(model=cfg, sp_impl=sp_impl, sp_inner=sp_inner)
+    mesh = make_mesh(axes, dev.type)
+    batches = [b.to(dev) for b in ref["moe_batches"]]
+    state = train.make_train_state(tc, ref["seed"], dev, mesh)
+    attn = (train._sp_attn_fn(mesh, sp_impl, sp_inner, cfg.n_heads)
+            if axis_size(mesh, "sp") > 1 else None)
+    rows = train.local_batch(tc, batches[0], mesh)
+    with torch.no_grad():
+        _, seen = _recording_routes(
+            lambda: moe.forward(state["params"], rows, cfg, attn, mesh))
+    n, index = train.data_shards(tc, mesh), train.data_index(tc, mesh)
+    want = [t.chunk(n)[index].to(dev) for t in ref["moe_top1"]]
+    flips = sum(int((x[..., 0] != w).sum()) for x, w in zip(seen, want))
+    step = train.make_train_step(tc, mesh)
+    losses = [float(step(state, toks)[1]["loss"]) for toks in batches]
+    return {"losses": losses, "rows": index, "top1_flips": flips}
+
+
+def _mesh_run(dev, ref, axes, sp_impl, sp_inner, steps: int = 12) -> dict:
+    """The bf16 flagship over ``axes`` at seq 512, global batch 8, on
+    packed Zipf documents: losses, step times on the host clock (each
+    step synchronised), kernel launches a step."""
+    from tpu_composer_torch.data import PackedLMDataset, ShardedLoader
+    from tpu_composer_torch.examples.train_lm import zipf_documents
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.mesh import make_mesh
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        make_train_state,
+        make_train_step,
+    )
+
+    cfg = ModelConfig(dtype=torch.bfloat16, attn_impl="flash", **FLAGSHIP)
+    tc = TrainConfig(model=cfg, sp_impl=sp_impl, sp_inner=sp_inner)
+    mesh = make_mesh(axes, dev.type)
+    seq, batch = 512, 8
+    dataset = PackedLMDataset(zipf_documents(ref["seed"],
+                                             vocab=FLAGSHIP["vocab_size"]),
+                              seq_len=seq, seed=ref["seed"])
+    loader = iter(ShardedLoader(dataset, batch, device=dev, prefetch=False))
+    state = make_train_state(tc, ref["seed"], dev, mesh)
+    step = make_train_step(tc, mesh)
+    before = _counts()
+    losses, times = [], []
+    for _ in range(steps):
+        toks = next(loader)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, toks)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    after = _counts()
+    return {"losses": losses, "step_ms": times,
+            "step_ms_p50": float(np.median(times[2:])),
+            "launches_per_step": {k: (after[k] - before[k]) / steps
+                                  for k in after},
+            "seq": seq, "global_batch": batch}
+
+
+_MESH_TASKS = {"dense_exact": _mesh_dense_exact,
+               "moe_exact": _mesh_moe_exact, "run": _mesh_run}
+
+
+def _mesh_rank(rank, world, init, device, tasks, ref_path, go,
+               results) -> None:
+    """One rank of a spawned world: joins the gloo group, waits for
+    ``go``, runs ``tasks`` and sends the parent its results (or its
+    traceback). It prints nothing to stdout."""
+    import traceback
+
+    import torch.distributed as dist
+
+    os.dup2(2, 1)
+    sys.stdout = sys.stderr
+    try:
+        sys.path.insert(0, HERE)
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from tpu_composer_torch.parallel.mesh import init_world
+
+        dev = init_world("gloo", rank, world, init, device,
+                         timeout_s=MESH_GROUP_TIMEOUT_S)
+        if not go.wait(MESH_DEADLINE_S):
+            raise RuntimeError("the parent never started this world")
+        ref = torch.load(ref_path, weights_only=True)
+        _reset_counts()
+        out = {}
+        for label, kind, axes, sp_impl, sp_inner in tasks:
+            t0 = time.perf_counter()
+            out[label] = _MESH_TASKS[kind](dev, ref, axes, sp_impl, sp_inner)
+            out[label]["s"] = time.perf_counter() - t0
+            out[label]["transport"] = dist.get_backend()
+        out["launches"] = _counts()
+        results.put((rank, None, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class _World:
+    """``n`` spawned ranks of ``_mesh_rank``, started at once; ``join``
+    collects their results or fails, and never leaves one running."""
+
+    def __init__(self, n: int, tasks, ref_path: str, workdir: str):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.n, self.go, self.results = n, ctx.Event(), ctx.Queue()
+        init = f"file://{workdir}/world{n}"
+        self.procs = [ctx.Process(target=_mesh_rank, args=(
+            r, n, init, DEVICE, tasks, ref_path, self.go, self.results))
+            for r in range(n)]
+        for p in self.procs:
+            p.start()
+
+    def join(self, deadline_s: float = MESH_DEADLINE_S) -> list:
+        import queue
+
+        self.go.set()
+        got, deadline, dead_since = {}, time.monotonic() + deadline_s, None
+        try:
+            while len(got) < self.n:
+                missing = sorted(set(range(self.n)) - set(got))
+                check(time.monotonic() < deadline,
+                      f"world of {self.n}: ranks {missing} did not report"
+                      f" within {deadline_s} s")
+                try:
+                    rank, err, out = self.results.get(timeout=2)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(self.procs)
+                            if not p.is_alive() and r not in got]
+                    if dead and dead_since is None:
+                        dead_since = time.monotonic()
+                    check(not dead or time.monotonic() - dead_since < 10,
+                          f"world of {self.n}: ranks {dead} exited without"
+                          " a result")
+                    continue
+                check(err is None,
+                      f"world of {self.n}: rank {rank} failed:\n{err}")
+                got[rank] = out
+        finally:
+            for p in self.procs:
+                p.join(timeout=30 if len(got) == self.n else 0)
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        return [got[r] for r in range(self.n)]
+
+
+def phase_mesh_train(seed: int, exact: dict, moe_exact: dict) -> dict:
+    """The multi-rank training step on the one card: a world of 2 ranks
+    and one of 4 over gloo, each rank on the card. The fp32 flagship over
+    each mesh of ``MESH_WORLD_2``/``MESH_WORLD_4`` against the
+    one-process flash step (``train_exact``), the fp32 MoE flagship
+    against ``train_moe``'s, and a bf16 run. Returns the worlds' launch
+    counts, summed over ranks."""
+    import tempfile
+
+    gen = torch.Generator().manual_seed(seed)
+    batches = [torch.randint(0, FLAGSHIP["vocab_size"], (4, 256),
+                             generator=gen, dtype=torch.int32)
+               for _ in range(3)]
+    gen = torch.Generator().manual_seed(seed)
+    moe_batches = [torch.randint(0, MOE_FLAGSHIP["vocab_size"], (4, 256),
+                                 generator=gen, dtype=torch.int32)
+                   for _ in range(3)]
+    with tempfile.TemporaryDirectory() as workdir:
+        ref_path = os.path.join(workdir, "ref.pt")
+        torch.save({"seed": seed, "batches": batches,
+                    "grads": exact["ref_grads"], "moe_batches": moe_batches,
+                    "moe_top1": moe_exact["ref_top1"]}, ref_path)
+        t0 = time.perf_counter()
+        worlds = {2: _World(2, MESH_WORLD_2, ref_path, workdir),
+                  4: _World(4, MESH_WORLD_4, ref_path, workdir)}
+        # The world of 4 starts up beside the world of 2 and waits for it.
+        results = {n: worlds[n].join() for n in (2, 4)}
+        wall = time.perf_counter() - t0
+
+    out, counts = {"wall_s": wall}, {}
+    for n, tasks in ((2, MESH_WORLD_2), (4, MESH_WORLD_4)):
+        ranks = results[n]
+        for r in ranks:
+            for k, v in r["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        for label, kind, axes, sp_impl, sp_inner in tasks:
+            per_rank = [r[label] for r in ranks]
+            rec = {"world": n, "mesh": axes, "sp_impl": sp_impl,
+                   "sp_inner": sp_inner, "s": max(x["s"] for x in per_rank),
+                   "transport": per_rank[0]["transport"] + " (host-staged)"}
+            if kind == "dense_exact":
+                got = per_rank[0]
+                rec["losses"], rec["grad_norms"] = got["losses"], \
+                    got["grad_norms"]
+                rec["loss_rel_err"] = max(
+                    abs(a - b) / abs(b)
+                    for a, b in zip(got["losses"], exact["losses_flash"]))
+                rec["grad_norm_rel_err"] = max(
+                    abs(a - b) / b for a, b in zip(got["grad_norms"],
+                                                   exact["grad_norms_flash"]))
+                rec["grad_rel_err"] = got["grad_err"]
+                check(rec["loss_rel_err"] <= 1e-4,
+                      f"mesh {label}: losses off by {rec['loss_rel_err']}")
+                check(rec["grad_norm_rel_err"] <= 1e-3,
+                      f"mesh {label}: grad norms off by"
+                      f" {rec['grad_norm_rel_err']}")
+                check(rec["grad_rel_err"] <= 1e-4,
+                      f"mesh {label}: step-1 gradients off by"
+                      f" {rec['grad_rel_err']}")
+            elif kind == "moe_exact":
+                got = per_rank[0]
+                rec["losses"] = got["losses"]
+                rec["loss_rel_err"] = max(
+                    abs(a - b) / abs(b)
+                    for a, b in zip(got["losses"],
+                                    moe_exact["exact"]["losses_flash"]))
+                # Ranks that share rows (sp, tp) route them alike: count
+                # each row block once.
+                rec["top1_flips"] = sum(
+                    {x["rows"]: x["top1_flips"] for x in per_rank}.values())
+                check(rec["loss_rel_err"] <= 1e-3,
+                      f"mesh {label}: MoE losses off by"
+                      f" {rec['loss_rel_err']}")
+            else:
+                losses = per_rank[0]["losses"]
+                check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                      f"mesh {label}: losses {losses}")
+                rec["losses"] = losses
+                rec["per_rank"] = [
+                    {"step_ms_p50": x["step_ms_p50"],
+                     "launches_per_step": {
+                         k: x["launches_per_step"][k]
+                         for k in ("flash_fwd_lse", "flash_bwd_dq",
+                                   "flash_bwd_dkv")}} for x in per_rank]
+                check(all(v > 0 for x in rec["per_rank"]
+                          for v in x["launches_per_step"].values()),
+                      f"mesh {label}: a rank launched no flash kernel")
+            out[label] = rec
+            emit("mesh_train", check=label, **rec)
+    out["launches"] = counts
+    return out
+
+
+def phase_mesh_nccl(seed: int) -> dict:
+    """A world of one rank over NCCL: ``make_mesh`` over the card and
+    ``fit`` 3 steps with it give the meshless ``fit``'s losses bit for
+    bit; the allreduce probe over one device reports 0.0."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpu_composer_torch.data import PackedLMDataset
+    from tpu_composer_torch.examples.train_lm import zipf_documents
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.collectives import (
+        allreduce_bandwidth_gbps,
+    )
+    from tpu_composer_torch.parallel.mesh import init_world, make_mesh
+    from tpu_composer_torch.parallel.train import TrainConfig
+    from tpu_composer_torch.workload.trainer import fit
+
+    cfg = ModelConfig(dtype=torch.bfloat16, attn_impl="flash", **FLAGSHIP)
+    tc = TrainConfig(model=cfg)
+    dataset = PackedLMDataset(zipf_documents(seed,
+                                             vocab=FLAGSHIP["vocab_size"]),
+                              seq_len=512, seed=seed)
+    with tempfile.TemporaryDirectory() as workdir:
+        init_world("nccl", 0, 1, f"file://{workdir}/nccl", DEVICE)
+        try:
+            mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, "cuda")
+            backend = dist.get_backend()
+            meshed = fit(tc, dataset, total_steps=3, global_batch=8,
+                         log_every=1, seed=seed, device=DEVICE, mesh=mesh)
+            busbw = allreduce_bandwidth_gbps(mesh)
+        finally:
+            dist.destroy_process_group()
+    plain = fit(tc, dataset, total_steps=3, global_batch=8, log_every=1,
+                seed=seed, device=DEVICE)
+    got = [r["loss"] for r in meshed.history]
+    want = [r["loss"] for r in plain.history]
+    check(got == want, f"NCCL world-1 fit losses {got} != meshless {want}")
+    check(busbw == 0.0, f"allreduce probe on one device: {busbw}")
+    out = {"transport": backend, "losses": got, "losses_meshless": want,
+           "allreduce_gbps": busbw}
+    emit("mesh_nccl", **out)
     return out
 
 
@@ -1458,27 +1982,37 @@ def main() -> int:
 
     # Each main path: every count is set to 0 just before its phases run
     # and read just after; each of the path's kernels must have launched.
-    paths = {}
+    # The multi-rank path's kernels run in its spawned ranks, which count
+    # their own launches from 0 and report them.
+    done, paths = {}, {}
+    seed = args.seed
+    train_kernels = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
     for name, kernels, phases in (
             ("serving", ("flash_fwd", "paged_decode", "paged_decode_int8"),
-             (("serve_exact", phase_serve_exact, rng, args.seed),
-              ("serve", phase_serve, rng, args.seed))),
+             (("serve_exact", lambda: phase_serve_exact(rng, seed)),
+              ("serve", lambda: phase_serve(rng, seed)))),
             ("moe_serving", ("paged_decode", "paged_decode_int8"),
-             (("moe_serve_exact", phase_moe_serve_exact, rng, args.seed),
-              ("moe_serve", phase_moe_serve, rng, args.seed))),
+             (("moe_serve_exact", lambda: phase_moe_serve_exact(rng, seed)),
+              ("moe_serve", lambda: phase_moe_serve(rng, seed)))),
             ("speculative", ("flash_fwd",),
-             (("speculative", phase_speculative, rng, args.seed),)),
-            ("training", ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"),
-             (("train_exact", phase_train_exact, args.seed),
-              ("train", phase_train, args.seed),
+             (("speculative", lambda: phase_speculative(rng, seed)),)),
+            ("training", train_kernels,
+             (("train_exact", lambda: phase_train_exact(seed)),
+              ("train", lambda: phase_train(seed)),
               ("qualify", phase_qualify))),
-            ("moe_training",
-             ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"),
-             (("train_moe", phase_train_moe, args.seed),))):
+            ("moe_training", train_kernels,
+             (("train_moe", lambda: phase_train_moe(seed)),)),
+            ("mesh_training", train_kernels,
+             (("mesh_train", lambda: phase_mesh_train(
+                 seed, done["train_exact"], done["train_moe"])),
+              ("mesh_nccl", lambda: phase_mesh_nccl(seed))))):
         _reset_counts()
-        for phase_name, fn, *fn_args in phases:
-            timed_phase(phase_name, fn, *fn_args)
+        for phase_name, fn in phases:
+            done[phase_name] = timed_phase(phase_name, fn)
         paths[name] = _counts()
+        if name == "mesh_training":
+            for k, v in done["mesh_train"]["launches"].items():
+                paths[name][k] += v
         check(all(paths[name][k] > 0 for k in kernels),
               f"a kernel of the {name} path was never launched:"
               f" {paths[name]}")

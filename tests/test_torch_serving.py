@@ -388,6 +388,26 @@ class TestEngineHygiene:
         with pytest.raises(ValueError, match="prefill_chunk"):
             _engine(env, slots=1, num_blocks=8, prefill_chunk=0)
 
+    @pytest.mark.parametrize("bad", [64, -1, 10**6])
+    def test_submit_refuses_out_of_vocab_ids(self, env, bad):
+        """The vocab is 64: an id outside it is refused on the host (on
+        the card it would be a device-side assert in the embedding)."""
+        eng = _engine(env, slots=1, num_blocks=8, block_size=8)
+        with pytest.raises(ValueError, match="outside the vocab"):
+            eng.submit([1, 2, bad], 4)
+        assert not eng._waiting
+        req = eng.submit([1, 2, 63], 2)
+        eng.run()
+        assert req.done
+
+    @pytest.mark.parametrize("bad", [64, -1])
+    def test_register_prefix_refuses_out_of_vocab_ids(self, env, bad):
+        eng = _engine(env, slots=1, num_blocks=8, block_size=8,
+                      prefill_chunk=8)
+        with pytest.raises(ValueError, match="outside the vocab"):
+            eng.register_prefix([1] * 7 + [bad])
+        assert int(eng.cache.free_top) == eng.num_blocks
+
     def test_step_events_include_the_prefill_token(self, env):
         eng = _engine(env, slots=1, num_blocks=8, block_size=8)
         req = eng.submit([4, 2], 1)

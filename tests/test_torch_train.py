@@ -33,6 +33,7 @@ import optax
 import pytest
 import torch
 
+from tests.torch_dist import World
 from tests.torch_parity import configs, moe_configs, n, t, to_numpy, world
 from tpu_composer.models import transformer as jtr
 from tpu_composer.parallel.mesh import make_mesh
@@ -231,8 +232,6 @@ def test_grad_accum_must_divide_batch():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"sp_impl": "zigzag"}, NotImplementedError),
-    ({"sp_inner": "flash"}, NotImplementedError),
     ({"pipeline_microbatches": 2}, NotImplementedError),
     ({"sp_impl": "bogus"}, ValueError),
     ({"grad_accum_steps": 0}, ValueError),
@@ -240,11 +239,33 @@ def test_grad_accum_must_divide_batch():
 def test_multi_device_fields_are_refused(kw, exc):
     _, tc = configs()
     ttc = ttrain.TrainConfig(model=tc, **kw)
-    match = "slice 4" if exc is NotImplementedError else "sp_impl|grad_accum"
+    match = "slice 4b" if exc is NotImplementedError else \
+        "sp_impl|grad_accum"
     with pytest.raises(exc, match=match):
         ttrain.make_train_step(ttc)
     with pytest.raises(exc, match=match):
         ttrain.make_train_state(ttc, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{"sp_impl": "zigzag"},
+                                {"sp_impl": "ulysses"},
+                                {"sp_inner": "flash"}])
+def test_sp_fields_change_nothing_on_one_device(kw):
+    """Without a mesh (as with sp = 1) the sequence-parallel choices are
+    accepted and the step is the default one, as in the JAX package."""
+    _, tc = configs()
+    toks = torch.from_numpy(_tokens(4))
+    runs = []
+    for fields in ({}, kw):
+        ttc = ttrain.TrainConfig(model=tc, **fields)
+        state = ttrain.make_train_state(ttc, seed=0, device="cpu")
+        state, m = ttrain.make_train_step(ttc)(state, toks)
+        runs.append((m, state["params"]))
+    (m0, p0), (m1, p1) = runs
+    assert float(m0["loss"]) == float(m1["loss"])
+    assert float(m0["grad_norm"]) == float(m1["grad_norm"])
+    for a, b in zip(ttrain.tree_leaves(p0), ttrain.tree_leaves(p1)):
+        assert torch.equal(a, b)
 
 
 def test_moe_pipeline_is_refused_as_in_jax():
@@ -336,10 +357,16 @@ def test_train_config_defaults_match_jax():
 
 # -- the collective probe and qualification ------------------------------------
 
-def test_allreduce_probe_on_one_device_reports_zero():
-    assert allreduce_bandwidth_gbps(["cpu"]) == 0.0
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        allreduce_bandwidth_gbps(["cuda:0", "cuda:1"])
+def test_allreduce_probe_on_one_device_reports_zero(tmp_path):
+    """0.0 without a mesh (one device), as the JAX package reports; over
+    a mesh of two gloo ranks the probe measures a bandwidth."""
+    assert allreduce_bandwidth_gbps() == 0.0
+    two = World(2, str(tmp_path))
+    try:
+        res = two.run("bandwidth", {"dp": 2})
+    finally:
+        two.close()
+    assert all(gbps > 0 and transport == "gloo" for gbps, transport in res)
 
 
 def test_model_flops_per_token_matches_jax():

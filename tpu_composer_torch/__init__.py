@@ -4,8 +4,9 @@ The JAX package (``tpu_composer``) is the reference this package is held
 against; nothing here imports it. The layout mirrors it module for
 module: ``ops/`` holds attention and its hand-written Hopper kernels
 (``csrc/``), ``models/`` the transformer, KV-cached decoding, the paged
-cache and the continuous-batching engine, ``parallel/`` the train step,
-checkpoints and the collective probe (one card), ``data/`` the packed-LM
+cache and the continuous-batching engine, ``parallel/`` the device mesh,
+collectives, sequence-parallel attention, the train step (one card or a
+mesh) and checkpoints, ``data/`` the packed-LM
 pipeline, ``workload/`` the training loop and slice qualification, and
 ``examples/`` a runnable training script.
 

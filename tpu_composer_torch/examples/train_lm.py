@@ -1,6 +1,5 @@
-"""End-to-end LM training on one card: data pipeline -> train step ->
-checkpoint/resume (the single-card counterpart of
-``examples/train_lm.py``).
+"""End-to-end LM training: data pipeline -> train step ->
+checkpoint/resume (the counterpart of ``examples/train_lm.py``).
 
 On the card (the default):
 
@@ -10,19 +9,34 @@ A quick local check on the CPU:
 
     python -m tpu_composer_torch.examples.train_lm --device cpu --steps 4
 
-Sequence and tensor parallelism (``--sp``/``--tp`` > 1) need several
-devices and wait for port slice 4.
+Over several ranks, launched by ``torchrun`` (one process per rank; the
+mesh is ``solve_mesh_axes(world, sp=--sp, tp=--tp)``, dp takes the
+rest):
+
+    torchrun --nproc_per_node=4 -m tpu_composer_torch.examples.train_lm \
+        --device cpu --sp 2 --tp 2
+
+The ranks talk over NCCL when each has a card of its own, else over
+gloo (several ranks on one card, or the CPU).
 """
 
 import argparse
 import logging
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_composer_torch.data import PackedLMDataset
 from tpu_composer_torch.device import resolve_device
 from tpu_composer_torch.models.transformer import ModelConfig
+from tpu_composer_torch.parallel.collectives import backend
+from tpu_composer_torch.parallel.mesh import (
+    init_world,
+    make_mesh,
+    solve_mesh_axes,
+)
 from tpu_composer_torch.parallel.train import TrainConfig
 from tpu_composer_torch.workload.trainer import fit
 
@@ -52,13 +66,28 @@ def main() -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args()
-    if args.sp > 1 or args.tp > 1:
-        p.error("--sp/--tp > 1 need several devices: port slice 4")
 
     device = resolve_device(args.device)  # raises without a card
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    try:
+        axes = solve_mesh_axes(world, sp=args.sp, tp=args.tp)
+    except ValueError as e:
+        p.error(f"{e} (launch {args.sp * args.tp} or more ranks with"
+                " torchrun)")
+    mesh, rank = None, 0
+    if world > 1:
+        rank = int(os.environ["RANK"])
+        own_card = (device.type == "cuda"
+                    and world <= torch.cuda.device_count())
+        device = init_world("nccl" if own_card else "gloo", rank, world,
+                            "env://", device)
+        mesh = make_mesh(axes, device.type)
+        if rank:
+            logging.getLogger().setLevel(logging.WARNING)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"device: {name}")
+    if rank == 0:
+        print(f"device: {name}, mesh: {axes}, transport: {backend(mesh)}")
 
     dataset = PackedLMDataset(zipf_documents(), seq_len=args.seq_len, seed=0)
 
@@ -84,7 +113,12 @@ def main() -> None:
         checkpoint_every=20 if args.checkpoint_dir else 0,
         log_every=10,
         device=device,
+        mesh=mesh,
     )
+    if mesh is not None:
+        dist.destroy_process_group()
+    if rank:
+        return
     if result.history:
         last = result.history[-1]
         print(

@@ -22,7 +22,11 @@ runs in fp32 in choice order and is rounded once.
 
 Layout (``param_specs``): expert stacks (E, D, F) with E over 'ep' and F
 over 'tp'; attention and dense layers as ``models/transformer.py``; the
-router (D, E) replicated, in fp32.
+router (D, E) replicated, in fp32. Over a mesh the batch rows are
+sharded over (dp, ep) and each rank routes its own rows (a row is a
+routing group, so the capacity rule does not change); the dispatched
+(E, B_local, C, D) expert inputs go to the experts' owners by an
+all-to-all over 'ep' and come back the same way.
 """
 
 from __future__ import annotations
@@ -42,7 +46,14 @@ from tpu_composer_torch.models.transformer import (
     _select_attn,
     _tied_logits,
     attention_block,
+    ffn_mesh,
+    full_embedding,
     swiglu_ffn,
+)
+from tpu_composer_torch.parallel.collectives import (
+    all_reduce,
+    all_to_all,
+    enter_parallel,
 )
 
 
@@ -145,7 +156,7 @@ def init_params(config: MoEConfig, seed: int = 0,
 def param_specs(config: MoEConfig) -> Dict:
     """The JAX package's layout as plain data (per leaf a tuple of mesh
     axis names or None per dim): 'ep' shards the expert dim, 'tp' heads
-    and the ffn width. Nothing reads it before the multi-device slice."""
+    and the ffn width; the train step legalizes it."""
     c = config
     layers = []
     for i in range(c.n_layers):
@@ -256,16 +267,21 @@ class _GatherRows(torch.autograd.Function):
 
 
 def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
-             capacity: Optional[int] = None
+             capacity: Optional[int] = None, mesh=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux). SwiGLU experts. ``capacity``
     overrides the capacity-factor rule (the decode path passes the
     drop-free capacity S: top-k picks distinct experts per token, so S
-    slots never overflow)."""
+    slots never overflow). With ``mesh``, the local expert stacks say
+    what is sharded: experts over 'ep' (their inputs cross by
+    all-to-all) and the expert width over 'tp' (a tp region as in the
+    dense FFN)."""
     c = config
     b, s, d = x.shape
     e, k = c.n_experts, c.top_k
     cap = capacity if capacity is not None else c.capacity(s)
+    ep_mesh = mesh if layer["w_gate"].shape[0] < e else None
+    tp_mesh = ffn_mesh(layer, c, mesh)
     logits = torch.einsum("bsd,de->bse", x.float(), layer["w_router"].float())
     experts, slots, gates, aux = _route(logits, k, cap)
 
@@ -284,11 +300,17 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     slot_tok = torch.where(slot_src >= 0, slot_src // k, -1)
 
     xin = _GatherRows.apply(x.reshape(b * s, d), slot_tok, tok_slot)
-    xin = xin.reshape(e, b * cap, d)
+    # (E, B, C, D) -> (E/ep, ep·B, C, D): expert chunk j to ep rank j.
+    xin = all_to_all(xin.reshape(e, b, cap, d), ep_mesh, "ep", 0, 1)
+    e_local = xin.shape[0]
+    xin = enter_parallel(xin.reshape(e_local, -1, d), tp_mesh, "tp")
     h_gate = F.silu(torch.bmm(xin, resolve(layer["w_gate"], c.dtype)).float())
     h_up = torch.bmm(xin, resolve(layer["w_up"], c.dtype)).float()
     xout = torch.bmm((h_gate * h_up).to(c.dtype),
                      resolve(layer["w_down"], c.dtype))
+    xout = all_reduce(xout, tp_mesh, "tp").reshape(e_local, -1, cap, d)
+    # And back: (E/ep, ep·B, C, D) -> (E, B, C, D).
+    xout = all_to_all(xout, ep_mesh, "ep", 1, 0)
     picked = _GatherRows.apply(xout.reshape(n_slots, d),
                                tok_slot.reshape(-1), slot_src[:, None])
     picked = picked.reshape(b * s, k, d).float()
@@ -301,7 +323,8 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
 
 
 def ffn_delta(h: torch.Tensor, layer: Dict, layer_idx: int, config,
-              drop_free: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              drop_free: bool = False,
+              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's FFN residual with the MoE-or-dense branch in one place
     (``forward`` and the cached decode paths call it): expert dispatch on
     MoE layers, SwiGLU otherwise. Returns (delta, aux).
@@ -311,37 +334,43 @@ def ffn_delta(h: torch.Tensor, layer: Dict, layer_idx: int, config,
     single steps would, which speculative verify relies on)."""
     c = config
     if isinstance(c, MoEConfig) and c.is_moe_layer(layer_idx):
-        return _moe_ffn(h, layer, c, capacity=h.shape[1] if drop_free else None)
-    return (swiglu_ffn(h, layer, c.dtype),
+        return _moe_ffn(h, layer, c,
+                        capacity=h.shape[1] if drop_free else None,
+                        mesh=mesh)
+    return (swiglu_ffn(h, layer, c.dtype, ffn_mesh(layer, c, mesh)),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def forward(params: Dict, tokens: torch.Tensor, config: MoEConfig,
-            attn_fn: Optional[AttnFn] = None
+            attn_fn: Optional[AttnFn] = None, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, V) fp32, the aux loss averaged over MoE layers)."""
+    """(logits (B, S, V) fp32, the aux loss averaged over MoE layers).
+    ``mesh`` as in ``transformer.forward``; the aux loss is then the mean
+    over this rank's rows (the train step averages equal shards)."""
     c = config
     attn = _select_attn(c, attn_fn)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    x = embedding_lookup(params["embed"], tokens, c.dtype)
+    embed = full_embedding(params["embed"], c, mesh)
+    x = embedding_lookup(embed, tokens, c.dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, layer in enumerate(params["layers"]):
-        x = attention_block(layer, x, positions, c, attn)
-        delta, aux = ffn_delta(_rmsnorm(x, layer["ln2"]), layer, i, c)
+        x = attention_block(layer, x, positions, c, attn, mesh)
+        delta, aux = ffn_delta(_rmsnorm(x, layer["ln2"]), layer, i, c,
+                               mesh=mesh)
         x = x + delta
         aux_total = aux_total + aux
     x = _rmsnorm(x, params["ln_f"])
     n_moe = sum(1 for i in range(c.n_layers) if c.is_moe_layer(i))
-    return _tied_logits(x, params["embed"], c.dtype), aux_total / max(n_moe, 1)
+    return _tied_logits(x, embed, c.dtype), aux_total / max(n_moe, 1)
 
 
 def loss_fn(params: Dict, tokens: torch.Tensor, config: MoEConfig,
-            attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+            attn_fn: Optional[AttnFn] = None, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy on fp32 logits plus
     ``router_aux_weight`` × the load-balancing aux."""
-    logits, aux = forward(params, tokens, config, attn_fn)
+    logits, aux = forward(params, tokens, config, attn_fn, mesh)
     logits = logits[:, :-1]
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)

@@ -198,6 +198,16 @@ class ContinuousBatchingEngine:
         m[slot] = 1
         return m
 
+    def _check_ids(self, tokens: List[int]) -> None:
+        """Refuse token ids outside the vocab on the host: on the card an
+        out-of-range embedding row is a device-side assert, which would
+        take every request in flight down with it."""
+        vocab = self.config.vocab_size
+        bad = [t for t in tokens if not 0 <= int(t) < vocab]
+        if bad:
+            raise ValueError(
+                f"token ids {bad[:8]} outside the vocab [0, {vocab})")
+
     # -- submission ----------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int,
                temperature: float = 0.0, top_k: int = 0,
@@ -247,6 +257,7 @@ class ContinuousBatchingEngine:
                 f"({self.config.max_seq}) — the solo reference run has "
                 "no defined output past it"
             )
+        self._check_ids(prompt)
         req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
                       req_id=self._next_id, temperature=temperature,
                       top_k=top_k, top_p=top_p, seed=seed, prefix=prefix)
@@ -292,6 +303,7 @@ class ContinuousBatchingEngine:
                 " prefill_chunk): bucketed engines cannot attach requests"
                 " to a prefix, so its blocks would leak"
             )
+        self._check_ids(tokens)
         p_n = len(tokens)
         if p_n == 0 or p_n % self.block_size:
             raise ValueError(

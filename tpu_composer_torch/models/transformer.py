@@ -20,6 +20,12 @@ import torch.nn.functional as F
 from tpu_composer_torch.device import DeviceLike, resolve_device
 from tpu_composer_torch.models.quant import embedding_lookup, resolve
 from tpu_composer_torch.ops.attention import flash_attention, mha_reference
+from tpu_composer_torch.parallel.collectives import (
+    all_gather,
+    all_reduce,
+    enter_parallel,
+    shard,
+)
 
 
 @dataclass(frozen=True)
@@ -90,8 +96,8 @@ def init_params(config: ModelConfig, seed: int = 0,
 def param_specs(config: ModelConfig) -> Dict:
     """The JAX package's sharding layout as plain data: per leaf a tuple
     of mesh-axis names or ``None`` per array dim (``()`` = replicated).
-    'tp' shards heads and the ffn width; nothing reads it before the
-    multi-device slice."""
+    'tp' shards heads, the ffn width and the vocab rows of the
+    embedding; the train step legalizes it (``parallel/train.py``)."""
     layer = {
         "ln1": (),
         "wo": ("tp", None, None),
@@ -145,12 +151,36 @@ def _rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
+class _TiedHead(torch.autograd.Function):
+    """x (N, D) times embedᵀ (D, V) from the operands' own dtype into an
+    fp32 output (``aten::mm.dtype``, the JAX package's
+    ``preferred_element_type=float32``). The backward is JAX's
+    transpose, which runs in fp32 (the fp32 cotangent times the upcast
+    operand), each gradient cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (g.mm(w.float()).to(x.dtype),
+                g.t().mm(x.float()).to(w.dtype))
+
+
 def _tied_logits(x, embed, dtype):
     """Tied output head (embed^T) with fp32 accumulation as the OUTPUT
-    dtype: the operands are upcast, so a bf16 model's logits are never
-    rounded to bf16 (the JAX package's preferred_element_type=float32)."""
-    return torch.einsum("...d,vd->...v", x.float(),
-                        resolve(embed, dtype).float())
+    dtype, so a bf16 model's logits are never rounded to bf16. On the
+    card the bf16 operands are multiplied as they are into an fp32
+    output (:class:`_TiedHead`); the CPU has no kernel for that op, so
+    there the operands are upcast (the same products, exact in fp32)."""
+    w = resolve(embed, dtype)
+    if x.is_cuda and x.dtype != torch.float32:
+        out = _TiedHead.apply(x.reshape(-1, x.shape[-1]), w)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return torch.einsum("...d,vd->...v", x.float(), w.float())
 
 
 AttnFn = Callable[..., torch.Tensor]  # (q, k, v, causal=...) -> out
@@ -165,56 +195,118 @@ def _select_attn(config: ModelConfig, attn_fn: Optional[AttnFn]) -> AttnFn:
 
 
 def attention_block(layer: Dict, x: torch.Tensor, positions: torch.Tensor,
-                    config: ModelConfig, attn: AttnFn) -> torch.Tensor:
-    """Pre-RMSNorm causal attention with residual."""
+                    config: ModelConfig, attn: AttnFn,
+                    mesh=None) -> torch.Tensor:
+    """Pre-RMSNorm causal attention with residual.
+
+    With ``mesh`` and the heads of ``wo`` sharded over its 'tp' dim the
+    block runs on this rank's heads: the normed activations enter the tp
+    region (their cotangent is summed over tp), q (and k, v when ``wkv``
+    is sharded with them) come from the local head columns, and the
+    partial outputs of the local ``wo`` rows are summed over tp. Where tp
+    does not divide the KV heads, ``wkv`` is replicated: k and v are then
+    computed from the activations outside the region, and q is gathered
+    to every head around the attention (its output sliced back), so each
+    rank attends with the kv heads its queries use."""
     c = config
     h = _rmsnorm(x, layer["ln1"])
-    q, k, v = project_qkv(layer, h)
+    if mesh is not None and layer["wo"].shape[0] == c.n_heads:
+        mesh = None  # heads replicated: no tp region
+    gather_q = False
+    if mesh is None:
+        q, k, v = project_qkv(layer, h)
+    else:
+        hp = enter_parallel(h, mesh, "tp")
+        if "wqkv" in layer:
+            q, k, v = project_qkv(layer, hp)
+        else:
+            gather_q = layer["wkv"].shape[2] == c.kv_heads
+            q = torch.einsum("bsd,dhk->bshk", hp,
+                             resolve(layer["wq"], hp.dtype))
+            kv = torch.einsum("bsd,dthk->tbshk", h if gather_q else hp,
+                              resolve(layer["wkv"], h.dtype))
+            k, v = kv[0], kv[1]
     q = _rope(q, positions, c.rope_theta)
     k = _rope(k, positions, c.rope_theta)
+    if gather_q:
+        q = all_gather(q, mesh, "tp", axis=2)
     o = attn(q, k, v, causal=True)
-    return x + torch.einsum("bshk,hkd->bsd", o.to(c.dtype),
-                            resolve(layer["wo"], c.dtype))
+    if gather_q:
+        o = shard(o, mesh, "tp", axis=2)
+    out = torch.einsum("bshk,hkd->bsd", o.to(c.dtype),
+                       resolve(layer["wo"], c.dtype))
+    return x + all_reduce(out, mesh, "tp")
 
 
-def swiglu_ffn(h: torch.Tensor, layer: Dict, dtype) -> torch.Tensor:
-    """Dense SwiGLU MLP (no residual): silu(h@w_gate) * (h@w_up) @ w_down."""
+def swiglu_ffn(h: torch.Tensor, layer: Dict, dtype,
+               mesh=None) -> torch.Tensor:
+    """Dense SwiGLU MLP (no residual): silu(h@w_gate) * (h@w_up) @ w_down.
+    With ``mesh`` the ffn width is sharded over its 'tp' dim: ``h``
+    enters the tp region and the partial ``w_down`` products are summed
+    over tp."""
+    h = enter_parallel(h, mesh, "tp")
     gate = F.silu(torch.einsum(
         "bsd,df->bsf", h, resolve(layer["w_gate"], dtype)).float())
     up = torch.einsum("bsd,df->bsf", h,
                       resolve(layer["w_up"], dtype)).float()
-    return torch.einsum("bsf,fd->bsd", (gate * up).to(dtype),
-                        resolve(layer["w_down"], dtype))
+    out = torch.einsum("bsf,fd->bsd", (gate * up).to(dtype),
+                       resolve(layer["w_down"], dtype))
+    return all_reduce(out, mesh, "tp")
+
+
+def ffn_mesh(layer: Dict, config, mesh):
+    """``mesh`` when this layer's ffn width is sharded (``w_down`` holds
+    fewer rows than ``d_ff``), else None."""
+    return mesh if layer["w_down"].shape[-2] < config.d_ff else None
 
 
 def block_forward(layer: Dict, x: torch.Tensor, positions: torch.Tensor,
-                  config: ModelConfig, attn: AttnFn) -> torch.Tensor:
+                  config: ModelConfig, attn: AttnFn,
+                  mesh=None) -> torch.Tensor:
     """One transformer block (attention + SwiGLU MLP, pre-RMSNorm)."""
-    x = attention_block(layer, x, positions, config, attn)
+    x = attention_block(layer, x, positions, config, attn, mesh)
     h = _rmsnorm(x, layer["ln2"])
-    return x + swiglu_ffn(h, layer, config.dtype)
+    return x + swiglu_ffn(h, layer, config.dtype,
+                          ffn_mesh(layer, config, mesh))
+
+
+def full_embedding(embed, config, mesh):
+    """The whole embedding table. Its vocab rows may be sharded over
+    'tp' (``param_specs``); the lookup and the tied head then read the
+    table gathered over tp, once per step: the simplest exact route
+    (the flagship's table is 8 MB in bf16). Both consumers run
+    replicated, so every tp rank holds the same full cotangent, and the
+    gather's backward keeps this rank's rows of it."""
+    if embed.shape[0] < config.vocab_size:
+        return all_gather(embed, mesh, "tp", axis=0)
+    return embed
 
 
 def forward(params: Dict, tokens: torch.Tensor, config: ModelConfig,
-            attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
-    """Logits (B, S, vocab) in fp32 for tokens (B, S)."""
+            attn_fn: Optional[AttnFn] = None, mesh=None) -> torch.Tensor:
+    """Logits (B, S, vocab) in fp32 for tokens (B, S). ``mesh`` (a
+    ``DeviceMesh``) is given when the params are this rank's shards
+    (``parallel/train.py``): their local shapes say which are sharded
+    over 'tp', and the blocks run the tp regions for those. Without it
+    the forward is the single-device one."""
     c = config
     attn = _select_attn(c, attn_fn)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    x = embedding_lookup(params["embed"], tokens, c.dtype)
+    embed = full_embedding(params["embed"], c, mesh)
+    x = embedding_lookup(embed, tokens, c.dtype)
     for layer in params["layers"]:
-        x = block_forward(layer, x, positions, c, attn)
+        x = block_forward(layer, x, positions, c, attn, mesh)
     x = _rmsnorm(x, params["ln_f"])
-    return _tied_logits(x, params["embed"], c.dtype)
+    return _tied_logits(x, embed, c.dtype)
 
 
 def loss_fn(params: Dict, tokens: torch.Tensor, config: ModelConfig,
-            attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+            attn_fn: Optional[AttnFn] = None, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy on fp32 logits, the mean over B·(S−1)
     positions."""
-    logits = forward(params, tokens, config, attn_fn)[:, :-1]
+    logits = forward(params, tokens, config, attn_fn, mesh)[:, :-1]
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]

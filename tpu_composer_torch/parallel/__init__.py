@@ -1,2 +1,3 @@
-"""Training on one card: the train step, checkpoints and the collective
-probe (the multi-device half waits for its slice)."""
+"""Training on one card or over a device mesh: the mesh, differentiable
+collectives and the allreduce probe, ring/zigzag and Ulysses attention,
+the train step and checkpoints."""

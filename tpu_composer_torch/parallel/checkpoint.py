@@ -1,4 +1,4 @@
-"""Train-state checkpoints on one card (port of
+"""Train-state checkpoints (port of
 ``tpu_composer/parallel/checkpoint.py``).
 
 ``save`` writes ``directory/step_<n>/state.pt`` (``torch.save``) into a
@@ -8,8 +8,10 @@ whole checkpoint or none under its final name. ``latest_step`` counts
 only step directories that hold the marker (the role of orbax's
 ``_CHECKPOINT_METADATA``), so a torn write on a store without atomic
 rename is skipped. ``restore`` loads with ``weights_only=True`` onto the
-device asked for. Restoring onto a different mesh waits for the
-multi-device slice.
+device asked for. A checkpoint holds the whole state: over a mesh,
+``trainer.fit`` has rank 0 save the gathered state and each rank keep
+its shards of a restored one (``parallel/train.py``). Resharding a live
+state onto another mesh comes with port slice 4b.
 """
 
 from __future__ import annotations

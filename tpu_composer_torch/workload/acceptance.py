@@ -1,12 +1,12 @@
-"""Slice qualification on one card (port of
-``tpu_composer/workload/acceptance.py``).
+"""Slice qualification (port of ``tpu_composer/workload/acceptance.py``).
 
 ``qualify_slice`` runs the two north-star probes: the allreduce bus
-bandwidth (0.0 on one device) and a real train step of the flagship at
-its full width, returning step time, tokens/s, achieved TFLOP/s and MFU
-against the card's bf16 dense peak. The flagship qualifies through the
-flash kernels (K1 with lse, B3, B4); a kernel that fails raises. There is
-no retry with reference attention.
+bandwidth over the mesh (0.0 on one device; its transport, gloo or
+NCCL, is reported beside it) and a real train step of the flagship at
+its full width over the mesh, returning step time, tokens/s, achieved
+TFLOP/s and MFU against the cards' bf16 dense peak. The flagship
+qualifies through the flash kernels (K1 with lse, B3, B4); a kernel that
+fails raises. There is no retry with reference attention.
 """
 
 from __future__ import annotations
@@ -15,10 +15,16 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from tpu_composer_torch.device import DeviceLike, resolve_device
 from tpu_composer_torch.models.transformer import ModelConfig
-from tpu_composer_torch.parallel.collectives import allreduce_bandwidth_gbps
+from tpu_composer_torch.parallel.collectives import (
+    allreduce_bandwidth_gbps,
+    backend,
+)
+from tpu_composer_torch.parallel.mesh import make_mesh, solve_mesh_axes
 from tpu_composer_torch.parallel.train import (
     TrainConfig,
     make_train_state,
@@ -79,20 +85,28 @@ def qualify_slice(
     model_config: Optional[ModelConfig] = None,
     allreduce_mb: float = 64.0,
     steps: int = 5,
+    mesh: Optional[DeviceMesh] = None,
 ) -> Dict[str, float]:
+    """Qualify the slice this rank belongs to: every rank of the default
+    process group calls it. ``mesh`` defaults to ``solve_mesh_axes`` of
+    the world size when a group of several ranks is up, else one
+    device."""
     dev = resolve_device(device)
+    if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_mesh(solve_mesh_axes(dist.get_world_size()), dev.type)
     mc = model_config or ModelConfig(
         vocab_size=8192, d_model=512, n_layers=4, n_heads=8, d_ff=1408,
         max_seq=seq, attn_impl="flash",
     )
     results: Dict[str, float] = {
-        "n_devices": 1.0,
-        "allreduce_gbps": allreduce_bandwidth_gbps([dev],
+        "n_devices": float(mesh.size() if mesh is not None else 1),
+        "allreduce_gbps": allreduce_bandwidth_gbps(mesh,
                                                    size_mb=allreduce_mb),
+        "transport": backend(mesh),  # type: ignore[dict-item]
     }
     tc = TrainConfig(model=mc)
-    state = make_train_state(tc, 0, dev)
-    step_fn = make_train_step(tc)
+    state = make_train_state(tc, 0, dev, mesh)
+    step_fn = make_train_step(tc, mesh)
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, mc.vocab_size, (batch, seq), generator=gen,
                            dtype=torch.int32).to(dev)
