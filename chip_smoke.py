@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, speculative-decoding and training
-paths, dense and MoE, one rank and several ranks over a device mesh, on
-one NVIDIA GPU and hold every CUDA kernel of those paths against its
-plain PyTorch version.
+paths, dense and MoE, one rank and several ranks over a device mesh
+(pipelined over 'pp' too, and resharded live onto another mesh), on one
+NVIDIA GPU and hold every CUDA kernel of those paths against its plain
+PyTorch version.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--nccl-world]
 
 Needs one CUDA card, nvcc and the ``tpu_composer_torch`` package beside
-this file; it exits nonzero without them. Each phase prints one JSON
+this file; it exits nonzero without them. ``--nccl-world`` runs instead
+phases 2 and 11 and then phases 17 and 18's world-of-4 tasks, plus a
+bf16 run at pp = 4, in one world of 4 ranks over NCCL, one card each
+(it needs 4 cards), with the same checks. Each phase prints one JSON
 line and checks its own result; any failure raises and the script exits
 nonzero. Phases, in order:
 
@@ -102,18 +106,44 @@ nonzero. Phases, in order:
     falls, per rank its step p50 and K1-with-lse, B3 and B4 launches a
     step. Ranks print nothing to stdout and send the parent their
     results; a rank's failure or a world past its deadline fails the
-    phase, and no rank is left running.
+    phase, and no rank is left running. The worlds stay up for phases
+    17 and 18.
 16. ``mesh_nccl``: one rank over NCCL: ``fit`` 3 steps over
     ``make_mesh`` of the card gives the meshless ``fit``'s losses bit
     for bit; ``allreduce_bandwidth_gbps`` reports 0.0.
-17. ``timing`` (the whole run's seconds, builds included, and each
+17. ``pipeline_train``: GPipe over 'pp', as the second stage of phase
+    15's worlds (each rank sets its counts to 0 before each stage).
+    First, in this process and uncounted, K1 with lse, B3 and B4 against
+    their plain versions at the pipeline's and the reshard's shapes
+    (bf16 (2, 512, 8/2, 64); fp32 (2, 256, 8/2, 64), (1, 256, 8/2, 64),
+    tp = 2's (2, 256, 4/1, 64) and (4, 256, 4/1, 64); K1 without lse at
+    fp32 (2, 256, 8/2, 64)), and the three kernels' device times at the
+    bf16 one.
+    Exact half: the fp32 flagship (tokens (4, 256), 3 AdamW steps)
+    pipelined over pp = 2 with M = 2, pp = 4 with M = 4 (one layer a
+    stage, one row a microbatch), pp = 2 × tp = 2, pp = 2 × dp = 2 and
+    pp = 2 × sp = 2 with the ring's einsum inner, against
+    ``train_exact``'s one-process flash step; ``pipelined_forward`` under
+    ``no_grad`` at pp = 2 (K1 without lse) against ``forward``. Run
+    half: the bf16 flagship at seq 512, global batch 8, pp = 2 with
+    M = 4, 12 steps: the loss falls, per rank its step p50 and flash
+    launches a step.
+18. ``reshard_train``: the third stage of phase 15's world of 4, the
+    fp32 flagship with flash attention: 3 steps on tp = 2 over ranks
+    0-1, ``reshard_train_state`` onto dp = 2 × tp = 2, 2 more steps, and
+    the shrink the other way; a checkpoint saved on pp = 2 (ranks 0-1)
+    restored onto pp = 2 × dp = 2. The state gathered on the target mesh
+    equals the one gathered (or saved) on the source, bit for bit, and
+    the losses after it equal the never-resized run's.
+19. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
-    mesh_training 15-16, its ranks' counts summed in); then the kernels
-    line ``{"kernels": [...]}``: per kernel its launches summed over
-    every path, max error, kernel / plain / library ms (device time),
-    the kernel's issue ms, and the bound.
-18. the last line: ``{"ok": true, "device": {...}}``.
+    mesh_training 15-16, pipeline_training 17, reshard_training 18, the
+    ranks' counts summed in); then the kernels line ``{"kernels":
+    [...]}``: per kernel its launches summed over every path, max error,
+    kernel / plain / library ms (device time), the kernel's issue ms,
+    and the bound.
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -133,11 +163,17 @@ same for the MoE engines, against the drop-free plain path).
 ``train_exact``: losses 1e-4, grad norms 1e-3 relative, gradients 1e-4
 relative to max(1, max|ref|) (flash against reference attention, fp32).
 ``train_moe``: losses 1e-3 relative (one flipped routing choice moves
-one token's FFN). ``mesh_train``: the dense checks as ``train_exact``,
-against the one-process flash step; MoE losses 1e-3 relative. K2
-mid-flight against the gather path: 5e-2 (bf16 pool), 1e-1 (int8). Token streams (``serve_exact``, ``moe_serve_exact``,
-``speculative``): equal; on a mismatch the target's top-2 logit gap at
-the first diverging token is printed (under 1e-4 names float drift).
+one token's FFN). ``mesh_train``, ``pipeline_train`` and
+``reshard_train``: the dense
+checks as ``train_exact``, against the one-process flash step; MoE
+losses 1e-3 relative; the pipelined forward's logits 1e-4; the
+resharded and restored runs' losses 2e-4 relative to the never-resized
+run's (``tests/test_reshard.py``'s bound), their states equal to the
+source's exactly. K2 mid-flight against the
+gather path: 5e-2 (bf16 pool), 1e-1 (int8). Token streams
+(``serve_exact``, ``moe_serve_exact``, ``speculative``): equal; on a
+mismatch the target's top-2 logit gap at the first diverging token is
+printed (under 1e-4 names float drift).
 fp32 matmuls run in full fp32 (TF32 off, below).
 """
 
@@ -147,8 +183,10 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1105,8 +1143,6 @@ def phase_train(seed: int) -> dict:
     """bf16 flagship through trainer.fit: 20 steps checkpointed every 10,
     then a resumed fit to 24; step timing, a step that must make no host
     sync, and the device's busy share."""
-    import tempfile
-
     from tpu_composer_torch.data import PackedLMDataset, ShardedLoader
     from tpu_composer_torch.examples.train_lm import zipf_documents
     from tpu_composer_torch.models.transformer import ModelConfig
@@ -1589,44 +1625,88 @@ def phase_train_moe(seed: int) -> dict:
 # is killed and fails the phase.
 MESH_GROUP_TIMEOUT_S = 120
 MESH_DEADLINE_S = 600
-# (label, task, mesh axes, sp_impl, sp_inner) per world.
+# (label, task, its arguments) per world: the mesh phase's tasks, then
+# the pipeline phase's, then (world 4) the reshard phase's, each a stage
+# of the same worlds.
 MESH_WORLD_2 = (
-    ("sp2_ring_flash", "dense_exact", {"sp": 2}, "ring", "flash"),
-    ("sp2_zigzag_flash", "dense_exact", {"sp": 2}, "zigzag", "flash"),
-    ("sp2_ulysses_flash", "dense_exact", {"sp": 2}, "ulysses", "flash"),
-    ("sp2_ring_einsum", "dense_exact", {"sp": 2}, "ring", "einsum"),
-    ("tp2", "dense_exact", {"tp": 2}, "ring", "einsum"),
-    ("dp2", "dense_exact", {"dp": 2}, "ring", "einsum"),
-    ("moe_ep2", "moe_exact", {"ep": 2}, "ring", "einsum"),
-    ("run_sp2_ring_flash", "run", {"sp": 2}, "ring", "flash"),
+    ("sp2_ring_flash", "dense_exact",
+     dict(axes={"sp": 2}, sp_impl="ring", sp_inner="flash")),
+    ("sp2_zigzag_flash", "dense_exact",
+     dict(axes={"sp": 2}, sp_impl="zigzag", sp_inner="flash")),
+    ("sp2_ulysses_flash", "dense_exact",
+     dict(axes={"sp": 2}, sp_impl="ulysses", sp_inner="flash")),
+    ("sp2_ring_einsum", "dense_exact", dict(axes={"sp": 2})),
+    ("tp2", "dense_exact", dict(axes={"tp": 2})),
+    ("dp2", "dense_exact", dict(axes={"dp": 2})),
+    ("moe_ep2", "moe_exact", dict(axes={"ep": 2})),
+    ("run_sp2_ring_flash", "run",
+     dict(axes={"sp": 2}, sp_impl="ring", sp_inner="flash")),
 )
 MESH_WORLD_4 = (
-    ("sp4_zigzag_flash", "dense_exact", {"sp": 4}, "zigzag", "flash"),
-    ("moe_ep2_sp2_ulysses_flash", "moe_exact", {"ep": 2, "sp": 2},
-     "ulysses", "flash"),
+    ("sp4_zigzag_flash", "dense_exact",
+     dict(axes={"sp": 4}, sp_impl="zigzag", sp_inner="flash")),
+    ("moe_ep2_sp2_ulysses_flash", "moe_exact",
+     dict(axes={"ep": 2, "sp": 2}, sp_impl="ulysses", sp_inner="flash")),
+)
+PIPE_WORLD_2 = (
+    ("pp2_m2", "dense_exact",
+     dict(axes={"pp": 2}, pipeline_microbatches=2)),
+    ("pp2_m2_forward_nolse", "pipe_forward",
+     dict(axes={"pp": 2}, pipeline_microbatches=2)),
+    ("run_pp2_m4", "run", dict(axes={"pp": 2}, pipeline_microbatches=4)),
+)
+PIPE_WORLD_4 = (
+    # One layer a stage, one row a microbatch.
+    ("pp4_m4", "dense_exact",
+     dict(axes={"pp": 4}, pipeline_microbatches=4)),
+    ("pp2_tp2", "dense_exact",
+     dict(axes={"pp": 2, "tp": 2}, pipeline_microbatches=2)),
+    ("pp2_dp2", "dense_exact",
+     dict(axes={"dp": 2, "pp": 2}, pipeline_microbatches=2)),
+    # The JAX package's nested case: the raw ring with the einsum inner
+    # inside each stage (it launches no kernel).
+    ("pp2_sp2_ring_einsum", "dense_exact",
+     dict(axes={"pp": 2, "sp": 2}, pipeline_microbatches=2)),
+)
+# The reshard phase's tasks, the third stage of the world of 4.
+RESHARD_WORLD_4 = (
+    ("reshard_grow_2_to_4", "reshard",
+     dict(src=({"tp": 2}, [0, 1]), dst=({"dp": 2, "tp": 2}, None))),
+    ("reshard_shrink_4_to_2", "reshard",
+     dict(src=({"dp": 2, "tp": 2}, None), dst=({"tp": 2}, [0, 1]))),
+    ("restore_pp2_onto_pp2_dp2", "restore",
+     dict(src=({"pp": 2}, [0, 1]), dst=({"dp": 2, "pp": 2}, None),
+          pipeline_microbatches=2)),
 )
 
 
-def _mesh_dense_exact(dev, ref, axes, sp_impl, sp_inner) -> dict:
-    """The fp32 flagship over ``axes``: the first batch's gradients,
-    gathered to rank 0 and held there against the one-process flash
-    step's, then 3 AdamW steps from the same params."""
+def _mesh_dense_exact(dev, ref, axes, sp_impl="ring", sp_inner="einsum",
+                      **train) -> dict:
+    """The fp32 flagship over ``axes`` (``train``: more TrainConfig
+    fields): the first batch's gradients, gathered to rank 0 and held
+    there against the one-process flash step's (stacked like the state
+    when pipelined), then 3 AdamW steps from the same params."""
     import torch.distributed as dist
 
-    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.models.transformer import (
+        ModelConfig,
+        init_params,
+    )
     from tpu_composer_torch.parallel.mesh import make_mesh
+    from tpu_composer_torch.parallel.pipeline import stack_layers
     from tpu_composer_torch.parallel.train import (
         TrainConfig,
         gather_params,
         make_grad_fn,
         make_train_state,
         make_train_step,
+        pipelined,
         tree_leaves,
         tree_unflatten,
     )
 
     cfg = ModelConfig(dtype=torch.float32, attn_impl="flash", **FLAGSHIP)
-    tc = TrainConfig(model=cfg, sp_impl=sp_impl, sp_inner=sp_inner)
+    tc = TrainConfig(model=cfg, sp_impl=sp_impl, sp_inner=sp_inner, **train)
     mesh = make_mesh(axes, dev.type)
     batches = [b.to(dev) for b in ref["batches"]]
     state = make_train_state(tc, ref["seed"], dev, mesh)
@@ -1634,8 +1714,13 @@ def _mesh_dense_exact(dev, ref, axes, sp_impl, sp_inner) -> dict:
     full = gather_params(tc, tree_unflatten(state["params"], grads), mesh)
     grad_err = None
     if dist.get_rank() == 0:
+        want = ref["grads"]
+        if pipelined(tc, mesh):
+            tree = tree_unflatten(init_params(cfg, 0, "meta"), want)
+            want = tree_leaves({**tree,
+                                "layers": stack_layers(tree["layers"])})
         grad_err = max(max_err(g, r.to(dev)) / max(1.0, float(r.abs().max()))
-                       for g, r in zip(tree_leaves(full), ref["grads"]))
+                       for g, r in zip(tree_leaves(full), want))
     del full, grads
     step = make_train_step(tc, mesh)
     losses, norms = [], []
@@ -1646,7 +1731,8 @@ def _mesh_dense_exact(dev, ref, axes, sp_impl, sp_inner) -> dict:
     return {"losses": losses, "grad_norms": norms, "grad_err": grad_err}
 
 
-def _mesh_moe_exact(dev, ref, axes, sp_impl, sp_inner) -> dict:
+def _mesh_moe_exact(dev, ref, axes, sp_impl="ring",
+                    sp_inner="einsum") -> dict:
     """The fp32 MoE flagship over ``axes``: the top-1 experts of this
     rank's rows of the first batch, against the one-process model's, and
     3 AdamW steps from the same params."""
@@ -1674,10 +1760,12 @@ def _mesh_moe_exact(dev, ref, axes, sp_impl, sp_inner) -> dict:
     return {"losses": losses, "rows": index, "top1_flips": flips}
 
 
-def _mesh_run(dev, ref, axes, sp_impl, sp_inner, steps: int = 12) -> dict:
+def _mesh_run(dev, ref, axes, sp_impl="ring", sp_inner="einsum",
+              steps: int = 12, **train) -> dict:
     """The bf16 flagship over ``axes`` at seq 512, global batch 8, on
-    packed Zipf documents: losses, step times on the host clock (each
-    step synchronised), kernel launches a step."""
+    packed Zipf documents (``train``: more TrainConfig fields): losses,
+    step times on the host clock (each step synchronised), kernel
+    launches a step."""
     from tpu_composer_torch.data import PackedLMDataset, ShardedLoader
     from tpu_composer_torch.examples.train_lm import zipf_documents
     from tpu_composer_torch.models.transformer import ModelConfig
@@ -1689,7 +1777,7 @@ def _mesh_run(dev, ref, axes, sp_impl, sp_inner, steps: int = 12) -> dict:
     )
 
     cfg = ModelConfig(dtype=torch.bfloat16, attn_impl="flash", **FLAGSHIP)
-    tc = TrainConfig(model=cfg, sp_impl=sp_impl, sp_inner=sp_inner)
+    tc = TrainConfig(model=cfg, sp_impl=sp_impl, sp_inner=sp_inner, **train)
     mesh = make_mesh(axes, dev.type)
     seq, batch = 512, 8
     dataset = PackedLMDataset(zipf_documents(ref["seed"],
@@ -1716,15 +1804,168 @@ def _mesh_run(dev, ref, axes, sp_impl, sp_inner, steps: int = 12) -> dict:
             "seq": seq, "global_batch": batch}
 
 
+def _pipe_forward(dev, ref, axes, pipeline_microbatches) -> dict:
+    """The fp32 flagship's ``pipelined_forward`` over ``axes`` under
+    ``no_grad`` (K1 without lse), held on rank 0 against the one-process
+    ``forward`` of the same params (uncounted)."""
+    import torch.distributed as dist
+
+    from tpu_composer_torch.models import transformer
+    from tpu_composer_torch.parallel.mesh import make_mesh
+    from tpu_composer_torch.parallel.pipeline import pipelined_forward
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        local_batch,
+        make_train_state,
+    )
+
+    cfg = transformer.ModelConfig(dtype=torch.float32, attn_impl="flash",
+                                  **FLAGSHIP)
+    tc = TrainConfig(model=cfg, pipeline_microbatches=pipeline_microbatches)
+    mesh = make_mesh(axes, dev.type)
+    toks = ref["batches"][0].to(dev)
+    params = make_train_state(tc, ref["seed"], dev, mesh)["params"]
+    with torch.no_grad():
+        got = pipelined_forward(params, local_batch(tc, toks, mesh), cfg,
+                                mesh, pipeline_microbatches)
+    err = None
+    if dist.get_rank() == 0:
+        with _uncounted(), torch.no_grad():
+            full = transformer.init_params(cfg, ref["seed"], dev)
+            err = max_err(got, transformer.forward(full, toks, cfg))
+    return {"logits_err": err, "shape": list(got.shape)}
+
+
+def _steps(tc, mesh, state, batches) -> tuple:
+    from tpu_composer_torch.parallel.train import make_train_step
+
+    step, losses = make_train_step(tc, mesh), []
+    for toks in batches:
+        state, m = step(state, toks)
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def _mesh_reshard(dev, ref, src, dst, before: int = 3,
+                  after: int = 2) -> dict:
+    """The fp32 flagship (flash) on mesh ``src`` for ``before`` steps,
+    ``reshard_train_state`` onto ``dst``, ``after`` more steps; and the run
+    that never resized (``src``, ``dst``: (axes, ranks or None), two
+    meshes of this world, rank 0 in both). Returns the losses this rank
+    took part in, the seconds the move took it, whether it holds the moved state exactly where ``dst``
+    puts it, and on rank 0 whether the state gathered on ``dst`` just
+    after the move equals the one gathered on ``src`` just before it,
+    bit for bit."""
+    import torch.distributed as dist
+
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.mesh import in_mesh, make_mesh
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        abstract_train_state,
+        gather_state,
+        make_train_state,
+        reshard_train_state,
+        tree_leaves,
+    )
+
+    cfg = ModelConfig(dtype=torch.float32, attn_impl="flash", **FLAGSHIP)
+    tc = TrainConfig(model=cfg)
+    a = make_mesh(src[0], dev.type, ranks=src[1])
+    b = make_mesh(dst[0], dev.type, ranks=dst[1])
+    batches = [t.to(dev) for t in ref["reshard_batches"]]
+    control = resized = state = kept = bit_equal = None
+    if in_mesh(a):
+        control = _steps(tc, a, make_train_state(tc, ref["seed"], dev, a),
+                         batches)[1]
+        state, resized = _steps(tc, a, make_train_state(
+            tc, ref["seed"], dev, a), batches[:before])
+        kept = [x.clone() for x in tree_leaves(gather_state(tc, state, a))]
+        if dist.get_rank() != 0:
+            kept = None
+    dist.barrier()
+    t0 = time.perf_counter()
+    state = reshard_train_state(tc, state, b, a, dev)
+    torch.cuda.synchronize(dev)
+    move_s = time.perf_counter() - t0
+    lands = state is None
+    if in_mesh(b):
+        lands = all(
+            (x.shape, x.dtype, x.device) == (w.shape, w.dtype, dev)
+            for x, w in zip(tree_leaves(state),
+                            tree_leaves(abstract_train_state(tc, b))))
+        moved = tree_leaves(gather_state(tc, state, b))
+        if dist.get_rank() == 0:
+            bit_equal = len(moved) == len(kept) and all(
+                torch.equal(x, y) for x, y in zip(moved, kept))
+        del moved, kept
+        state, after_losses = _steps(tc, b, state, batches[before:])
+        resized = (resized or [None] * before) + after_losses
+    return {"control": control, "resized": resized, "lands": lands,
+            "in_dst": in_mesh(b), "bit_equal": bit_equal, "move_s": move_s}
+
+
+def _mesh_restore(dev, ref, src, dst, **train) -> dict:
+    """The fp32 flagship (flash) 2 steps on ``src``; rank 0 saves the
+    gathered state; every rank of ``dst`` restores its shards and takes
+    step 3; and step 3 of the run that never stopped. On rank 0 also
+    whether the restored state, gathered on ``dst``, equals the saved
+    one bit for bit."""
+    import torch.distributed as dist
+
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel import checkpoint as ckpt
+    from tpu_composer_torch.parallel.mesh import in_mesh, make_mesh
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        gather_state,
+        make_train_state,
+        tree_leaves,
+    )
+
+    cfg = ModelConfig(dtype=torch.float32, attn_impl="flash", **FLAGSHIP)
+    tc = TrainConfig(model=cfg, **train)
+    a = make_mesh(src[0], dev.type, ranks=src[1])
+    b = make_mesh(dst[0], dev.type, ranks=dst[1])
+    batches = [t.to(dev) for t in ref["batches"]]
+    directory = os.path.join(ref["workdir"], "pipeline_ckpt")
+    control = resumed = saved = bit_equal = None
+    if in_mesh(a):
+        control = _steps(tc, a, make_train_state(tc, ref["seed"], dev, a),
+                         batches)[1][2]
+        state, _ = _steps(tc, a, make_train_state(tc, ref["seed"], dev, a),
+                          batches[:2])
+        full = gather_state(tc, state, a)
+        if dist.get_rank() == 0:
+            ckpt.save(directory, full, step=2)
+            saved = tree_leaves(full)
+        del state, full
+    dist.barrier()
+    if in_mesh(b):
+        out = ckpt.restore(directory, tc, dev, mesh=b)
+        check(out["step"] == 2, f"restored step {out['step']}")
+        restored = tree_leaves(gather_state(tc, out["state"], b))
+        if dist.get_rank() == 0:
+            bit_equal = len(restored) == len(saved) and all(
+                torch.equal(x, y) for x, y in zip(restored, saved))
+        del restored, saved
+        resumed = _steps(tc, b, out["state"], batches[2:])[1][0]
+    return {"control": control, "resumed": resumed, "bit_equal": bit_equal}
+
+
 _MESH_TASKS = {"dense_exact": _mesh_dense_exact,
-               "moe_exact": _mesh_moe_exact, "run": _mesh_run}
+               "moe_exact": _mesh_moe_exact, "run": _mesh_run,
+               "pipe_forward": _pipe_forward, "reshard": _mesh_reshard,
+               "restore": _mesh_restore}
 
 
-def _mesh_rank(rank, world, init, device, tasks, ref_path, go,
-               results) -> None:
-    """One rank of a spawned world: joins the gloo group, waits for
-    ``go``, runs ``tasks`` and sends the parent its results (or its
-    traceback). It prints nothing to stdout."""
+def _mesh_rank(rank, world, init, device, stages, ref_path, gos,
+               results, backend) -> None:
+    """One rank of a spawned world: joins the ``backend`` group (gloo,
+    or NCCL with a card per rank), then for each
+    stage (a phase's tasks) waits for its ``go``, sets the launch counts
+    to 0, runs the tasks and sends the parent its results and counts (or
+    its traceback). It prints nothing to stdout."""
     import traceback
 
     import torch.distributed as dist
@@ -1738,56 +1979,64 @@ def _mesh_rank(rank, world, init, device, tasks, ref_path, go,
         torch.backends.cudnn.allow_tf32 = False
         from tpu_composer_torch.parallel.mesh import init_world
 
-        dev = init_world("gloo", rank, world, init, device,
+        dev = init_world(backend, rank, world, init, device,
                          timeout_s=MESH_GROUP_TIMEOUT_S)
-        if not go.wait(MESH_DEADLINE_S):
-            raise RuntimeError("the parent never started this world")
-        ref = torch.load(ref_path, weights_only=True)
-        _reset_counts()
-        out = {}
-        for label, kind, axes, sp_impl, sp_inner in tasks:
-            t0 = time.perf_counter()
-            out[label] = _MESH_TASKS[kind](dev, ref, axes, sp_impl, sp_inner)
-            out[label]["s"] = time.perf_counter() - t0
-            out[label]["transport"] = dist.get_backend()
-        out["launches"] = _counts()
-        results.put((rank, None, out))
+        ref = None
+        for stage, tasks in enumerate(stages):
+            if not gos[stage].wait(MESH_DEADLINE_S):
+                raise RuntimeError(f"the parent never started stage {stage}")
+            if ref is None:
+                ref = torch.load(ref_path, weights_only=True)
+            _reset_counts()
+            out = {}
+            for label, kind, kw in tasks:
+                t0 = time.perf_counter()
+                out[label] = _MESH_TASKS[kind](dev, ref, **kw)
+                out[label]["s"] = time.perf_counter() - t0
+                out[label]["transport"] = dist.get_backend()
+            out["launches"] = _counts()
+            results.put((rank, stage, None, out))
     except BaseException:
-        results.put((rank, traceback.format_exc(), None))
+        results.put((rank, None, traceback.format_exc(), None))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
 class _World:
-    """``n`` spawned ranks of ``_mesh_rank``, started at once; ``join``
-    collects their results or fails, and never leaves one running."""
+    """``n`` spawned ranks of ``_mesh_rank``, started at once, which run
+    ``stages`` in turn: ``join(i)`` starts stage i and collects its
+    results or fails; ``close`` never leaves a rank running."""
 
-    def __init__(self, n: int, tasks, ref_path: str, workdir: str):
+    def __init__(self, n: int, stages, ref_path: str, workdir: str,
+                 backend: str = "gloo"):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
-        self.n, self.go, self.results = n, ctx.Event(), ctx.Queue()
+        self.n, self.results = n, ctx.Queue()
+        self.gos = [ctx.Event() for _ in stages]
+        self.done = False
         init = f"file://{workdir}/world{n}"
         self.procs = [ctx.Process(target=_mesh_rank, args=(
-            r, n, init, DEVICE, tasks, ref_path, self.go, self.results))
+            r, n, init, DEVICE, stages, ref_path, self.gos, self.results,
+            backend))
             for r in range(n)]
         for p in self.procs:
             p.start()
 
-    def join(self, deadline_s: float = MESH_DEADLINE_S) -> list:
+    def join(self, stage: int, deadline_s: float = MESH_DEADLINE_S) -> list:
         import queue
 
-        self.go.set()
+        self.gos[stage].set()
         got, deadline, dead_since = {}, time.monotonic() + deadline_s, None
         try:
             while len(got) < self.n:
                 missing = sorted(set(range(self.n)) - set(got))
                 check(time.monotonic() < deadline,
                       f"world of {self.n}: ranks {missing} did not report"
-                      f" within {deadline_s} s")
+                      f" stage {stage} within {deadline_s} s")
                 try:
-                    rank, err, out = self.results.get(timeout=2)
+                    rank, at, err, out = self.results.get(timeout=2)
                 except queue.Empty:
                     dead = [r for r, p in enumerate(self.procs)
                             if not p.is_alive() and r not in got]
@@ -1799,75 +2048,130 @@ class _World:
                     continue
                 check(err is None,
                       f"world of {self.n}: rank {rank} failed:\n{err}")
+                check(at == stage, f"rank {rank} reported stage {at}")
                 got[rank] = out
-        finally:
-            for p in self.procs:
-                p.join(timeout=30 if len(got) == self.n else 0)
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
+        except BaseException:
+            self.close()
+            raise
+        if stage == len(self.gos) - 1:
+            self.done = True
+            self.close()
         return [got[r] for r in range(self.n)]
 
+    def close(self) -> None:
+        """Join the ranks after their last stage; kill them otherwise."""
+        for p in self.procs:
+            p.join(timeout=30 if self.done else 0)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
 
-def phase_mesh_train(seed: int, exact: dict, moe_exact: dict) -> dict:
-    """The multi-rank training step on the one card: a world of 2 ranks
-    and one of 4 over gloo, each rank on the card. The fp32 flagship over
-    each mesh of ``MESH_WORLD_2``/``MESH_WORLD_4`` against the
-    one-process flash step (``train_exact``), the fp32 MoE flagship
-    against ``train_moe``'s, and a bf16 run. Returns the worlds' launch
-    counts, summed over ranks."""
-    import tempfile
 
+def _dense_exact_record(label: str, got: dict, exact: dict) -> dict:
+    """Rank 0's losses, grad norms and step-1 gradient error over a mesh,
+    held to ``train_exact``'s limits against its one-process flash
+    step."""
+    rec = {"losses": got["losses"], "grad_norms": got["grad_norms"]}
+    rec["loss_rel_err"] = max(
+        abs(a - b) / abs(b)
+        for a, b in zip(got["losses"], exact["losses_flash"]))
+    rec["grad_norm_rel_err"] = max(
+        abs(a - b) / b for a, b in zip(got["grad_norms"],
+                                       exact["grad_norms_flash"]))
+    rec["grad_rel_err"] = got["grad_err"]
+    check(rec["loss_rel_err"] <= 1e-4,
+          f"mesh {label}: losses off by {rec['loss_rel_err']}")
+    check(rec["grad_norm_rel_err"] <= 1e-3,
+          f"mesh {label}: grad norms off by {rec['grad_norm_rel_err']}")
+    check(rec["grad_rel_err"] <= 1e-4,
+          f"mesh {label}: step-1 gradients off by {rec['grad_rel_err']}")
+    return rec
+
+
+def _run_record(label: str, per_rank: list) -> dict:
+    """The bf16 run: the loss falls and stays finite; per rank its step
+    p50 and K1-with-lse, B3 and B4 launches a step (each > 0)."""
+    losses = per_rank[0]["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"mesh {label}: losses {losses}")
+    rec = {"losses": losses, "per_rank": [
+        {"step_ms_p50": x["step_ms_p50"],
+         "launches_per_step": {k: x["launches_per_step"][k]
+                               for k in ("flash_fwd_lse", "flash_bwd_dq",
+                                         "flash_bwd_dkv")}}
+        for x in per_rank]}
+    check(all(v > 0 for x in rec["per_rank"]
+              for v in x["launches_per_step"].values()),
+          f"mesh {label}: a rank launched no flash kernel")
+    return rec
+
+
+def _world_counts(results: dict) -> dict:
+    """The launch counts of every rank of the worlds, summed."""
+    counts = {}
+    for ranks in results.values():
+        for r in ranks:
+            for k, v in r["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def _task_record(n: int, kw: dict, per_rank: list) -> dict:
+    return {"world": n,
+            **{"mesh" if k == "axes" else k: v for k, v in kw.items()},
+            "s": max(x["s"] for x in per_rank),
+            "transport": per_rank[0]["transport"]
+            + (" (host-staged)" if per_rank[0]["transport"] == "gloo"
+               else "")}
+
+
+def _write_ref(seed: int, exact: dict, workdir: str, **more) -> str:
+    """What the ranks read: the seed, the fp32 tokens (4, 256) of the
+    exact and reshard tasks, ``train_exact``'s step-1 gradients and
+    ``more``; returns its path."""
     gen = torch.Generator().manual_seed(seed)
     batches = [torch.randint(0, FLAGSHIP["vocab_size"], (4, 256),
                              generator=gen, dtype=torch.int32)
-               for _ in range(3)]
+               for _ in range(5)]
+    path = os.path.join(workdir, "ref.pt")
+    torch.save({"seed": seed, "batches": batches[:3],
+                "reshard_batches": batches, "workdir": workdir,
+                "grads": exact["ref_grads"], **more}, path)
+    return path
+
+
+def phase_mesh_train(seed: int, exact: dict, moe_exact: dict, workdir: str,
+                     worlds: dict) -> dict:
+    """The multi-rank training step on the one card: a world of 2 ranks
+    and one of 4 over gloo, each rank on the card, started here into
+    ``worlds`` (their second stage is ``pipeline_train``'s, the third of
+    the world of 4 ``reshard_train``'s). The fp32
+    flagship over each mesh of ``MESH_WORLD_2``/``MESH_WORLD_4`` against
+    the one-process flash step (``train_exact``), the fp32 MoE flagship
+    against ``train_moe``'s, and a bf16 run. Returns the worlds' launch
+    counts, summed over ranks."""
     gen = torch.Generator().manual_seed(seed)
     moe_batches = [torch.randint(0, MOE_FLAGSHIP["vocab_size"], (4, 256),
                                  generator=gen, dtype=torch.int32)
                    for _ in range(3)]
-    with tempfile.TemporaryDirectory() as workdir:
-        ref_path = os.path.join(workdir, "ref.pt")
-        torch.save({"seed": seed, "batches": batches,
-                    "grads": exact["ref_grads"], "moe_batches": moe_batches,
-                    "moe_top1": moe_exact["ref_top1"]}, ref_path)
-        t0 = time.perf_counter()
-        worlds = {2: _World(2, MESH_WORLD_2, ref_path, workdir),
-                  4: _World(4, MESH_WORLD_4, ref_path, workdir)}
-        # The world of 4 starts up beside the world of 2 and waits for it.
-        results = {n: worlds[n].join() for n in (2, 4)}
-        wall = time.perf_counter() - t0
+    ref_path = _write_ref(seed, exact, workdir, moe_batches=moe_batches,
+                          moe_top1=moe_exact["ref_top1"])
+    t0 = time.perf_counter()
+    worlds[2] = _World(2, (MESH_WORLD_2, PIPE_WORLD_2), ref_path, workdir)
+    worlds[4] = _World(4, (MESH_WORLD_4, PIPE_WORLD_4, RESHARD_WORLD_4),
+                       ref_path, workdir)
+    # The world of 4 starts up beside the world of 2 and waits for it.
+    results = {n: worlds[n].join(0) for n in (2, 4)}
+    wall = time.perf_counter() - t0
 
-    out, counts = {"wall_s": wall}, {}
+    out = {"wall_s": wall}
     for n, tasks in ((2, MESH_WORLD_2), (4, MESH_WORLD_4)):
         ranks = results[n]
-        for r in ranks:
-            for k, v in r["launches"].items():
-                counts[k] = counts.get(k, 0) + v
-        for label, kind, axes, sp_impl, sp_inner in tasks:
+        for label, kind, kw in tasks:
             per_rank = [r[label] for r in ranks]
-            rec = {"world": n, "mesh": axes, "sp_impl": sp_impl,
-                   "sp_inner": sp_inner, "s": max(x["s"] for x in per_rank),
-                   "transport": per_rank[0]["transport"] + " (host-staged)"}
+            rec = _task_record(n, kw, per_rank)
             if kind == "dense_exact":
-                got = per_rank[0]
-                rec["losses"], rec["grad_norms"] = got["losses"], \
-                    got["grad_norms"]
-                rec["loss_rel_err"] = max(
-                    abs(a - b) / abs(b)
-                    for a, b in zip(got["losses"], exact["losses_flash"]))
-                rec["grad_norm_rel_err"] = max(
-                    abs(a - b) / b for a, b in zip(got["grad_norms"],
-                                                   exact["grad_norms_flash"]))
-                rec["grad_rel_err"] = got["grad_err"]
-                check(rec["loss_rel_err"] <= 1e-4,
-                      f"mesh {label}: losses off by {rec['loss_rel_err']}")
-                check(rec["grad_norm_rel_err"] <= 1e-3,
-                      f"mesh {label}: grad norms off by"
-                      f" {rec['grad_norm_rel_err']}")
-                check(rec["grad_rel_err"] <= 1e-4,
-                      f"mesh {label}: step-1 gradients off by"
-                      f" {rec['grad_rel_err']}")
+                rec.update(_dense_exact_record(label, per_rank[0], exact))
             elif kind == "moe_exact":
                 got = per_rank[0]
                 rec["losses"] = got["losses"]
@@ -1883,22 +2187,172 @@ def phase_mesh_train(seed: int, exact: dict, moe_exact: dict) -> dict:
                       f"mesh {label}: MoE losses off by"
                       f" {rec['loss_rel_err']}")
             else:
-                losses = per_rank[0]["losses"]
-                check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-                      f"mesh {label}: losses {losses}")
-                rec["losses"] = losses
-                rec["per_rank"] = [
-                    {"step_ms_p50": x["step_ms_p50"],
-                     "launches_per_step": {
-                         k: x["launches_per_step"][k]
-                         for k in ("flash_fwd_lse", "flash_bwd_dq",
-                                   "flash_bwd_dkv")}} for x in per_rank]
-                check(all(v > 0 for x in rec["per_rank"]
-                          for v in x["launches_per_step"].values()),
-                      f"mesh {label}: a rank launched no flash kernel")
+                rec.update(_run_record(label, per_rank))
             out[label] = rec
             emit("mesh_train", check=label, **rec)
-    out["launches"] = counts
+    out["launches"] = _world_counts(results)
+    return out
+
+
+# The pipeline and reshard paths' flash calls, held against their plain
+# versions on the card: (label, (B, S, H, KV, D), dtype, with lse). The
+# bf16 run's microbatch (global batch 8 over M = 4), the exact half's
+# microbatches at M = 2 and M = 4 and under tp = 2 (half the heads), the
+# forward under no_grad (K1 without lse), and the reshard's tp = 2 mesh
+# over 2 ranks (the whole batch; its dp = 2 x tp = 2 and pipelined
+# meshes give exact_tp2's, exact_m2's and exact_m4's shapes).
+PIPE_SHAPES = (
+    ("run_microbatch", (2, 512, 8, 2, 64), torch.bfloat16, True),
+    ("exact_m2", (2, 256, 8, 2, 64), torch.float32, True),
+    ("exact_m4", (1, 256, 8, 2, 64), torch.float32, True),
+    ("exact_tp2", (2, 256, 4, 1, 64), torch.float32, True),
+    ("forward_m2_nolse", (2, 256, 8, 2, 64), torch.float32, False),
+    ("reshard_tp2", (4, 256, 4, 1, 64), torch.float32, True),
+)
+
+
+def _pipeline_kernels(gen: torch.Generator) -> dict:
+    """K1 (with lse, and without), B3 and B4 at ``PIPE_SHAPES`` against
+    their plain versions (uncounted), and the three training kernels'
+    device times at the bf16 run's microbatch."""
+    from tpu_composer_torch.ops.attention import (
+        _delta,
+        flash_bwd_cuda,
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_plain,
+        flash_fwd_cuda,
+        flash_fwd_plain,
+    )
+
+    errs = {}
+    with _uncounted():
+        for label, shape, dtype, with_lse in PIPE_SHAPES:
+            q, k, v, do = _attn_inputs(gen, shape, dtype)
+            if not with_lse:
+                out, _ = flash_fwd_cuda(q, k, v, True)
+                torch.cuda.synchronize()
+                e = max_err(out, flash_fwd_plain(q, k, v, True)[0])
+                check(e <= TOL[dtype], f"flash_fwd {label} error {e}")
+                errs[label] = {"shape": list(shape), "out": e}
+                continue
+            out, lse = flash_fwd_cuda(q, k, v, True, with_lse=True)
+            out_w, lse_w = flash_fwd_plain(q, k, v, True, with_lse=True)
+            got = flash_bwd_cuda(q, k, v, out, lse, do, None, True)
+            torch.cuda.synchronize()
+            e_out, e_lse = max_err(out, out_w), max_err(lse, lse_w)
+            check(e_out <= TOL[dtype], f"flash_fwd_lse {label} error {e_out}")
+            check(e_lse <= LSE_TOL, f"flash_fwd_lse {label} lse {e_lse}")
+            worst = {}
+            _bwd_errors(got, flash_bwd_plain(q, k, v, out, lse, do, None,
+                                             True),
+                        dtype, f"{label} {list(shape)}", worst)
+            errs[label] = {"shape": list(shape), "out": e_out,
+                           "lse": e_lse, **worst}
+        # Device times at the bf16 run's microbatch (the last bf16 inputs).
+        q, k, v, do = _attn_inputs(gen, PIPE_SHAPES[0][1], torch.bfloat16)
+        out, lse = flash_fwd_cuda(q, k, v, True, with_lse=True)
+        delta = _delta(out, do)
+        times = {name: timed(fn)[0] for name, fn in (
+            ("flash_fwd_lse", lambda: flash_fwd_cuda(q, k, v, True, True)),
+            ("flash_bwd_dq",
+             lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)),
+            ("flash_bwd_dkv",
+             lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)))}
+    bounds = _attn_bounds(PIPE_SHAPES[0][1], torch.bfloat16)
+    return {"errors": errs, "microbatch_ms": times,
+            "microbatch_bound_ms": {n: bounds[n]["bound_ms"] for n in times}}
+
+
+def _world_check(counts: dict, phase: str) -> None:
+    """K1 with lse, B3 and B4 each launched in the ranks of ``phase``."""
+    check(all(counts[k] > 0 for k in ("flash_fwd_lse", "flash_bwd_dq",
+                                      "flash_bwd_dkv")),
+          f"{phase}: the ranks launched {counts}")
+
+
+def _stage_records(phase: str, n: int, tasks, ranks: list,
+                   exact: dict) -> dict:
+    """Check and print the results of one stage's ``tasks`` in the world
+    of ``n`` ranks (``ranks``: each rank's results): the dense meshes
+    against ``train_exact``, the pipelined forward against ``forward``,
+    the bf16 runs, the reshards and restores against the never-resized
+    run and the source's state."""
+    out = {}
+    for label, kind, kw in tasks:
+        per_rank = [r[label] for r in ranks]
+        rec = _task_record(n, kw, per_rank)
+        got = per_rank[0]  # rank 0 is in both meshes of a reshard
+        if kind == "dense_exact":
+            rec.update(_dense_exact_record(label, got, exact))
+        elif kind == "pipe_forward":
+            rec["logits_err"] = got["logits_err"]
+            check(rec["logits_err"] <= TOL[torch.float32],
+                  f"{phase} {label}: logits off by {rec['logits_err']}")
+        elif kind == "run":
+            rec.update(_run_record(label, per_rank))
+        else:
+            rec["bit_equal"] = got["bit_equal"]
+            check(got["bit_equal"] is True,
+                  f"{phase} {label}: the state on the target mesh is not"
+                  " the source's, bit for bit")
+        if kind == "reshard":
+            rec["losses_resized"] = got["resized"]
+            rec["losses_never_resized"] = got["control"]
+            rec["loss_rel_err"] = max(
+                abs(a - b) / abs(b)
+                for a, b in zip(got["resized"], got["control"]))
+            check(rec["loss_rel_err"] <= 2e-4,
+                  f"{phase} {label}: losses off by {rec['loss_rel_err']}")
+            check(all(x["lands"] for x in per_rank),
+                  f"{phase} {label}: a rank's state is not its shard of"
+                  " the target mesh")
+            rec["target_ranks"] = [r for r, x in enumerate(per_rank)
+                                   if x["in_dst"]]
+            rec["move_s"] = max(x["move_s"] for x in per_rank)
+        elif kind == "restore":
+            rec["loss_resumed"] = got["resumed"]
+            rec["loss_never_stopped"] = got["control"]
+            resumed = [x["resumed"] for x in per_rank]
+            rec["loss_rel_err"] = max(
+                abs(a - got["control"]) / abs(got["control"])
+                for a in resumed)
+            check(rec["loss_rel_err"] <= 2e-4,
+                  f"{phase} {label}: resumed losses {resumed} against"
+                  f" {got['control']}")
+        out[label] = rec
+        emit(phase, check=label, **rec)
+    return out
+
+
+def phase_pipeline_train(gen: torch.Generator, exact: dict,
+                         worlds: dict) -> dict:
+    """GPipe over 'pp', in the worlds ``mesh_train`` started (their
+    second stage). Returns the ranks' launch counts, summed."""
+    kernels = _pipeline_kernels(gen)
+    emit("pipeline_train", check="kernels_at_microbatch_shapes", **kernels)
+    t0 = time.perf_counter()
+    results = {n: worlds[n].join(1) for n in (2, 4)}
+    out = {"wall_s": time.perf_counter() - t0, "kernels": kernels}
+    for n, tasks in ((2, PIPE_WORLD_2), (4, PIPE_WORLD_4)):
+        out.update(_stage_records("pipeline_train", n, tasks, results[n],
+                                  exact))
+    out["launches"] = _world_counts(results)
+    _world_check(out["launches"], "pipeline_train")
+    return out
+
+
+def phase_reshard_train(exact: dict, worlds: dict) -> dict:
+    """The live reshard and the restore onto another mesh, in the world
+    of 4 that ``mesh_train`` started (its third stage). Returns the
+    ranks' launch counts, summed."""
+    t0 = time.perf_counter()
+    results = {4: worlds[4].join(2)}
+    out = {"wall_s": time.perf_counter() - t0}
+    out.update(_stage_records("reshard_train", 4, RESHARD_WORLD_4,
+                              results[4], exact))
+    out["launches"] = _world_counts(results)
+    _world_check(out["launches"], "reshard_train")
     return out
 
 
@@ -1906,8 +2360,6 @@ def phase_mesh_nccl(seed: int) -> dict:
     """A world of one rank over NCCL: ``make_mesh`` over the card and
     ``fit`` 3 steps with it give the meshless ``fit``'s losses bit for
     bit; the allreduce probe over one device reports 0.0."""
-    import tempfile
-
     import torch.distributed as dist
 
     from tpu_composer_torch.data import PackedLMDataset
@@ -1947,9 +2399,55 @@ def phase_mesh_nccl(seed: int) -> dict:
     return out
 
 
+# The stages of the NCCL world of 4 (``--nccl-world``): the pipelined
+# meshes, and a bf16 run at pp = 4 (one layer a stage); then the reshards.
+NCCL_WORLD_4 = (
+    PIPE_WORLD_4 + (("run_pp4_m4", "run",
+                     dict(axes={"pp": 4}, pipeline_microbatches=4)),),
+    RESHARD_WORLD_4,
+)
+
+
+def main_nccl_world(seed: int) -> int:
+    """The pipeline and reshard stages over NCCL, one rank a card, on 4
+    cards: the tasks of ``NCCL_WORLD_4`` checked as on one card, against
+    ``train_exact``'s one-process step on card 0."""
+    card = phase_card()
+    check(card["count"] >= 4, f"--nccl-world needs 4 cards, has"
+                              f" {card['count']}")
+    phase_build()
+    exact = phase_train_exact(seed)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    world = None
+    try:
+        t0 = time.perf_counter()
+        world = _World(4, NCCL_WORLD_4, _write_ref(seed, exact, workdir),
+                       workdir, backend="nccl")
+        counts = {}
+        for stage, tasks in enumerate(NCCL_WORLD_4):
+            ranks = world.join(stage)
+            _stage_records("nccl_world", 4, tasks, ranks, exact)
+            counts[stage] = _world_counts({4: ranks})
+            _world_check(counts[stage], "nccl_world")
+        emit("nccl_world", wall_s=time.perf_counter() - t0,
+             launches=counts)
+    finally:
+        if world is not None:
+            world.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card["name"], "count": card["count"]}}),
+        flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--nccl-world", action="store_true",
+        help="instead of the one-card run: the pipeline and reshard"
+             " stages over NCCL in a world of 4 ranks, one card each")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1962,6 +2460,8 @@ def main() -> int:
     # fp32 reference matmuls in full fp32, on both library paths.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.nccl_world:
+        return main_nccl_world(args.seed)
 
     t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(args.seed)
@@ -1982,40 +2482,58 @@ def main() -> int:
 
     # Each main path: every count is set to 0 just before its phases run
     # and read just after; each of the path's kernels must have launched.
-    # The multi-rank path's kernels run in its spawned ranks, which count
-    # their own launches from 0 and report them.
+    # The multi-rank paths' kernels run in their spawned ranks, which set
+    # their counts to 0 before each path's stage and report them after.
     done, paths = {}, {}
     seed = args.seed
     train_kernels = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
-    for name, kernels, phases in (
-            ("serving", ("flash_fwd", "paged_decode", "paged_decode_int8"),
-             (("serve_exact", lambda: phase_serve_exact(rng, seed)),
-              ("serve", lambda: phase_serve(rng, seed)))),
-            ("moe_serving", ("paged_decode", "paged_decode_int8"),
-             (("moe_serve_exact", lambda: phase_moe_serve_exact(rng, seed)),
-              ("moe_serve", lambda: phase_moe_serve(rng, seed)))),
-            ("speculative", ("flash_fwd",),
-             (("speculative", lambda: phase_speculative(rng, seed)),)),
-            ("training", train_kernels,
-             (("train_exact", lambda: phase_train_exact(seed)),
-              ("train", lambda: phase_train(seed)),
-              ("qualify", phase_qualify))),
-            ("moe_training", train_kernels,
-             (("train_moe", lambda: phase_train_moe(seed)),)),
-            ("mesh_training", train_kernels,
-             (("mesh_train", lambda: phase_mesh_train(
-                 seed, done["train_exact"], done["train_moe"])),
-              ("mesh_nccl", lambda: phase_mesh_nccl(seed))))):
-        _reset_counts()
-        for phase_name, fn in phases:
-            done[phase_name] = timed_phase(phase_name, fn)
-        paths[name] = _counts()
-        if name == "mesh_training":
-            for k, v in done["mesh_train"]["launches"].items():
-                paths[name][k] += v
-        check(all(paths[name][k] > 0 for k in kernels),
-              f"a kernel of the {name} path was never launched:"
-              f" {paths[name]}")
+    worlds: dict = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        for name, kernels, phases in (
+                ("serving", ("flash_fwd", "paged_decode",
+                             "paged_decode_int8"),
+                 (("serve_exact", lambda: phase_serve_exact(rng, seed)),
+                  ("serve", lambda: phase_serve(rng, seed)))),
+                ("moe_serving", ("paged_decode", "paged_decode_int8"),
+                 (("moe_serve_exact",
+                   lambda: phase_moe_serve_exact(rng, seed)),
+                  ("moe_serve", lambda: phase_moe_serve(rng, seed)))),
+                ("speculative", ("flash_fwd",),
+                 (("speculative", lambda: phase_speculative(rng, seed)),)),
+                ("training", train_kernels,
+                 (("train_exact", lambda: phase_train_exact(seed)),
+                  ("train", lambda: phase_train(seed)),
+                  ("qualify", phase_qualify))),
+                ("moe_training", train_kernels,
+                 (("train_moe", lambda: phase_train_moe(seed)),)),
+                ("mesh_training", train_kernels,
+                 (("mesh_train", lambda: phase_mesh_train(
+                     seed, done["train_exact"], done["train_moe"], workdir,
+                     worlds)),
+                  ("mesh_nccl", lambda: phase_mesh_nccl(seed)))),
+                ("pipeline_training", train_kernels,
+                 (("pipeline_train", lambda: phase_pipeline_train(
+                     gen, done["train_exact"], worlds)),)),
+                ("reshard_training", train_kernels,
+                 (("reshard_train", lambda: phase_reshard_train(
+                     done["train_exact"], worlds)),))):
+            _reset_counts()
+            for phase_name, fn in phases:
+                done[phase_name] = timed_phase(phase_name, fn)
+            paths[name] = _counts()
+            for phase_name in ("mesh_train", "pipeline_train",
+                               "reshard_train"):
+                if phase_name in dict(phases):
+                    for k, v in done[phase_name]["launches"].items():
+                        paths[name][k] += v
+            check(all(paths[name][k] > 0 for k in kernels),
+                  f"a kernel of the {name} path was never launched:"
+                  f" {paths[name]}")
+    finally:
+        for w in worlds.values():
+            w.close()
+        shutil.rmtree(workdir, ignore_errors=True)
     emit("timing", wall_s=time.perf_counter() - t_start, phase_s=seconds)
     emit("launches", **paths)
 

@@ -424,3 +424,33 @@ class TestEngineHygiene:
         assert eng.device == torch.device("cpu")
         assert eng.cache.k_pool.device == torch.device("cpu")
         assert eng.cache.block_tables.dtype == torch.int32
+
+
+def test_serve_lm_example_runs_on_cpu():
+    """``examples/serve_lm.py``'s twin runs end to end with ``--device
+    cpu`` at the sizes ``tests/test_packaging.py`` runs the JAX example
+    at, and without a card refuses its default device."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "tpu_composer_torch.examples.serve_lm",
+           "--batch", "2", "--prompt-len", "8", "--new-tokens", "4",
+           "--gamma", "2"]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(cmd + ["--device", "cpu"], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert lines[0] == "device: cpu"
+    for label, shape in (("sampled", "(2, 4)"), ("spec-dec", "(1, 4)")):
+        assert any(ln.startswith(label) and shape in ln for ln in lines), \
+            out.stdout
+    for label in ("engine", "prefix"):  # 2 requests of 4 tokens each
+        assert any(ln.startswith(label) and "2 requests" in ln
+                   and "8 tokens" in ln for ln in lines), out.stdout
+    if not torch.cuda.is_available():
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, env=env, cwd=root)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr

@@ -232,15 +232,13 @@ def test_grad_accum_must_divide_batch():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"pipeline_microbatches": 2}, NotImplementedError),
     ({"sp_impl": "bogus"}, ValueError),
     ({"grad_accum_steps": 0}, ValueError),
 ])
 def test_multi_device_fields_are_refused(kw, exc):
     _, tc = configs()
     ttc = ttrain.TrainConfig(model=tc, **kw)
-    match = "slice 4b" if exc is NotImplementedError else \
-        "sp_impl|grad_accum"
+    match = "sp_impl|grad_accum"
     with pytest.raises(exc, match=match):
         ttrain.make_train_step(ttc)
     with pytest.raises(exc, match=match):
@@ -249,10 +247,13 @@ def test_multi_device_fields_are_refused(kw, exc):
 
 @pytest.mark.parametrize("kw", [{"sp_impl": "zigzag"},
                                 {"sp_impl": "ulysses"},
-                                {"sp_inner": "flash"}])
+                                {"sp_inner": "flash"},
+                                {"pipeline_microbatches": 2}])
 def test_sp_fields_change_nothing_on_one_device(kw):
     """Without a mesh (as with sp = 1) the sequence-parallel choices are
-    accepted and the step is the default one, as in the JAX package."""
+    accepted and the step is the default one, as in the JAX package; so
+    is a microbatch count, since GPipe needs a mesh with pp > 1
+    (``_pipelined`` is false without one)."""
     _, tc = configs()
     toks = torch.from_numpy(_tokens(4))
     runs = []

@@ -124,14 +124,14 @@ def _rank_main(rank: int, n: int, init: str, tasks, results) -> None:
 _MESHES: Dict[tuple, Any] = {}
 
 
-def mesh(axes: Dict[str, int]):
-    """The world's mesh of ``axes`` (built once per world: building one
-    is a collective)."""
+def mesh(axes: Dict[str, int], ranks=None):
+    """The world's mesh of ``axes`` (over ``ranks`` when given; built once
+    per world: building one is a collective)."""
     from tpu_composer_torch.parallel.mesh import make_mesh
 
-    key = tuple(axes.items())
+    key = (tuple(axes.items()), None if ranks is None else tuple(ranks))
     if key not in _MESHES:
-        _MESHES[key] = make_mesh(dict(axes), "cpu")
+        _MESHES[key] = make_mesh(dict(axes), "cpu", ranks=ranks)
     return _MESHES[key]
 
 
@@ -141,6 +141,32 @@ def coords(axes: Dict[str, int]) -> Dict[str, int]:
 
     m = mesh(axes)
     return {name: axis_index(m, name) for name in axes}
+
+
+def submesh_coords(axes: Dict[str, int], ranks):
+    """On a mesh over ``ranks``: whether this rank is in it, its
+    coordinates (or the error text ``axis_index`` raises outside it), and
+    the errors of meshes over ranks the world lacks or out of order."""
+    from tpu_composer_torch.parallel.mesh import (
+        axis_index,
+        in_mesh,
+        make_mesh,
+        mesh_shape,
+    )
+
+    m = mesh(axes, ranks)
+    try:
+        got = {name: axis_index(m, name) for name in axes}
+    except ValueError as e:
+        got = "ValueError: " + str(e)
+    bad = []
+    for wrong in ([r + 100 for r in ranks], ranks[::-1]):
+        try:
+            make_mesh(dict(axes), "cpu", ranks=wrong)
+            bad.append(None)
+        except ValueError as e:
+            bad.append(str(e))
+    return in_mesh(m), got, mesh_shape(m), bad
 
 
 def solve_and_make(axes: Dict[str, int]):
@@ -303,7 +329,7 @@ def moe_forward(axes, model, params_np, tokens):
 
 
 def fit_resume(axes, model, workdir: str, steps: int, global_batch: int,
-               seq: int):
+               seq: int, train=None):
     """``fit`` over the mesh, straight through and killed after half the
     steps then resumed from its checkpoint: both histories' losses and
     the resume step."""
@@ -311,7 +337,7 @@ def fit_resume(axes, model, workdir: str, steps: int, global_batch: int,
     from tpu_composer_torch.examples.train_lm import zipf_documents
     from tpu_composer_torch.workload.trainer import fit
 
-    tc = _configs(model, False, {})
+    tc = _configs(model, False, train or {})
     m = mesh(axes)
     docs = zipf_documents(0, n_docs=64, vocab=tc.model.vocab_size)
     ds = PackedLMDataset(docs, seq_len=seq, seed=0)
@@ -363,3 +389,170 @@ def bandwidth(axes):
 
     m = mesh(axes)
     return allreduce_bandwidth_gbps(m, size_mb=1.0, iters=2), backend(m)
+
+
+def pipeline_forward(axes, model, train, params_np, tokens):
+    """``pipelined_forward`` under ``no_grad`` over the mesh from the JAX
+    state's (stacked) params: this rank's logits rows and the row block
+    it holds."""
+    from tpu_composer_torch.parallel.pipeline import pipelined_forward
+    from tpu_composer_torch.parallel.train import (
+        data_index,
+        local_batch,
+        shard_params,
+    )
+
+    tc = _configs(model, False, train)
+    m = mesh(axes)
+    params = shard_params(tc, _params(tc, params_np), m)
+    with torch.no_grad():
+        logits = pipelined_forward(
+            params, local_batch(tc, torch.from_numpy(tokens), m), tc.model,
+            m, tc.pipeline_microbatches)
+    return logits.numpy(), data_index(tc, m)
+
+
+def pipeline_refusals(axes, model):
+    """The errors of the refused pipelined configurations on a pp mesh:
+    MoE, the flash inner, a depth pp does not divide."""
+    from tpu_composer_torch.parallel.train import make_train_step
+
+    m = mesh(axes)
+    out = {}
+    for label, moe, fields, train in (
+            ("moe", True, {"n_experts": 4, "top_k": 2, "moe_period": 2}, {}),
+            ("flash", False, {}, {"sp_inner": "flash"}),
+            ("depth", False, {"n_layers": 3}, {})):
+        tc = _configs({**model, **fields}, moe,
+                      {"pipeline_microbatches": 2, **train})
+        try:
+            make_train_step(tc, m)
+            out[label] = None
+        except ValueError as e:
+            out[label] = str(e)
+    return out
+
+
+def _batches(vocab: int, n: int, b: int = 4, s: int = 32, seed: int = 7):
+    """``n`` batches of Zipf(1.5) tokens (text-like, so a few steps
+    learn their unigram skew and the loss falls)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(
+        rng.zipf(1.5, (b, s)).clip(0, vocab - 1).astype(np.int32))
+        for _ in range(n)]
+
+
+def _steps(tc, m, state, batches):
+    from tpu_composer_torch.parallel.train import make_train_step
+
+    step = make_train_step(tc, m)
+    losses = []
+    for toks in batches:
+        state, metrics = step(state, toks)
+        losses.append(float(metrics["loss"]))
+    return state, losses
+
+
+def reshard_run(model, train, src, dst, n_before: int, n_after: int):
+    """The never-resized run over mesh ``src`` and the resized one:
+    ``n_before`` steps on ``src``, ``reshard_train_state`` onto ``dst``,
+    ``n_after`` steps there (``src``, ``dst``: (axes, ranks or None)).
+    Returns the losses each rank took part in; the whole state gathered
+    on ``src`` just before the move (its ranks) and on ``dst`` just after
+    it (the target's ranks), as numpy leaves; and on the target's ranks
+    whether every leaf has its ``abstract_train_state`` shape and dtype
+    (the shards of ``dst``)."""
+    from tpu_composer_torch.parallel.mesh import in_mesh
+    from tpu_composer_torch.parallel.train import (
+        abstract_train_state,
+        gather_state,
+        make_train_state,
+        reshard_train_state,
+        tree_leaves,
+    )
+
+    def leaves(state, m):
+        # Copies: the steps after update the state in place.
+        return [x.numpy().copy()
+                for x in tree_leaves(gather_state(tc, state, m))]
+
+    tc = _configs(model, False, train)
+    a, b = mesh(*src), mesh(*dst)
+    batches = _batches(tc.model.vocab_size, n_before + n_after)
+    control = resized = state = moved = kept = None
+    if in_mesh(a):
+        control = _steps(tc, a, make_train_state(tc, 0, "cpu", a),
+                         batches)[1]
+        state, resized = _steps(tc, a, make_train_state(tc, 0, "cpu", a),
+                                batches[:n_before])
+        kept = leaves(state, a)
+    state = reshard_train_state(tc, state, b, a, "cpu")
+    lands = None
+    if in_mesh(b):
+        moved = leaves(state, b)
+        state, after = _steps(tc, b, state, batches[n_before:])
+        resized = (resized or [None] * n_before) + after
+        want = tree_leaves(abstract_train_state(tc, b))
+        lands = [(tuple(x.shape), str(x.dtype), x.device.type)
+                 == (tuple(w.shape), str(w.dtype), "cpu")
+                 for x, w in zip(tree_leaves(state), want)]
+        lands.append(all(w.is_meta for w in want))
+    return {"control": control, "resized": resized, "lands": lands,
+            "holds_state": state is not None, "kept": kept, "moved": moved}
+
+
+def reshard_refused(model, src, dst):
+    """A pipelined state resharded onto a mesh without pp: the error."""
+    from tpu_composer_torch.parallel.mesh import in_mesh
+    from tpu_composer_torch.parallel.train import (
+        make_train_state,
+        reshard_train_state,
+    )
+
+    tc = _configs(model, False, {"pipeline_microbatches": 2})
+    a, b = mesh(*src), mesh(*dst)
+    state = make_train_state(tc, 0, "cpu", a) if in_mesh(a) else None
+    try:
+        reshard_train_state(tc, state, b, a, "cpu")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def checkpoint_grow(model, train, src, dst, workdir: str):
+    """Save after 2 steps on ``src`` (rank 0 writes the gathered state),
+    restore onto ``dst`` and take step 3 there; and step 3 of the run
+    that never stopped. Returns (resumed loss, control loss, the saved
+    state's leaves, the restored state's leaves gathered on ``dst``) on
+    the ranks that hold them."""
+    import torch.distributed as dist
+
+    from tpu_composer_torch.parallel import checkpoint as ckpt
+    from tpu_composer_torch.parallel.mesh import in_mesh
+    from tpu_composer_torch.parallel.train import (
+        gather_state,
+        make_train_state,
+        tree_leaves,
+    )
+
+    tc = _configs(model, False, train)
+    a, b = mesh(*src), mesh(*dst)
+    batches = _batches(tc.model.vocab_size, 3)
+    control = resumed = saved = restored = None
+    if in_mesh(a):
+        control = _steps(tc, a, make_train_state(tc, 0, "cpu", a),
+                         batches)[1][2]
+        state, _ = _steps(tc, a, make_train_state(tc, 0, "cpu", a),
+                          batches[:2])
+        full = gather_state(tc, state, a)
+        if dist.get_rank() == 0:
+            ckpt.save(workdir, full, step=2)
+            saved = [x.numpy().copy() for x in tree_leaves(full)]
+    dist.barrier()
+    if in_mesh(b):
+        out = ckpt.restore(workdir, tc, "cpu", mesh=b)
+        assert out["step"] == 2
+        restored = [x.numpy().copy() for x in tree_leaves(
+            gather_state(tc, out["state"], b))]
+        resumed = _steps(tc, b, out["state"], batches[2:])[1][0]
+    return resumed, control, saved, restored

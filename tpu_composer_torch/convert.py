@@ -3,10 +3,11 @@
 ``params_from_jax`` takes the JAX package's param pytree with every leaf
 already a numpy array (dicts, lists, and ``(q, scale)`` pairs for int8
 ``QTensor`` leaves) and returns the same tree as torch tensors on
-``device``. Each leaf keeps the dtype the JAX tree holds it in: bf16
-leaves stay bf16, and the leaves the JAX package keeps in fp32 (the
-norms, the MoE router, quantization scales) stay fp32. The rule is read
-from each leaf, never from its name.
+``device``: a layer list, or the stacked layers ``{w: (L, ...)}`` of a
+state built on a pipelined mesh. Each leaf keeps the dtype the JAX tree
+holds it in: bf16 leaves stay bf16, and the leaves the JAX package keeps
+in fp32 (the norms, the MoE router, quantization scales) stay fp32. The
+rule is read from each leaf, never from its name.
 
 numpy has no bfloat16 of its own: a JAX bf16 array arrives as an
 ``ml_dtypes`` bfloat16 array (``np.asarray`` of it), which is recognised
@@ -48,10 +49,14 @@ def params_from_jax(params_np: Any, config, device: DeviceLike = "cuda"):
             return QTensor(q=_tensor(q, dev), scale=_tensor(scale, dev))
         return _tensor(a, dev)
 
+    layers = params_np["layers"]
     out = {
         "embed": leaf(params_np["embed"]),
-        "layers": [{name: leaf(w) for name, w in layer.items()}
-                   for layer in params_np["layers"]],
+        # A pipelined JAX state stacks the layers: {w: (L, ...)}.
+        "layers": ({name: leaf(w) for name, w in layers.items()}
+                   if isinstance(layers, dict) else
+                   [{name: leaf(w) for name, w in layer.items()}
+                    for layer in layers]),
         "ln_f": leaf(params_np["ln_f"]),
     }
     embed = out["embed"]

@@ -24,13 +24,14 @@ sharded region's entry and exit are conjugate pairs:
 Transport: NCCL takes CUDA tensors. gloo, the backend of several ranks
 on one card (NCCL refuses two ranks on one GPU), takes host tensors, so
 under gloo every op stages a CUDA tensor through the host, one explicit
-branch in :func:`_to_wire`. Every kernel still runs on the card.
+branch in :func:`_wire_device`. Every kernel still runs on the card.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,12 +48,17 @@ def backend(mesh: Optional[DeviceMesh]) -> str:
     return str(dist.get_backend())
 
 
-def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` as the group's backend takes it: gloo reads host memory, so
+def _wire_device(x: torch.Tensor, group) -> torch.device:
+    """Where the group's backend reads ``x``: gloo reads host memory, so
     a CUDA tensor crosses through the host; NCCL reads it in place."""
     if x.is_cuda and dist.get_backend(group) == "gloo":
-        return x.detach().contiguous().cpu()
-    return x.detach().contiguous()
+        return torch.device("cpu")
+    return x.device
+
+
+def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the group's backend takes it (:func:`_wire_device`)."""
+    return x.detach().contiguous().to(_wire_device(x, group))
 
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -90,19 +96,29 @@ def _exchange(x: torch.Tensor, group, split: int, concat: int
 def _permute(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]]
              ) -> torch.Tensor:
     """What arrives here when each rank ``src`` of ``perm``'s (src, dst)
-    pairs (a bijection of group ranks) sends ``x`` to ``dst``."""
+    pairs sends ``x`` to ``dst``: JAX's ``ppermute``, whose pairs name
+    each rank at most once as a source and once as a destination. A rank
+    that no pair names as a destination gets zeros; a rank that no pair
+    names at all does not communicate."""
     ranks = dist.get_process_group_ranks(group)
     me = dist.get_rank(group)
-    dst = next(d for s, d in perm if s == me)
-    src = next(s for s, d in perm if d == me)
+    dst = next((d for s, d in perm if s == me), None)
+    src = next((s for s, d in perm if d == me), None)
     if dst == me:
         return x.clone()
-    t = _to_wire(x, group)
-    recv = torch.empty_like(t)
-    ops = [dist.P2POp(dist.isend, t, ranks[dst], group),
-           dist.P2POp(dist.irecv, recv, ranks[src], group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
+    ops, recv = [], None
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, _to_wire(x, group), ranks[dst],
+                              group))
+    if src is not None:
+        recv = torch.empty(x.shape, dtype=x.dtype,
+                           device=_wire_device(x, group))
+        ops.append(dist.P2POp(dist.irecv, recv, ranks[src], group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if recv is None:
+        return torch.zeros_like(x)
     return recv.to(x.device)
 
 
@@ -189,6 +205,26 @@ class _AllToAll(torch.autograd.Function):
             None
 
 
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.likes = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(shape, dtype=dtype, device=device)
+                     for shape, dtype, device in ctx.likes))
+
+
+def tie(x, *others):
+    """``x`` itself; the backward also gives ``others`` zero cotangents.
+    Autograd runs a collective's backward only where its output reaches
+    the loss, so a rank that discards a collective's output ties it to
+    one that does, or its peer waits forever in the reverse exchange."""
+    return _Tie.apply(x, *others)
+
+
 def all_reduce(x, mesh: Optional[DeviceMesh], dim: str):
     """Sum over mesh dim ``dim`` (``psum``) of partial results whose sum
     is used replicated; the backward passes the cotangent through."""
@@ -234,11 +270,28 @@ def reduce_scatter(x, mesh: Optional[DeviceMesh], dim: str,
 def ppermute(x, mesh: Optional[DeviceMesh], dim: str,
              perm: Sequence[Tuple[int, int]]):
     """Send ``x`` along the (src, dst) pairs of ``perm``, indices along
-    ``dim`` (``ppermute``: a bijection); the backward sends the
-    cotangents back along the inverse pairs."""
+    ``dim`` (``ppermute``: each index at most once as a source and once
+    as a destination; a rank that receives nothing gets zeros); the
+    backward sends the cotangents back along the inverse pairs. A rank
+    that ``perm`` does not name may skip the call, but not while the
+    group is new under NCCL (:func:`open_group`)."""
     if axis_size(mesh, dim) == 1:
         return x
     return _Permute.apply(x, mesh.get_group(dim), tuple(perm))
+
+
+def open_group(mesh: Optional[DeviceMesh], dim: str) -> None:
+    """Under NCCL, one collective over ``dim`` that every rank of its
+    group joins: torch leaves a ``batch_isend_irecv`` that is an NCCL
+    group's first collective undefined unless every rank of the group
+    takes part, and a :func:`ppermute` whose pairs name only some ranks,
+    called by those alone, does not. Under gloo, nothing."""
+    if axis_size(mesh, dim) == 1:
+        return
+    group = mesh.get_group(dim)
+    if dist.get_backend(group) == "nccl":
+        dist.all_reduce(torch.zeros(1, device=torch.device(
+            "cuda", torch.cuda.current_device())), group=group)
 
 
 def ring_shift(x, mesh: Optional[DeviceMesh], dim: str, shift: int = 1):
@@ -267,11 +320,82 @@ def sum_over_(t: torch.Tensor, mesh: Optional[DeviceMesh],
             t.copy_(_sum(t, mesh.get_group(name)))
 
 
-def sum_over_world(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over every rank of the default group (no gradient)."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
-        return x
-    return _sum(x, dist.group.WORLD)
+Box = Tuple[Tuple[int, int], ...]  # (start, stop) per dim
+
+
+def _blocks(shape, spec: Tuple, mesh: Optional[DeviceMesh]
+            ) -> Dict[int, Box]:
+    """Global rank -> its block of a tensor of ``shape`` under ``spec``
+    (one mesh-dim name or None per dim, each dividing its dim) on
+    ``mesh``; without a mesh, every rank of the world holds all of it."""
+    whole = tuple((0, n) for n in shape)
+    if mesh is None:
+        return {r: whole for r in range(dist.get_world_size())}
+    names = list(mesh.mesh_dim_names or ())
+    grid = mesh.mesh
+    out = {}
+    for coord in itertools.product(*(range(n) for n in grid.shape)):
+        box = list(whole)
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                k = names.index(ax)
+                step = shape[dim] // grid.shape[k]
+                box[dim] = (coord[k] * step, (coord[k] + 1) * step)
+        out[int(grid[coord])] = tuple(box)
+    return out
+
+
+def _within(cut: Box, box: Box) -> Tuple[slice, ...]:
+    """The part ``cut`` of the block ``box``, as indices into the block."""
+    return tuple(slice(a - s, b - s) for (a, b), (s, _) in zip(cut, box))
+
+
+def redistribute(x: Optional[torch.Tensor], shape, dtype: torch.dtype,
+                 src: Optional[DeviceMesh], src_spec: Tuple,
+                 dst: Optional[DeviceMesh], dst_spec: Tuple,
+                 device: torch.device) -> Optional[torch.Tensor]:
+    """This rank's block, on ``device``, under ``dst_spec`` on mesh ``dst``
+    of the tensor of ``shape`` and ``dtype`` whose blocks under
+    ``src_spec`` the ranks of mesh ``src`` hold (``x``: this rank's block;
+    None off ``src``, and None is returned off ``dst``). Only blocks
+    move: each part of a target block comes point to point from one rank
+    that holds it (the target rank itself, as a local copy, when it
+    does), so a rank holds its own blocks and the parts in flight, never
+    the whole tensor. A collective over the world (meshes of different
+    ranks may meet in it): every rank calls it and posts its sends and
+    receives in one order, the same on every rank."""
+    me = dist.get_rank()
+    holders: Dict[Box, list] = {}
+    for rank, box in _blocks(shape, src_spec, src).items():
+        holders.setdefault(box, []).append(rank)
+    targets = _blocks(shape, dst_spec, dst)
+    out, pending = None, []
+    if me in targets:
+        out = torch.empty([b - a for a, b in targets[me]], dtype=dtype,
+                          device=device)
+    for to, dbox in targets.items():
+        for sbox, ranks in holders.items():
+            cut = tuple((max(a, c), min(b, d))
+                        for (a, b), (c, d) in zip(sbox, dbox))
+            if any(a >= b for a, b in cut):
+                continue
+            # Spread the parts that several ranks hold over their holders.
+            frm = to if to in ranks else ranks[to % len(ranks)]
+            if frm == to == me:
+                out[_within(cut, dbox)] = x[_within(cut, sbox)]
+            elif frm == me:
+                t = _to_wire(x[_within(cut, sbox)], dist.group.WORLD)
+                pending.append((dist.isend(t, to), t, None))
+            elif to == me:
+                buf = torch.empty([b - a for a, b in cut], dtype=dtype,
+                                  device=_wire_device(out, dist.group.WORLD))
+                pending.append((dist.irecv(buf, frm), buf,
+                                _within(cut, dbox)))
+    for work, buf, part in pending:
+        work.wait()
+        if part is not None:
+            out[part] = buf
+    return out
 
 
 def allreduce_bandwidth_gbps(mesh: Optional[DeviceMesh] = None,

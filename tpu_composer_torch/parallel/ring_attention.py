@@ -21,8 +21,8 @@ sources ahead of it with a Python ``if``; every rank still calls
 deadlock. The backward has the same need: autograd runs a shift's
 transpose only where the shifted chunk reaches the loss, so a rank that
 skips a chunk keeps it in the graph with a zero cotangent
-(:class:`_Tie`), and every rank runs every reverse shift, in the same
-order.
+(:func:`collectives.tie`), and every rank runs every reverse shift, in
+the same order.
 """
 
 from __future__ import annotations
@@ -37,7 +37,11 @@ from tpu_composer_torch.ops.attention import (
     flash_attention_with_lse,
     repeat_kv,
 )
-from tpu_composer_torch.parallel.collectives import ppermute, ring_shift
+from tpu_composer_torch.parallel.collectives import (
+    ppermute,
+    ring_shift,
+    tie,
+)
 from tpu_composer_torch.parallel.mesh import axis_index, axis_size
 
 
@@ -46,27 +50,12 @@ def _check_inner(inner: str) -> None:
         raise ValueError(f"unknown ring inner {inner!r} (einsum|flash)")
 
 
-class _Tie(torch.autograd.Function):
-    """``x`` itself; the backward also gives ``others`` zero cotangents,
-    so the collectives that produced them run their backward here too."""
-
-    @staticmethod
-    def forward(ctx, x, *others):
-        ctx.likes = [(o.shape, o.dtype, o.device) for o in others]
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g, *(torch.zeros(shape, dtype=dtype, device=device)
-                     for shape, dtype, device in ctx.likes))
-
-
 def _skip(state, *chunks):
     """The online-softmax state unchanged, with ``chunks`` tied to its
     accumulator (which always reaches the output; the running max may
     not)."""
     m, l, acc = state
-    return m, l, _Tie.apply(acc, *chunks)
+    return m, l, tie(acc, *chunks)
 
 
 def _zeros(q: torch.Tensor):

@@ -27,13 +27,23 @@ them:
   shards); the grad norm is read over all shards; AdamW then runs on
   the local shards, elementwise, so sharding changes none of its bits.
 
-``pipeline_microbatches > 0`` (GPipe over 'pp') raises
-``NotImplementedError``: it comes with port slice 4b, with the reshard
-of a live state onto another mesh.
+With ``pipeline_microbatches > 0`` and a mesh whose pp dim is > 1 the
+dense model's layer list is stacked (one tensor per weight with a
+leading layer dim, sharded over pp) and the loss runs the GPipe schedule
+(``parallel/pipeline.py``); there the sequence stays sharded over sp
+through each stage, whose attention is the raw ring or Ulysses function,
+and the pp-replicated leaves (the embedding, the final norm) carry their
+whole gradient on every stage.
+
+:func:`reshard_train_state` moves a live state onto a mesh of another
+shape and size in the same world, and :func:`abstract_train_state` gives
+this rank's shard shapes without allocating them (the restore template
+of ``parallel/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -47,7 +57,17 @@ from tpu_composer_torch.models.moe import MoEConfig
 from tpu_composer_torch.models.transformer import ModelConfig
 from tpu_composer_torch.ops.attention import flash_attention
 from tpu_composer_torch.parallel import collectives as coll
-from tpu_composer_torch.parallel.mesh import axis_index, axis_size
+from tpu_composer_torch.parallel.mesh import (
+    axis_index,
+    axis_size,
+    in_mesh,
+    mesh_shape,
+)
+from tpu_composer_torch.parallel.pipeline import (
+    pipelined_loss_fn,
+    stack_layers,
+    stacked_layer_specs,
+)
 from tpu_composer_torch.parallel.ring_attention import (
     ring_attention,
     ring_attention_zigzag,
@@ -81,7 +101,9 @@ class TrainConfig:
     # The attention of each sp block: "einsum" or "flash" (K1 with lse,
     # B3 and B4).
     sp_inner: str = "einsum"
-    pipeline_microbatches: int = 0  # GPipe over 'pp': port slice 4b
+    # GPipe over the 'pp' mesh dim when > 0 and the mesh has pp > 1
+    # (dense model only; the microbatches must divide each rank's rows).
+    pipeline_microbatches: int = 0
     # Split the global batch into this many sequential microbatches per
     # optimizer update; the accumulated gradient is exactly the
     # full-batch gradient (equal microbatch sizes, fp32 accumulators).
@@ -96,10 +118,10 @@ class TrainConfig:
 
 
 def check_config(tc: TrainConfig, mesh: Optional[DeviceMesh] = None) -> None:
-    """The JAX step's validation: unknown ``sp_impl``/``sp_inner`` and the
-    flash inner under pipelining raise ``ValueError``, MoE under
-    pipelining too. Pipelining itself is not ported yet and raises
-    ``NotImplementedError``, never ignored."""
+    """The JAX step's validation: unknown ``sp_impl``/``sp_inner``, MoE
+    under pipelining and the flash inner with pp > 1 raise
+    ``ValueError``, and so does a layer count that pp does not divide
+    (each stage holds whole layers)."""
     if tc.sp_impl not in _SP_IMPLS:
         raise ValueError(
             f"unknown sp_impl {tc.sp_impl!r} (want one of {sorted(_SP_IMPLS)})")
@@ -112,12 +134,21 @@ def check_config(tc: TrainConfig, mesh: Optional[DeviceMesh] = None) -> None:
         if tc.is_moe:
             raise ValueError(
                 "pipeline parallelism currently supports the dense model only")
-        if tc.sp_inner == "flash" and axis_size(mesh, "pp") > 1:
+        pp = mesh_shape(mesh).get("pp", 1)
+        if tc.sp_inner == "flash" and pp > 1:
             raise ValueError(
                 "sp_inner='flash' is not supported with pipeline parallelism")
-        raise NotImplementedError(
-            "pipeline_microbatches > 0 needs GPipe over a 'pp' mesh axis:"
-            " port slice 4b (pipeline and reshard)")
+        if tc.model.n_layers % pp:
+            raise ValueError(
+                f"n_layers {tc.model.n_layers} not divisible by pp={pp}")
+
+
+def pipelined(tc: TrainConfig, mesh: Optional[DeviceMesh]) -> bool:
+    """Whether the step runs GPipe: ``pipeline_microbatches > 0`` on a mesh
+    with pp > 1 (``_pipelined``). The layout of the state follows: the
+    layer list is stacked exactly when this holds."""
+    return (tc.pipeline_microbatches > 0
+            and mesh_shape(mesh).get("pp", 1) > 1)
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -168,11 +199,12 @@ def legalize_spec(spec: Tuple, shape, mesh: Optional[DeviceMesh]) -> Tuple:
     """``spec`` (one mesh-axis name or None per dim, ``()`` replicated)
     with every axis that does not divide its dim dropped (replicated), as
     ``_legalize_spec`` does it: MQA's single kv head under tp = 2 is
-    replicated, not refused."""
+    replicated, not refused. Known on every rank of the world, those
+    outside the mesh too."""
     dims = []
     for i in range(len(shape)):
         ax = spec[i] if i < len(spec) else None
-        size = axis_size(mesh, ax) if ax is not None else 1
+        size = mesh_shape(mesh).get(ax, 1) if ax is not None else 1
         dims.append(ax if size > 1 and shape[i] % size == 0 else None)
     return tuple(dims)
 
@@ -188,13 +220,53 @@ def tree_leaves_specs(specs) -> List[Tuple]:
     return [specs]
 
 
+def param_specs(tc: TrainConfig, mesh: Optional[DeviceMesh]) -> Dict:
+    """The model's spec tree in the state's layout on ``mesh``: a stacked
+    layer spec (``"pp"`` first) when :func:`pipelined`."""
+    specs = tc._model_mod().param_specs(tc.model)
+    if pipelined(tc, mesh):
+        specs = {"embed": specs["embed"],
+                 "layers": stacked_layer_specs(specs["layers"][0],
+                                               mesh=mesh),
+                 "ln_f": specs["ln_f"]}
+    return specs
+
+
+def build_params(tc: TrainConfig, seed: int, device: DeviceLike,
+                 mesh: Optional[DeviceMesh] = None) -> Dict:
+    """The model's full params from ``seed`` in the state's layout on
+    ``mesh`` (``_build_state``): the layer list stacked when
+    :func:`pipelined`. On the ``meta`` device nothing is drawn: the
+    draws run under it too, so the shapes cost no host memory or time."""
+    dev = resolve_device(device)
+    with torch.device(dev) if dev.type == "meta" else nullcontext():
+        params = tc._model_mod().init_params(tc.model, seed=seed,
+                                             device=dev)
+    if pipelined(tc, mesh):
+        params = {"embed": params["embed"],
+                  "layers": stack_layers(params["layers"]),
+                  "ln_f": params["ln_f"]}
+    return params
+
+
+def _check_layout(tc: TrainConfig, params, mesh: Optional[DeviceMesh],
+                  what: str = "the params") -> None:
+    stacked = isinstance(params["layers"], dict)
+    if stacked != pipelined(tc, mesh):
+        want = "stacked" if pipelined(tc, mesh) else "a list of"
+        have = "stacked" if stacked else "a list of"
+        raise ValueError(
+            f"{what} hold {have} layers, the mesh wants {want} layers:"
+            " a pipelined (pp > 1) state and a layer-list state do not"
+            " convert into each other")
+
+
 def leaf_specs(tc: TrainConfig, mesh: Optional[DeviceMesh]) -> List[Tuple]:
     """The legalized spec of every param leaf, in ``tree_leaves`` order,
     from the full shapes (read off params built on the meta device)."""
-    mod = tc._model_mod()
     shapes = [p.shape for p in tree_leaves(
-        mod.init_params(tc.model, seed=0, device="meta"))]
-    specs = tree_leaves_specs(mod.param_specs(tc.model))
+        build_params(tc, 0, "meta", mesh))]
+    specs = tree_leaves_specs(param_specs(tc, mesh))
     return [legalize_spec(sp, shape, mesh) for sp, shape in zip(specs, shapes)]
 
 
@@ -219,25 +291,25 @@ def _with_specs(fn: Callable, tree, specs, *rest):
 
 
 def shard_params(tc: TrainConfig, params, mesh: Optional[DeviceMesh]):
-    """This rank's shards of the full tree ``params`` on ``mesh``."""
+    """This rank's shards of the full tree ``params`` on ``mesh`` (in the
+    layout of :func:`init_params`)."""
+    _check_layout(tc, params, mesh)
     return _with_specs(
         lambda p, sp: _local(p, legalize_spec(sp, p.shape, mesh), mesh),
-        params, tc._model_mod().param_specs(tc.model))
+        params, param_specs(tc, mesh))
 
 
 def gather_params(tc: TrainConfig, local, mesh: Optional[DeviceMesh]):
     """The full tree from every rank's shards ``local``, the inverse of
     :func:`shard_params`: a collective, which every rank calls."""
-    mod = tc._model_mod()
-
     def full(p, spec, like):
         for dim, ax in enumerate(legalize_spec(spec, like.shape, mesh)):
             if ax is not None:
                 p = coll.all_gather(p.detach(), mesh, ax, axis=dim)
         return p
 
-    return _with_specs(full, local, mod.param_specs(tc.model),
-                       mod.init_params(tc.model, seed=0, device="meta"))
+    return _with_specs(full, local, param_specs(tc, mesh),
+                       build_params(tc, 0, "meta", mesh))
 
 
 def shard_state(tc: TrainConfig, state: Dict, mesh: Optional[DeviceMesh],
@@ -269,17 +341,88 @@ def make_train_state(tc: TrainConfig, seed: int = 0,
     """``{"params", "opt"}``: the model's params from ``seed``
     (``transformer.init_params`` or ``moe.init_params``; the same weights
     on every device) and a fresh AdamW state. With ``mesh``, this rank's
-    shards of them."""
+    shards of them, the layer list stacked when :func:`pipelined`."""
     check_config(tc, mesh)
     dev = resolve_device(device)
-    mod = tc._model_mod()
     if mesh is None:
-        params = mod.init_params(tc.model, seed=seed, device=dev)
+        params = build_params(tc, seed, dev)
     else:
-        full = mod.init_params(tc.model, seed=seed, device="cpu")
-        params = tree_map(lambda p: p.to(dev),
-                          shard_params(tc, full, mesh))
+        params = tree_map(lambda p: p.to(dev), shard_params(
+            tc, build_params(tc, seed, "cpu", mesh), mesh))
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def _full_template(tc: TrainConfig, mesh: Optional[DeviceMesh]) -> Dict:
+    """The whole state on the meta device, in the layout of ``mesh``."""
+    params = build_params(tc, 0, "meta", mesh)
+    return {"params": params, "opt": init_opt_state(params)}
+
+
+def abstract_train_state(tc: TrainConfig,
+                         mesh: Optional[DeviceMesh] = None) -> Dict:
+    """The train state this rank holds on ``mesh`` as ``meta`` tensors:
+    its shard shapes and dtypes, with no storage (the zero-allocation
+    restore template of ``checkpoint.restore``, as the JAX package's
+    tree of ``ShapeDtypeStruct`` is). The layer list is stacked when
+    :func:`pipelined`."""
+    check_config(tc, mesh)
+    return shard_state(tc, _full_template(tc, mesh), mesh, "meta")
+
+
+def _state_specs(tc: TrainConfig, mesh: Optional[DeviceMesh]) -> List[Tuple]:
+    """The legalized spec of every state leaf, in ``tree_leaves`` order:
+    the step count (replicated), then mu, nu and the params, each in the
+    params' specs."""
+    specs = leaf_specs(tc, mesh)
+    return [()] + specs * 3
+
+
+def reshard_train_state(tc: TrainConfig, state: Optional[Dict],
+                        mesh: Optional[DeviceMesh],
+                        source: Optional[DeviceMesh],
+                        device: DeviceLike = "cuda") -> Optional[Dict]:
+    """Move a live train state from mesh ``source`` onto ``mesh``, two
+    meshes of one world (``make_mesh(..., ranks=...)``): the workload
+    half of the operator's live slice resize. ``state`` is this rank's
+    shards on ``source`` (None off it); returns its shards on ``mesh``,
+    on ``device``, or None on a rank outside it.
+
+    A JAX array carries its mesh and ``jax.device_put`` moves its shards;
+    a torch tensor is only this rank's block, so the source mesh is named
+    here and the move is spelled out, leaf by leaf: each part of a target
+    shard comes point to point from a source rank that holds it
+    (:func:`collectives.redistribute`). No rank holds more than its own
+    shards and one leaf's parts in flight, so a state that is sharded
+    because it does not fit on one card reshards all the same. Every rank
+    of the world calls it. A stacked (pipelined) state and a layer-list
+    one do not convert into each other: ``ValueError``, as JAX's tree
+    structures disagree."""
+    check_config(tc, mesh)
+    if pipelined(tc, source) != pipelined(tc, mesh):
+        raise ValueError(
+            "cannot reshard between a pipelined (stacked layers) mesh and"
+            " one without pp: the state layouts differ")
+    template = _full_template(tc, mesh)
+    full = tree_leaves(template)
+    mine: List[Optional[torch.Tensor]] = [None] * len(full)
+    if in_mesh(source):
+        _check_layout(tc, state["params"], source, "the state")
+        mine = tree_leaves(state)
+        for x, want in zip(mine, tree_leaves(abstract_train_state(tc,
+                                                                  source))):
+            if (x.shape, x.dtype) != (want.shape, want.dtype):
+                raise ValueError(
+                    f"a leaf of the state is {tuple(x.shape)} {x.dtype}; its"
+                    f" shard on the source mesh is {tuple(want.shape)}"
+                    f" {want.dtype}")
+    dev = resolve_device(device)
+    moved = [coll.redistribute(x, like.shape, like.dtype, source, frm, mesh,
+                               to, dev)
+             for x, like, frm, to in zip(mine, full, _state_specs(tc, source),
+                                         _state_specs(tc, mesh))]
+    if not in_mesh(mesh):
+        return None
+    return tree_unflatten(template, moved)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -428,21 +571,37 @@ def make_grad_fn(tc: TrainConfig,
     cfg = tc.model
     mod = tc._model_mod()
     accum = tc.grad_accum_steps
+    use_sp = (mesh is not None and tc.use_ring_attention
+              and axis_size(mesh, "sp") > 1)
+    pipe = pipelined(tc, mesh)
     attn_fn = None
-    if mesh is not None and tc.use_ring_attention \
-            and axis_size(mesh, "sp") > 1:
+    if pipe:
+        if use_sp:
+            # pp and sp share the stage: the sequence stays sharded over
+            # sp through it, so attention is the raw collective function.
+            sp_fn = _SP_IMPLS[tc.sp_impl]
+            kw = {} if tc.sp_impl == "ulysses" else {"inner": tc.sp_inner}
+
+            def attn_fn(q, k, v, causal=True):
+                return sp_fn(q, k, v, mesh, "sp", causal=causal, **kw)
+    elif use_sp:
         attn_fn = _sp_attn_fn(mesh, tc.sp_impl, tc.sp_inner, cfg.n_heads)
     shards, axes = data_shards(tc, mesh), data_axes(tc, mesh)
     if mesh is not None:
         specs = leaf_specs(tc, mesh)
-        # A leaf's share of the world's sum of squares: 1 over its copies
-        # (the ranks that hold the same shard).
+        # A leaf's share of the mesh's sum of squares: 1 over its copies
+        # (the ranks that hold the same shard; a pp-replicated leaf has
+        # a copy on every stage).
         weights = [_n_shards(spec, mesh) / mesh.size()
                    for spec in specs]
 
     def loss_fn(params, tokens):
         if mesh is None:
             return mod.loss_fn(params, tokens, cfg)
+        if pipe:
+            return pipelined_loss_fn(
+                params, tokens, cfg, mesh, tc.pipeline_microbatches,
+                attn_fn=attn_fn, seq_axis="sp" if use_sp else None)
         return mod.loss_fn(params, tokens, cfg, attn_fn, mesh)
 
     def value_and_grad(params, tokens) -> Tuple[torch.Tensor, List]:
@@ -503,7 +662,8 @@ def make_grad_fn(tc: TrainConfig,
                 g.mul_(inv)
         sq = sum(g.float().square().sum() * w
                  for g, w in zip(grads, weights))
-        return loss, torch.sqrt(coll.sum_over_world(sq))
+        coll.sum_over_(sq, mesh, mesh.mesh_dim_names)
+        return loss, torch.sqrt(sq)
 
     def grad_fn(params, tokens):
         loss, grads = grads_of(params, tokens)

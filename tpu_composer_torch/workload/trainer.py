@@ -11,9 +11,10 @@ resumable ``fit`` call, on one card or over a device mesh (port of
   the steps stay queued on the device (no per-step ``loss.item()``).
 - **Over a mesh** every rank runs ``fit`` with the same arguments and its
   own ``device``: each loads the same global batches and the step keeps
-  its rows. Rank 0 saves the gathered state (the single-card format)
-  and every rank waits for it; a restore loads it and keeps each rank's
-  shards for the mesh given.
+  its rows. Rank 0 saves the gathered state (the single-card format, its
+  layers stacked on a pipelined mesh) and every rank waits for it; a
+  restore keeps each rank's shards for the mesh given
+  (``checkpoint.restore``), which need not be the mesh that saved it.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from tpu_composer_torch.parallel.train import (
     gather_state,
     make_train_state,
     make_train_step,
-    shard_state,
 )
 
 log = logging.getLogger("tpu_composer_torch.trainer")
@@ -101,12 +101,9 @@ def fit(
     start_step = 0
     resumed_from: Optional[int] = None
     if checkpoint_dir and (latest := ckpt.latest_step(checkpoint_dir)) is not None:
-        if mesh is None:
-            restored = ckpt.restore(checkpoint_dir, tc, dev, step=latest)
-            state = restored["state"]
-        else:
-            restored = ckpt.restore(checkpoint_dir, tc, "cpu", step=latest)
-            state = shard_state(tc, restored["state"], mesh, dev)
+        restored = ckpt.restore(checkpoint_dir, tc, dev, step=latest,
+                                mesh=mesh)
+        state = restored["state"]
         start_step = int(restored["step"])
         resumed_from = start_step
         log.info("resumed from %s at step %d", checkpoint_dir, start_step)
