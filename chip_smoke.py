@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, speculative-decoding and training
 paths, dense and MoE, one rank and several ranks over a device mesh
-(pipelined over 'pp' too, and resharded live onto another mesh), on one
-NVIDIA GPU and hold every CUDA kernel of those paths against its plain
-PyTorch version.
+(pipelined over 'pp' too, and resharded live onto another mesh), and the
+composed worker (slice, coordinates, CDI spec, bootstrap, staged probe),
+on one NVIDIA GPU and hold every CUDA kernel of those paths against its
+plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--nccl-world]
 
@@ -11,7 +12,10 @@ Needs one CUDA card, nvcc and the ``tpu_composer_torch`` package beside
 this file; it exits nonzero without them. ``--nccl-world`` runs instead
 phases 2 and 11 and then phases 17 and 18's world-of-4 tasks, plus a
 bf16 run at pp = 4, in one world of 4 ranks over NCCL, one card each
-(it needs 4 cards), with the same checks. Each phase prints one JSON
+(it needs 4 cards), with the same checks; then a composed slice of one
+host of 4 GPUs: 4 processes join the world over NCCL from the
+coordinate env ``slice_env`` writes, alone, and run ``qualify_slice``
+across it (its NCCL allreduce bus bandwidth). Each phase prints one JSON
 line and checks its own result; any failure raises and the script exits
 nonzero. Phases, in order:
 
@@ -104,7 +108,10 @@ nonzero. Phases, in order:
     losses, with the flipped top-1 choices; the bf16 flagship at seq
     512, global batch 8, 12 steps over sp = 2 ring/flash: the loss
     falls, per rank its step p50 and K1-with-lse, B3 and B4 launches a
-    step. Ranks print nothing to stdout and send the parent their
+    step; one bf16 flagship step at dp = 2 x tp = 2 (world 4) under
+    ``record_collectives``, each rank's bytes per mesh dim against their
+    closed form (over dp its gradient bytes and two fp32 scalars). Ranks
+    print nothing to stdout and send the parent their
     results; a rank's failure or a world past its deadline fails the
     phase, and no rank is left running. The worlds stay up for phases
     17 and 18.
@@ -135,15 +142,31 @@ nonzero. Phases, in order:
     restored onto pp = 2 × dp = 2. The state gathered on the target mesh
     equals the one gathered (or saved) on the source, bit for bit, and
     the losses after it equal the never-resized run's.
-19. ``timing`` (the whole run's seconds, builds included, and each
+19. ``composed_worker``: the H100 worker an operator composes. First,
+    in this process and uncounted, K1 without and with lse, B3 and B4
+    against their plain versions at the staged probe's flash sweep (bf16,
+    causal, head_dim 128: (2, 1024, 8/8), (2, 2048, 8/2), (1, 4096, 8/2),
+    (1, 8192, 4/1)) and at ``qualify_large``'s (8, 2048, 16/16), with
+    device times and bounds beside SDPA's forward and backward; K2
+    against the gather path at the decode stage's geometry (16 heads over
+    4, Dh 64, blocks of 128, 2 slots a row, lengths 129-256; fp32, bf16,
+    int8). Then one host of 1 GPU composed (``solve_slice``,
+    ``slice_env``, the CDI spec written and read back,
+    ``SliceCoords.from_env``, ``bootstrap_distributed``) and
+    ``staged_accelerator_probe`` run on the card with its coordinate env:
+    every stage completes with no error and nothing skipped, flash
+    numerics hold, the child rebuilds no kernel, and its stages' launches
+    are the path's.
+20. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
-    mesh_training 15-16, pipeline_training 17, reshard_training 18, the
-    ranks' counts summed in); then the kernels line ``{"kernels":
-    [...]}``: per kernel its launches summed over every path, max error,
-    kernel / plain / library ms (device time), the kernel's issue ms,
-    and the bound.
-20. the last line: ``{"ok": true, "device": {...}}``.
+    mesh_training 15-16, pipeline_training 17, reshard_training 18,
+    composed_worker 19, the ranks' and the probe child's counts summed
+    in); then the kernels line ``{"kernels": [...]}``: per kernel its
+    launches summed over every path and by path, max error, kernel /
+    plain / library ms (device time), the kernel's issue ms, and the
+    bound.
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -203,6 +226,13 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 LSE_TOL = 1e-4
+# At long causal sequences most output rows are averages over thousands of
+# keys, far smaller than the early rows that set max|ref|: each row is also
+# held to its own scale, max|ref| over the row's last dim, floored at
+# ROW_FLOOR x the tensor's max|ref| so rows that are zero by construction
+# (dq of row 0) are not held to their rounding noise.
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+ROW_FLOOR = 1e-3
 LOGIT_TOL_BF16 = 5e-2
 LOGIT_TOL_INT8 = 1e-1
 
@@ -292,6 +322,15 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def row_err(got, want) -> float:
+    """The worst row's max|got - want| over its own max|want| (rows along
+    the last dim), the scale floored at ROW_FLOOR x max|want|."""
+    w = want.float().abs()
+    scale = w.amax(dim=-1).clamp_min(ROW_FLOOR * float(w.max()))
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    return float((err / scale).max())
 
 
 def phase_card() -> dict:
@@ -462,17 +501,23 @@ def phase_flash(gen: torch.Generator) -> dict:
 
 
 def _paged_inputs(gen: torch.Generator, dtype, quant: bool, dh: int = 64,
-                  max_len: int = 512, full: bool = False, kv: int = 2):
-    """Engine decode shape: 8 rows over a 256-block pool of 16 positions,
-    32 table slots per row, 8 query heads over ``kv`` KV heads (2 for the
-    dense flagship, 8 for the MHA MoE flagship). Row 0 has length 0; the
+                  max_len: int = 512, full: bool = False, kv: int = 2,
+                  h: int = 8, bs: int = 16, mb: int = 32, lengths=None):
+    """Engine decode shape: 8 rows over a pool of 8·``mb`` blocks of
+    ``bs`` positions (default 256 blocks of 16), ``mb`` table slots per
+    row, ``h`` query heads over ``kv`` KV heads (8 over 2 for the dense
+    flagship, 8 over 8 for the MHA MoE flagship). Row 0 has length 0; the
     rest draw lengths in 1..max_len; with ``full`` every row has length
-    512. Owned slots hold distinct ids; the slots past each row's blocks
-    hold stale ids that may name other rows' blocks."""
+    mb·bs; ``lengths`` (8 of them) sets them instead. Owned slots hold
+    distinct ids; the slots past each row's blocks hold stale ids that
+    may name other rows' blocks."""
     from tpu_composer_torch.models.decode import quantize_kv
 
-    b, h, bs, mb, n = 8, 8, 16, 32, 256
-    if full:
+    b = 8
+    n = b * mb
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths)
+    elif full:
         lengths = torch.full((b,), mb * bs)
     else:
         lengths = torch.randint(1, max_len + 1, (b,), generator=gen)
@@ -482,7 +527,7 @@ def _paged_inputs(gen: torch.Generator, dtype, quant: bool, dh: int = 64,
     tables = torch.randint(0, n, (b, mb), generator=gen)
     used = 0
     for r in range(b):
-        # 8 rows x <= 32 blocks = 256: the pool covers every row.
+        # 8 rows x <= mb blocks: the pool covers every row.
         tables[r, :owned[r]] = perm[used:used + owned[r]]
         used += int(owned[r])
     q = torch.randn(b, h, dh, generator=gen)
@@ -780,19 +825,9 @@ DEVICE = "cuda"
 
 def _counts() -> dict:
     """Every kernel wrapper's launch count, by kernel row."""
-    from tpu_composer_torch.ops.attention import (
-        flash_bwd_dkv_cuda,
-        flash_bwd_dq_cuda,
-        flash_fwd_cuda,
-    )
-    from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
+    from tpu_composer_torch.workload.probe import kernel_launches
 
-    return {"flash_fwd": flash_fwd_cuda.launches,
-            "flash_fwd_lse": flash_fwd_cuda.launches_lse,
-            "flash_bwd_dq": flash_bwd_dq_cuda.launches,
-            "flash_bwd_dkv": flash_bwd_dkv_cuda.launches,
-            "paged_decode": paged_decode_cuda.launches,
-            "paged_decode_int8": paged_decode_cuda.launches_int8}
+    return kernel_launches()
 
 
 def _set_counts(counts: dict) -> None:
@@ -1647,6 +1682,7 @@ MESH_WORLD_4 = (
      dict(axes={"sp": 4}, sp_impl="zigzag", sp_inner="flash")),
     ("moe_ep2_sp2_ulysses_flash", "moe_exact",
      dict(axes={"ep": 2, "sp": 2}, sp_impl="ulysses", sp_inner="flash")),
+    ("bytes_dp2_tp2", "collective_bytes", dict(axes={"dp": 2, "tp": 2})),
 )
 PIPE_WORLD_2 = (
     ("pp2_m2", "dense_exact",
@@ -1953,7 +1989,67 @@ def _mesh_restore(dev, ref, src, dst, **train) -> dict:
     return {"control": control, "resumed": resumed, "bit_equal": bit_equal}
 
 
+def _mesh_collective_bytes(dev, ref, axes) -> dict:
+    """One step of the bf16 flagship (flash, seq 512, global batch 8)
+    over ``axes`` under ``record_collectives``: what this rank sent, per
+    mesh dim, its gradient bytes and its rows of the batch."""
+    from tpu_composer_torch.models.transformer import ModelConfig
+    from tpu_composer_torch.parallel.mesh import make_mesh
+    from tpu_composer_torch.parallel.train import (
+        TrainConfig,
+        local_batch,
+        make_train_state,
+        make_train_step,
+        tree_leaves,
+    )
+    from tpu_composer_torch.workload.collective_bytes import (
+        record_collectives,
+    )
+
+    tc = TrainConfig(model=ModelConfig(dtype=torch.bfloat16,
+                                       attn_impl="flash", **FLAGSHIP))
+    mesh = make_mesh(axes, dev.type)
+    state = make_train_state(tc, ref["seed"], dev, mesh)
+    gen = torch.Generator().manual_seed(ref["seed"])
+    tokens = torch.randint(0, FLAGSHIP["vocab_size"], (8, 512),
+                           generator=gen, dtype=torch.int32).to(dev)
+    step = make_train_step(tc, mesh)
+    with record_collectives(mesh) as rec:
+        step(state, tokens)
+        torch.cuda.synchronize(dev)
+    return {"summary": rec.summary(),
+            "grad_bytes": sum(p.numel() * p.element_size()
+                              for p in tree_leaves(state["params"])),
+            "rows": local_batch(tc, tokens, mesh).shape[0], "seq": 512}
+
+
+def _collective_bytes_record(label: str, per_rank: list) -> dict:
+    """Each rank's per-axis bytes against the closed form of the
+    flagship's dp x tp step: over dp its gradient bytes (one flat
+    all-reduce) and two fp32 scalars (the loss, the squared gradient
+    norm); over tp, per layer four (rows, S, d) bf16 activations (the
+    attention and ffn exits forward, their entries' cotangents
+    backward), the embedding gathered once (V, d) in bf16, and the
+    squared norm."""
+    bf16, f32 = 2, 4
+    d, v, layers = (FLAGSHIP["d_model"], FLAGSHIP["vocab_size"],
+                    FLAGSHIP["n_layers"])
+    out = {"per_rank": []}
+    for x in per_rank:
+        got = x["summary"]["per_axis_bytes"]
+        want = {"dp": x["grad_bytes"] + 2 * f32,
+                "tp": layers * 4 * x["rows"] * x["seq"] * d * bf16
+                + v * d * bf16 + f32}
+        check(got == want, f"mesh {label}: per-axis bytes {got}, closed"
+                           f" form {want}")
+        out["per_rank"].append({"per_axis_bytes": got, "closed_form": want,
+                                "op_counts": x["summary"]["op_counts"]})
+    out["ops_rank0"] = per_rank[0]["summary"]["ops"]
+    return out
+
+
 _MESH_TASKS = {"dense_exact": _mesh_dense_exact,
+               "collective_bytes": _mesh_collective_bytes,
                "moe_exact": _mesh_moe_exact, "run": _mesh_run,
                "pipe_forward": _pipe_forward, "reshard": _mesh_reshard,
                "restore": _mesh_restore}
@@ -2186,6 +2282,8 @@ def phase_mesh_train(seed: int, exact: dict, moe_exact: dict, workdir: str,
                 check(rec["loss_rel_err"] <= 1e-3,
                       f"mesh {label}: MoE losses off by"
                       f" {rec['loss_rel_err']}")
+            elif kind == "collective_bytes":
+                rec.update(_collective_bytes_record(label, per_rank))
             else:
                 rec.update(_run_record(label, per_rank))
             out[label] = rec
@@ -2399,6 +2497,265 @@ def phase_mesh_nccl(seed: int) -> dict:
     return out
 
 
+# The composed worker's new kernel shapes: the probe's flash sweep
+# (bf16, causal, D = 128: (B, S, H, KV, D)), qualify_large's model, and
+# the decode stage's paged cache (8 rows, 16 heads over 4 KV heads of 64,
+# blocks of 128, 2 table slots a row, lengths 129-256: every row's
+# second block partly filled).
+COMPOSED_SHAPES = (
+    ("sweep_s1024", (2, 1024, 8, 8, 128)),
+    ("sweep_s2048_gqa", (2, 2048, 8, 2, 128)),
+    ("sweep_s4096_gqa", (1, 4096, 8, 2, 128)),
+    ("sweep_s8192_mqa", (1, 8192, 4, 1, 128)),
+    ("qualify_large", (8, 2048, 16, 16, 128)),
+)
+DECODE_PAGED = dict(h=16, kv=4, dh=64, bs=128, mb=2)
+H100_MODEL = "nvidia-h100-sxm"
+# Per-stage deadlines of the probe inside this run's time limit (the
+# probe's own defaults are for an operator's node, with more headroom).
+PROBE_TIMEOUTS_S = {"backend_init": 90.0, "matmul": 60.0,
+                    "flash_attn": 240.0, "qualify": 120.0,
+                    "qualify_large": 180.0, "decode": 240.0}
+
+
+def _composed_kernels(gen: torch.Generator) -> dict:
+    """At ``COMPOSED_SHAPES``: K1 with lse, B3 and B4 against their plain
+    versions, K1 without lse against K1 with lse bit for bit, and their
+    device times beside SDPA's forward and backward; at the decode
+    stage's paged geometry, K2 against the gather path (fp32, bf16 and
+    int8 pools) and its time. Every output is held both to the file's
+    tolerance and row by row (``row_err``). Uncounted."""
+    from tpu_composer_torch.ops.attention import (
+        _delta,
+        _dkv_split,
+        _fwd_rows,
+        flash_bwd_cuda,
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_plain,
+        flash_fwd_cuda,
+        flash_fwd_plain,
+    )
+    from tpu_composer_torch.ops.paged_attention import (
+        _decode_split,
+        paged_decode_cuda,
+        paged_decode_plain,
+    )
+
+    dtype = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_rec = {}
+    with _uncounted():
+        for label, shape in COMPOSED_SHAPES:
+            q, k, v, do = _attn_inputs(gen, shape, dtype)
+            nolse, _ = flash_fwd_cuda(q, k, v, True)
+            out, lse = flash_fwd_cuda(q, k, v, True, with_lse=True)
+            out_w, lse_w = flash_fwd_plain(q, k, v, True, with_lse=True)
+            got = flash_bwd_cuda(q, k, v, out, lse, do, None, True)
+            want = flash_bwd_plain(q, k, v, out, lse, do, None, True)
+            torch.cuda.synchronize()
+            e_nolse, e_out = max_err(nolse, out_w), max_err(out, out_w)
+            e_lse = max_err(lse, lse_w)
+            check(torch.equal(nolse, out),
+                  f"flash_fwd {label}: without lse {e_nolse} != with lse"
+                  f" {e_out}, not bit for bit")
+            check(e_out <= TOL[dtype], f"flash_fwd_lse {label} error {e_out}")
+            check(e_lse <= LSE_TOL, f"flash_fwd_lse {label} lse {e_lse}")
+            rows_rel = {"out": row_err(out, out_w)}
+            worst = {}
+            _bwd_errors(got, want, dtype, f"{label} {list(shape)}", worst)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                rows_rel[name] = row_err(a, w)
+            for name, e in rows_rel.items():
+                check(e <= ROW_TOL[dtype],
+                      f"{label} {name}: worst row error {e} of its own"
+                      f" max|ref| (tolerance {ROW_TOL[dtype]})")
+            del got, want, out_w, lse_w
+            delta = _delta(out, do)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            recorded = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(recorded, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            def plain_bwd():
+                return flash_bwd_plain(q, k, v, out, lse, do, None, True)
+
+            times = {
+                "flash_fwd": timings(
+                    lambda: flash_fwd_cuda(q, k, v, True),
+                    lambda: flash_fwd_plain(q, k, v, True), sdpa_fwd),
+                "flash_fwd_lse": timings(
+                    lambda: flash_fwd_cuda(q, k, v, True, True),
+                    lambda: flash_fwd_plain(q, k, v, True, True), sdpa_fwd),
+                "flash_bwd_dq": timings(
+                    lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
+                    plain_bwd, sdpa_bwd),
+                "flash_bwd_dkv": timings(
+                    lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                               True),
+                    plain_bwd, sdpa_bwd),
+            }
+            bounds = _attn_bounds(shape, dtype)
+            for name in times:
+                times[name].update(bounds[name])
+            b, sq, h, kv, _ = shape
+            rows, split = _fwd_rows(b, h, sq), _dkv_split(b, kv, h // kv, sq)
+            out_rec[label] = {
+                "shape": list(shape), "out": e_out, "out_nolse": e_nolse,
+                "lse": e_lse, **worst, "row_relative": rows_rel,
+                "timing": times,
+                "geometry": {"flash_fwd_rows": rows,
+                             "flash_fwd_ctas": b * h * -(-sq // rows),
+                             "flash_bwd_dq_ctas": b * h * -(-sq // 64),
+                             "flash_bwd_dkv_split": split,
+                             "flash_bwd_dkv_ctas":
+                                 b * kv * -(-sq // 64) * split}}
+            emit("composed_worker", check=f"kernels_{label}",
+                 **out_rec[label])
+            del q, k, v, do, out, lse, qt, kt, vt, recorded
+            torch.cuda.empty_cache()
+
+        k2 = {}
+        for name, pool_dtype, quant in (("fp32", torch.float32, False),
+                                        ("bf16", torch.bfloat16, False),
+                                        ("int8_q_bf16", torch.bfloat16,
+                                         True)):
+            worst = worst_row = 0.0
+            for lengths in ([129, 130, 192, 193, 200, 255, 256, 256], None):
+                if lengths is None:
+                    lengths = torch.randint(129, 257, (8,), generator=gen)
+                args = _paged_inputs(gen, pool_dtype, quant,
+                                     lengths=lengths, **DECODE_PAGED)
+                got = paged_decode_cuda(*args)
+                want = paged_decode_plain(*args)
+                torch.cuda.synchronize()
+                worst = max(worst, max_err(got, want))
+                worst_row = max(worst_row, row_err(got, want))
+            check(worst <= TOL[pool_dtype],
+                  f"paged_decode Bs=128 {name} error {worst}")
+            check(worst_row <= ROW_TOL[pool_dtype],
+                  f"paged_decode Bs=128 {name}: worst row error {worst_row}"
+                  f" of its own max|ref| (tolerance {ROW_TOL[pool_dtype]})")
+            k2[name] = {"max_abs_err": worst, "row_relative": worst_row,
+                        "lengths": args[4].tolist()}
+            if name == "bf16":
+                k2[name].update(timings(lambda: paged_decode_cuda(*args),
+                                        lambda: paged_decode_plain(*args)))
+                k2[name]["bound_ms"], k2[name]["bound_by"] = \
+                    _paged_bound(args)
+        chunk, n_split = _decode_split(DECODE_PAGED["bs"], DECODE_PAGED["mb"])
+        out_rec["paged_decode_bs128"] = {
+            "shape": [8, DECODE_PAGED["h"], DECODE_PAGED["kv"],
+                      DECODE_PAGED["dh"], DECODE_PAGED["bs"],
+                      DECODE_PAGED["mb"]],
+            "geometry": {"chunk": chunk, "n_split": n_split,
+                         "split_ctas": 8 * DECODE_PAGED["kv"] * n_split},
+            **k2}
+        emit("composed_worker", check="kernels_paged_decode_bs128",
+             **out_rec["paged_decode_bs128"])
+    return out_rec
+
+
+def _compose_one_gpu(workdir: str) -> dict:
+    """Compose one H100 host of 1 GPU as the operator would: the slice
+    solved, its coordinate env written into the worker's CDI spec; then
+    the worker's side: the env read back from the spec, the coordinates
+    from the env, ``bootstrap_distributed`` (a world of one GPU: nothing
+    to join). Returns the env and the records."""
+    from tpu_composer_torch.admission import slice_env
+    from tpu_composer_torch.agent.cdi import generate_cdi_spec, write_cdi_spec
+    from tpu_composer_torch.api.types import SliceStatus
+    from tpu_composer_torch.topology import solve_slice
+    from tpu_composer_torch.workload import SliceCoords, bootstrap_distributed
+
+    shape = solve_slice(H100_MODEL, 1)
+    status = SliceStatus(name="chip-smoke", topology=shape.topology,
+                         num_hosts=shape.num_hosts,
+                         chips_per_host=shape.chips_per_host,
+                         worker_hostnames=["localhost"])
+    env = slice_env(status, 0, H100_MODEL)
+    spec = generate_cdi_spec(status.name, 0, shape.worker_chip_indices(0),
+                             env=env, model=H100_MODEL)
+    path = write_cdi_spec(os.path.join(workdir, "cdi"), spec)
+    with open(path) as f:
+        edits = json.load(f)["devices"][0]["containerEdits"]
+    spec_env = dict(e.split("=", 1) for e in edits["env"])
+    check(spec_env == env, f"the CDI spec's env {spec_env} != {env}")
+    coords = SliceCoords.from_env(spec_env)
+    want = (0, 1, 1, ["localhost"], shape.topology, status.name, H100_MODEL)
+    got = (coords.worker_id, coords.num_workers, coords.num_chips,
+           coords.worker_hostnames, coords.topology, coords.slice_name,
+           coords.model)
+    check(got == want, f"coordinates {got} != {want}")
+    check(bootstrap_distributed(coords) == coords,
+          "bootstrap changed the coordinates")
+    return env, {"topology": shape.topology, "cdi": spec.qualified_name,
+                 "device_nodes": [n["path"] for n in edits["deviceNodes"]],
+                 "env": spec_env, "coordinator": coords.coordinator_address}
+
+
+def phase_composed_worker(gen: torch.Generator, workdir: str) -> dict:
+    """The composed H100 worker: the kernels at the probe's new shapes in
+    this process (uncounted), then the slice composed and the staged
+    probe run on the card. Returns the records and the probe child's
+    launch counts."""
+    from tpu_composer_torch.workload.probe import staged_accelerator_probe
+
+    kernels = _composed_kernels(gen)
+    env, composed = _compose_one_gpu(workdir)
+    emit("composed_worker", check="composed", **composed)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = staged_accelerator_probe(repo_root=HERE, env=env,
+                                   timeouts=PROBE_TIMEOUTS_S)
+    probe_s = time.perf_counter() - t0
+    stages = res["stages"]
+    emit("composed_worker", check="probe", seconds=probe_s, **res)
+    check("failed_stage" not in res,
+          f"probe stage {res.get('failed_stage')} failed:"
+          f" {res.get('diagnosis')}")
+    check(res["completed"] == ["devnodes", "backend_init", "matmul",
+                               "flash_attn", "qualify", "qualify_large",
+                               "decode"],
+          f"probe completed only {res['completed']}")
+    for name, rec in stages.items():
+        bad = sorted(k for k in rec if "error" in k or k == "skipped")
+        bad += [f"configs[{i}].error" for i, c in
+                enumerate(rec.get("configs", ())) if "error" in c]
+        check(not bad, f"probe stage {name}: {bad}: {rec}")
+        check(not rec.get("built"),
+              f"probe stage {name} rebuilt kernels {rec.get('built')}")
+    check(stages["flash_attn"].get("numerics_ok") is True,
+          f"probe flash numerics: {stages['flash_attn']}")
+    check(stages["backend_init"]["backend"] == "cuda",
+          f"probe backend {stages['backend_init']}")
+    launches = dict.fromkeys(_counts(), 0)
+    for rec in stages.values():
+        for k, n in rec.get("launches", {}).items():
+            launches[k] += n
+    large, dec = stages["qualify_large"], stages["decode"]
+    out = {"kernels": kernels, "probe_s": probe_s, "launches": launches,
+           "qualify_large_mfu": large.get("mfu"),
+           "qualify_large_tokens_per_s": large["tokens_per_s"],
+           "qualify_mfu": stages["qualify"].get("mfu"),
+           "decode_tokens_per_s": {k: v for k, v in dec.items()
+                                   if k.endswith("tokens_per_s")},
+           "flash_long": {k: stages["flash_attn"].get(k) for k in
+                          ("fwd_speedup_long", "bwd_speedup_long")}}
+    emit("composed_worker", check="summary",
+         **{k: v for k, v in out.items() if k != "kernels"})
+    return out
+
+
 # The stages of the NCCL world of 4 (``--nccl-world``): the pipelined
 # meshes, and a bf16 run at pp = 4 (one layer a stage); then the reshards.
 NCCL_WORLD_4 = (
@@ -2406,6 +2763,102 @@ NCCL_WORLD_4 = (
                      dict(axes={"pp": 4}, pipeline_microbatches=4)),),
     RESHARD_WORLD_4,
 )
+
+
+def _composed_rank(env: dict, local_rank: int, results) -> None:
+    """One process of a composed host: joins the slice from the
+    coordinate env alone (``bootstrap_distributed``, NCCL) and runs
+    ``qualify_slice`` across the world; sends the parent its results and
+    launch counts (or its traceback). It prints nothing to stdout."""
+    import traceback
+
+    import torch.distributed as dist
+
+    os.dup2(2, 1)
+    sys.stdout = sys.stderr
+    try:
+        sys.path.insert(0, HERE)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from tpu_composer_torch.workload import (
+            bootstrap_distributed,
+            qualify_slice,
+        )
+
+        coords = bootstrap_distributed(env=env, local_rank=local_rank,
+                                       timeout_s=MESH_GROUP_TIMEOUT_S)
+        res = qualify_slice()
+        res.update(rank=dist.get_rank(), world=dist.get_world_size(),
+                   local_rank=local_rank, worker=coords.worker_id,
+                   device=torch.cuda.current_device(), launches=_counts())
+        results.put((local_rank, None, res))
+    except BaseException:
+        results.put((local_rank, traceback.format_exc(), None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_composed_slice(n_gpus: int) -> dict:
+    """A composed slice of one H100 host of ``n_gpus``: its coordinate
+    env from ``slice_env``, one spawned process per GPU joining the
+    world over NCCL from that env alone, ``qualify_slice`` across it. The
+    allreduce bus bandwidth is NCCL's over the host's NVLink."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    from tpu_composer_torch.admission import slice_env
+    from tpu_composer_torch.api.types import SliceStatus
+    from tpu_composer_torch.topology import solve_slice
+
+    shape = solve_slice(H100_MODEL, n_gpus)
+    status = SliceStatus(name="composed", topology=shape.topology,
+                         num_hosts=1, chips_per_host=shape.chips_per_host,
+                         worker_hostnames=["localhost"])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = slice_env(status, 0, H100_MODEL, master_port=port)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_composed_rank, args=(env, r, results))
+             for r in range(n_gpus)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + MESH_DEADLINE_S
+        while len(got) < n_gpus:
+            check(time.monotonic() < deadline,
+                  f"composed slice: {n_gpus - len(got)} processes did not"
+                  f" report within {MESH_DEADLINE_S} s")
+            try:
+                lr, err, res = results.get(timeout=2)
+            except queue.Empty:
+                continue
+            check(err is None, f"composed slice: local rank {lr} failed:"
+                               f"\n{err}")
+            got[lr] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(got) == n_gpus else 0)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    ranks = [got[r] for r in range(n_gpus)]
+    check(sorted(r["rank"] for r in ranks) == list(range(n_gpus))
+          and all(r["world"] == n_gpus for r in ranks),
+          f"composed slice ranks {[(r['rank'], r['world']) for r in ranks]}")
+    check(len({r["device"] for r in ranks}) == n_gpus,
+          "composed slice: two processes on one card")
+    check(all(r["transport"] == "nccl" and r["allreduce_gbps"] > 0
+              and np.isfinite(r["train_loss"]) for r in ranks),
+          f"composed slice qualify: {ranks}")
+    out = {"wall_s": time.perf_counter() - t0, "topology": shape.topology,
+           "env": env, "ranks": ranks}
+    emit("composed_slice", **out)
+    return out
 
 
 def main_nccl_world(seed: int) -> int:
@@ -2431,6 +2884,7 @@ def main_nccl_world(seed: int) -> int:
             _world_check(counts[stage], "nccl_world")
         emit("nccl_world", wall_s=time.perf_counter() - t0,
              launches=counts)
+        phase_composed_slice(4)
     finally:
         if world is not None:
             world.close()
@@ -2483,7 +2937,9 @@ def main() -> int:
     # Each main path: every count is set to 0 just before its phases run
     # and read just after; each of the path's kernels must have launched.
     # The multi-rank paths' kernels run in their spawned ranks, which set
-    # their counts to 0 before each path's stage and report them after.
+    # their counts to 0 before each path's stage and report them after;
+    # the composed worker's in the probe's child, which reports each
+    # stage's launches.
     done, paths = {}, {}
     seed = args.seed
     train_kernels = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
@@ -2517,13 +2973,17 @@ def main() -> int:
                      gen, done["train_exact"], worlds)),)),
                 ("reshard_training", train_kernels,
                  (("reshard_train", lambda: phase_reshard_train(
-                     done["train_exact"], worlds)),))):
+                     done["train_exact"], worlds)),)),
+                ("composed_worker", train_kernels + ("flash_fwd",
+                                                     "paged_decode"),
+                 (("composed_worker", lambda: phase_composed_worker(
+                     gen, workdir)),))):
             _reset_counts()
             for phase_name, fn in phases:
                 done[phase_name] = timed_phase(phase_name, fn)
             paths[name] = _counts()
             for phase_name in ("mesh_train", "pipeline_train",
-                               "reshard_train"):
+                               "reshard_train", "composed_worker"):
                 if phase_name in dict(phases):
                     for k, v in done[phase_name]["launches"].items():
                         paths[name][k] += v
@@ -2541,6 +3001,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "function": function,
                 "launches": sum(c[name] for c in paths.values()),
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "issue_ms": t["issue_ms"],
                 "plain_ms": t["plain_ms"],

@@ -1,14 +1,18 @@
 """Guards of the PyTorch port's boundaries.
 
-- The port (every ``.py`` under ``tpu_composer_torch/``) and
-  ``chip_smoke.py`` import nothing of JAX and nothing of the JAX package:
-  no ``jax``, ``jaxlib``, ``ml_dtypes`` or ``tpu_composer`` import.
+- The port (every ``.py`` under ``tpu_composer_torch/``),
+  ``chip_smoke.py`` and the staged probe's child (a source string the
+  probe runs with ``python -c``) import nothing of JAX and nothing of the
+  JAX package: no ``jax``, ``jaxlib``, ``ml_dtypes`` or ``tpu_composer``
+  import.
 - The port calls no finished attention kernel and no compiler
   (``scaled_dot_product_attention``, ``torch.compile``); ``chip_smoke.py``
   may time SDPA as a yardstick, the package may not.
-- The entry points that create tensors (serving and training) default
-  to the card and raise when there is none, unless the caller passes
-  ``device="cpu"``.
+- The entry points that create tensors (serving and training) and the
+  distributed bootstrap default to the card and raise when there is
+  none, unless the caller passes ``device="cpu"``; the staged probe
+  defaults to the card and, without one, names its failed stage, never
+  running on the CPU unasked.
 - ``chip_smoke.py`` fails without a card, and alone in an empty
   directory.
 """
@@ -54,6 +58,16 @@ def test_imports_nothing_of_jax_or_the_jax_package(path):
     bad = [(line, mod) for line, mod in _imported_modules(tree)
            if mod.split(".")[0] in FORBIDDEN_IMPORTS]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_probe_child_imports_nothing_of_jax_or_the_jax_package():
+    from tpu_composer_torch.workload import probe
+
+    tree = ast.parse(probe._CHILD, filename="probe._CHILD")
+    mods = [mod for _, mod in _imported_modules(tree)]
+    assert "tpu_composer_torch.workload" in mods  # the scan sees imports
+    bad = [mod for mod in mods if mod.split(".")[0] in FORBIDDEN_IMPORTS]
+    assert not bad, f"the probe's child imports {bad}"
 
 
 def test_package_calls_no_finished_attention_or_compiler():
@@ -160,6 +174,35 @@ def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call(device="cuda")
         call(device="cpu")  # the CPU only when asked for
+
+
+def test_bootstrap_defaults_to_the_card(no_card):
+    from tpu_composer_torch.admission import slice_env
+    from tpu_composer_torch.api.types import SliceStatus
+    from tpu_composer_torch.workload import bootstrap_distributed
+
+    env = slice_env(SliceStatus(name="s", topology="1x1", num_hosts=1,
+                                chips_per_host=1, worker_hostnames=["h"]),
+                    0, "nvidia-h100-sxm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bootstrap_distributed(env=env)  # the default is the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bootstrap_distributed(env=env, device="cuda")
+    bootstrap_distributed(env=env, device="cpu")  # the CPU only when asked
+
+
+def test_probe_defaults_to_the_card_and_never_falls_back():
+    """Without a card (none here), the default probe names backend_init
+    as failed with the child's error in the diagnosis: no stage ran on
+    the CPU."""
+    from tpu_composer_torch.workload.probe import staged_accelerator_probe
+
+    r = staged_accelerator_probe(retries=0, env={"CUDA_VISIBLE_DEVICES": ""})
+    assert r["failed_stage"] == "backend_init"
+    assert r["completed"] == ["devnodes"]
+    assert any("no CUDA device" in line
+               for line in r["diagnosis"]["stderr_tail"])
+    assert "cpu_fallback" not in r
 
 
 def test_engine_follows_its_params_device(no_card):

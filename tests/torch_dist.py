@@ -556,3 +556,114 @@ def checkpoint_grow(model, train, src, dst, workdir: str):
             gather_state(tc, out["state"], b))]
         resumed = _steps(tc, b, out["state"], batches[2:])[1][0]
     return resumed, control, saved, restored
+
+
+def collective_bytes_step(axes, model, tokens):
+    """One train step of the model (fields as ``_configs`` takes them)
+    over the mesh of ``axes`` under ``record_collectives``: the summary,
+    the bytes of this rank's gradients (its param shards), and its rows
+    of the batch."""
+    from tpu_composer_torch.parallel.train import (
+        local_batch,
+        make_train_state,
+        make_train_step,
+        tree_leaves,
+    )
+    from tpu_composer_torch.workload.collective_bytes import (
+        record_collectives,
+    )
+
+    tc = _configs(model, False, {})
+    m = mesh(axes)
+    state = make_train_state(tc, 0, "cpu", m)
+    toks = torch.from_numpy(tokens)
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in tree_leaves(state["params"]))
+    step = make_train_step(tc, m)
+    with record_collectives(m) as rec:
+        step(state, toks)
+    return rec.summary(), grad_bytes, local_batch(tc, toks, m).shape[0]
+
+
+# -- a world that joins from a coordinate env alone ---------------------------
+
+def _bootstrapped_rank(env: Dict[str, str], local_rank: int, results) -> None:
+    """``bootstrap_distributed`` from ``env`` on the CPU, then an
+    all-reduce of the ranks: (rank, world size, the sum)."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    try:
+        from tpu_composer_torch.workload import bootstrap_distributed
+
+        coords = bootstrap_distributed(env=env, local_rank=local_rank,
+                                       device="cpu",
+                                       timeout_s=GROUP_TIMEOUT_S)
+        again = bootstrap_distributed(env=env, local_rank=local_rank,
+                                      device="cpu")  # a second call: no-op
+        x = torch.tensor([float(dist.get_rank())])
+        dist.all_reduce(x)
+        results.put((coords.rank(local_rank), None, (
+            dist.get_rank(), dist.get_world_size(), float(x[0]),
+            again == coords)))
+    except Exception:
+        results.put((None, traceback.format_exc(), None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_bootstrapped(procs, timeout: float = CASE_TIMEOUT_S) -> list:
+    """One spawned process per (coordinate env, local rank) of ``procs``,
+    each joining the world from that env alone: their results in rank
+    order. A process that raises or does not answer in time fails the
+    call; every process is gone when it returns."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    ps = [ctx.Process(target=_bootstrapped_rank, daemon=True,
+                      args=(env, lr, results)) for env, lr in procs]
+    for p in ps:
+        p.start()
+    got: Dict[int, Any] = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < len(ps):
+            try:
+                rank, err, out = results.get(
+                    timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"bootstrapped world: {len(ps) - len(got)} processes"
+                    f" gave no result within {timeout} s") from None
+            if err is not None:
+                raise AssertionError(f"bootstrapped rank raised:\n{err}")
+            got[rank] = out
+    finally:
+        for p in ps:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+    return [got[r] for r in sorted(got)]
+
+
+def recorded_collective(axes, dim: str, op: str, shape, kw):
+    """``op`` over ``dim`` of a float32 tensor of ``shape`` and its
+    backward, under ``record_collectives``: the summary."""
+    from tpu_composer_torch.parallel import collectives as coll
+    from tpu_composer_torch.workload.collective_bytes import (
+        record_collectives,
+    )
+
+    m = mesh(axes)
+    x = torch.ones(shape, requires_grad=True)
+    with record_collectives(m) as rec:
+        if op == "sum_over_":
+            coll.sum_over_(x.detach().clone(), m, [dim])
+        else:
+            getattr(coll, op)(x, m, dim, **kw).sum().backward()
+    return rec.summary()

@@ -25,6 +25,9 @@ Transport: NCCL takes CUDA tensors. gloo, the backend of several ranks
 on one card (NCCL refuses two ranks on one GPU), takes host tensors, so
 under gloo every op stages a CUDA tensor through the host, one explicit
 branch in :func:`_wire_device`. Every kernel still runs on the card.
+
+Each helper that sends (forward or backward) reports the op, its group
+and its bytes to the recorders of ``workload/collective_bytes.py``.
 """
 
 from __future__ import annotations
@@ -61,23 +64,44 @@ def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
     return x.detach().contiguous().to(_wire_device(x, group))
 
 
+# The active recorders (``workload/collective_bytes.record_collectives``);
+# module state, since a backward (on the card, in autograd's own thread)
+# sends where no caller can pass one.
+_recorders: list = []
+
+
+def _note(op: str, group, n_bytes: int) -> None:
+    """Report one collective of ``n_bytes`` (JAX's convention: the
+    bytes of its result on this rank) over ``group``."""
+    for rec in _recorders:
+        rec.note(op, group, n_bytes)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    _note("all-reduce", group, _nbytes(x))
     y = _to_wire(x, group).clone()
     dist.all_reduce(y, group=group)
     return y.to(x.device)
 
 
 def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    _note("all-gather", group, n * _nbytes(x))
     t = _to_wire(x, group)
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim).to(x.device)
 
 
 def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    _note("reduce-scatter", group, _nbytes(x) // n)
     t = _to_wire(x, group)
-    parts = [c.contiguous() for c in
-             t.chunk(dist.get_world_size(group), dim=dim)]
+    parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=group)
     return out.to(x.device)
@@ -86,6 +110,7 @@ def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def _exchange(x: torch.Tensor, group, split: int, concat: int
               ) -> torch.Tensor:
     n = dist.get_world_size(group)
+    _note("all-to-all", group, _nbytes(x))
     t = _to_wire(x, group)
     send = torch.stack(t.chunk(n, dim=split)).contiguous()
     recv = torch.empty_like(send)
@@ -106,6 +131,8 @@ def _permute(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]]
     src = next((s for s, d in perm if d == me), None)
     if dst == me:
         return x.clone()
+    if dst is not None or src is not None:
+        _note("collective-permute", group, _nbytes(x))
     ops, recv = [], None
     if dst is not None:
         ops.append(dist.P2POp(dist.isend, _to_wire(x, group), ranks[dst],
