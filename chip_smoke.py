@@ -2,9 +2,9 @@
 """Drive the PyTorch port's serving, speculative-decoding and training
 paths, dense and MoE, one rank and several ranks over a device mesh
 (pipelined over 'pp' too, and resharded live onto another mesh), and the
-composed worker (slice, coordinates, CDI spec, bootstrap, staged probe),
-on one NVIDIA GPU and hold every CUDA kernel of those paths against its
-plain PyTorch version.
+composed worker (the port's operator attaching the card, then coordinates
+from its CDI spec, bootstrap, staged probe), on one NVIDIA GPU and hold
+every CUDA kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--nccl-world]
 
@@ -142,7 +142,23 @@ nonzero. Phases, in order:
     restored onto pp = 2 × dp = 2. The state gathered on the target mesh
     equals the one gathered (or saved) on the source, bit for bit, and
     the losses after it equal the never-resized run's.
-19. ``composed_worker``: the H100 worker an operator composes. First,
+19. ``operator_attach``: the port's operator composes this card: a
+    ``LocalNodeAgent`` on the real ``/dev`` and ``/proc`` (its CDI and
+    state directories under the run's workdir), a Store with a Node
+    ``localhost`` of one slot per GPU the agent lists, an ``InMemoryPool``
+    with the slice ``chip-smoke`` reserved at ``1x1``, and a threaded
+    ``Manager`` running ``ComposableResourceReconciler`` with 2 workers;
+    then the CR (type gpu, ``nvidia-h100-sxm``, ``localhost``, 1 chip,
+    worker 0, ``1x1``). Within 30 s it must be Online through the device
+    scan; its CDI spec file's env must equal the hand composition's
+    (``_compose_one_gpu``); its per-GPU node must be the node this
+    process's CUDA context holds open, the card CUDA runs on (and, where
+    the host's driver reports PCI bus ids, the same bus id as CUDA's); the
+    ResourceSlice must list the device. It prints the attach-to-Online
+    host milliseconds beside the card's name and power limit, the nodes,
+    minors and bus ids, and the spec's name. The control plane never
+    touches CUDA; the Manager runs on through phase 20.
+20. ``composed_worker``: the H100 worker the operator composed. First,
     in this process and uncounted, K1 without and with lse, B3 and B4
     against their plain versions at the staged probe's flash sweep (bf16,
     causal, head_dim 128: (2, 1024, 8/8), (2, 2048, 8/2), (1, 4096, 8/2),
@@ -150,23 +166,29 @@ nonzero. Phases, in order:
     device times and bounds beside SDPA's forward and backward; K2
     against the gather path at the decode stage's geometry (16 heads over
     4, Dh 64, blocks of 128, 2 slots a row, lengths 129-256; fp32, bf16,
-    int8). Then one host of 1 GPU composed (``solve_slice``,
-    ``slice_env``, the CDI spec written and read back,
-    ``SliceCoords.from_env``, ``bootstrap_distributed``) and
-    ``staged_accelerator_probe`` run on the card with its coordinate env:
-    every stage completes with no error and nothing skipped, flash
-    numerics hold, the child rebuilds no kernel, and its stages' launches
-    are the path's.
-20. ``timing`` (the whole run's seconds, builds included, and each
+    int8). Then the coordinate env read back from the operator's CDI
+    spec file (phase 19), ``SliceCoords.from_env``,
+    ``bootstrap_distributed``, and ``staged_accelerator_probe`` run on the
+    card with that env: every stage completes with no error and nothing
+    skipped, flash numerics hold, the child rebuilds no kernel, and its
+    stages' launches are the path's.
+21. ``operator_busy``: the node agent's busy guard on the composed
+    group: ``check_no_loads`` is False and ``drain(force=False)`` raises
+    ``DeviceBusyError`` naming this process's pid, whose CUDA context
+    holds the card open. Then the Manager stops. The card runs no
+    controller detach: the in-memory fabric cannot take the card off the
+    host, so the node keeps enumerating and a detach would wait in
+    Detaching for good (the CPU tests run it over a fake device tree).
+22. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
     mesh_training 15-16, pipeline_training 17, reshard_training 18,
-    composed_worker 19, the ranks' and the probe child's counts summed
-    in); then the kernels line ``{"kernels": [...]}``: per kernel its
-    launches summed over every path and by path, max error, kernel /
+    composed_worker 19-21, the ranks' and the probe child's counts
+    summed in); then the kernels line ``{"kernels": [...]}``: per kernel
+    its launches summed over every path and by path, max error, kernel /
     plain / library ms (device time), the kernel's issue ms, and the
     bound.
-21. the last line: ``{"ok": true, "device": {...}}``.
+23. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -2665,17 +2687,14 @@ def _composed_kernels(gen: torch.Generator) -> dict:
     return out_rec
 
 
-def _compose_one_gpu(workdir: str) -> dict:
-    """Compose one H100 host of 1 GPU as the operator would: the slice
-    solved, its coordinate env written into the worker's CDI spec; then
-    the worker's side: the env read back from the spec, the coordinates
-    from the env, ``bootstrap_distributed`` (a world of one GPU: nothing
-    to join). Returns the env and the records."""
+def _compose_one_gpu():
+    """One H100 host of 1 GPU composed by hand: the slice solved and its
+    coordinate env put in the worker's CDI spec. The operator's spec
+    (``operator_attach``) is held to it."""
     from tpu_composer_torch.admission import slice_env
-    from tpu_composer_torch.agent.cdi import generate_cdi_spec, write_cdi_spec
+    from tpu_composer_torch.agent.cdi import generate_cdi_spec
     from tpu_composer_torch.api.types import SliceStatus
     from tpu_composer_torch.topology import solve_slice
-    from tpu_composer_torch.workload import SliceCoords, bootstrap_distributed
 
     shape = solve_slice(H100_MODEL, 1)
     status = SliceStatus(name="chip-smoke", topology=shape.topology,
@@ -2683,36 +2702,160 @@ def _compose_one_gpu(workdir: str) -> dict:
                          chips_per_host=shape.chips_per_host,
                          worker_hostnames=["localhost"])
     env = slice_env(status, 0, H100_MODEL)
-    spec = generate_cdi_spec(status.name, 0, shape.worker_chip_indices(0),
+    return generate_cdi_spec(status.name, 0, shape.worker_chip_indices(0),
                              env=env, model=H100_MODEL)
-    path = write_cdi_spec(os.path.join(workdir, "cdi"), spec)
+
+
+def _gpu_node_minor(path: str):
+    """The minor of a per-GPU node ``/dev/nvidia<minor>``; None for the
+    control nodes and anything else."""
+    digits = os.path.basename(path)[len("nvidia"):]
+    return int(digits) if path.startswith("/dev/nvidia") and digits.isdigit() else None
+
+
+def _cuda_nodes() -> list:
+    """The per-GPU device nodes this process holds open: its CUDA
+    context's card."""
+    nodes = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            target = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue  # the listing's own descriptor, closed meanwhile
+        if _gpu_node_minor(target) is not None:
+            nodes.add(target)
+    return sorted(nodes)
+
+
+def phase_operator_attach(workdir: str, card: dict) -> dict:
+    """The port's operator composes this card (docstring, phase 19).
+    Returns the running operator and what it composed; ``operator_busy``
+    stops it."""
+    from tpu_composer_torch.agent.nodeagent import LocalNodeAgent
+    from tpu_composer_torch.api import Node, ObjectMeta
+    from tpu_composer_torch.controllers import (
+        ComposableResourceReconciler, ResourceTiming)
+    from tpu_composer_torch.fabric.inmem import InMemoryPool
+    from tpu_composer_torch.runtime import Manager, Store
+
+    root = os.path.join(workdir, "operator")
+    agent = LocalNodeAgent(cdi_dir=os.path.join(root, "cdi"),
+                           state_dir=os.path.join(root, "state"))
+    driver = agent.ensure_driver("localhost")
+    gpus = agent.gpus()
+    check(gpus, "the node agent lists no GPU on this host")
+    store = Store()
+    node = Node(metadata=ObjectMeta(name="localhost"))
+    node.status.tpu_slots = len(gpus)
+    store.create(node)
+    pool = InMemoryPool()
+    pool.reserve_slice("chip-smoke", H100_MODEL, "1x1", ["localhost"])
+    mgr = Manager(store=store)
+    mgr.add_controller(ComposableResourceReconciler(
+        store, pool, agent,
+        timing=ResourceTiming(attach_poll=0.05, visibility_poll=0.05)))
+    mgr.start(workers_per_controller=2)
+    try:
+        out = _attach_and_check(store, agent, gpus, driver, card)
+    except BaseException:
+        mgr.stop()
+        raise
+    return {"manager": mgr, **out}
+
+
+def _attach_and_check(store, agent, gpus, driver, card) -> dict:
+    from tpu_composer_torch.agent.cdi import spec_path
+    from tpu_composer_torch.api import (
+        ComposableResource, ComposableResourceSpec, ObjectMeta)
+    from tpu_composer_torch.api.dra import ResourceSlice
+
+    name = "chip-smoke-worker0"
+    t0 = time.perf_counter()
+    store.create(ComposableResource(
+        metadata=ObjectMeta(name=name),
+        spec=ComposableResourceSpec(
+            type="gpu", model=H100_MODEL, target_node="localhost",
+            chip_count=1, slice_name="chip-smoke", worker_id=0,
+            topology="1x1")))
+    deadline = t0 + 30.0
+    while True:
+        cr = store.get(ComposableResource, name)
+        if cr.status.state == "Online" or time.perf_counter() > deadline:
+            break
+        time.sleep(0.002)
+    attach_ms = (time.perf_counter() - t0) * 1e3
+    check(cr.status.state == "Online",
+          f"the CR is not Online after 30 s: {cr.status.to_dict()}")
+    group = f"{cr.spec.slice_name}-worker{cr.spec.worker_id}"
+    check(agent.check_visible("localhost", cr.status.device_ids, group=group),
+          "the composed GPU does not enumerate on the host")
+
+    hand = _compose_one_gpu()
+    path = spec_path(agent.cdi_dir, hand)
+    check(os.path.exists(path), f"no CDI spec at {path}")
     with open(path) as f:
-        edits = json.load(f)["devices"][0]["containerEdits"]
+        doc = json.load(f)
+    edits = doc["devices"][0]["containerEdits"]
     spec_env = dict(e.split("=", 1) for e in edits["env"])
-    check(spec_env == env, f"the CDI spec's env {spec_env} != {env}")
-    coords = SliceCoords.from_env(spec_env)
-    want = (0, 1, 1, ["localhost"], shape.topology, status.name, H100_MODEL)
+    check(spec_env == hand.env,
+          f"the operator's spec env {spec_env} != the hand composition's"
+          f" {hand.env}")
+    nodes = [n["path"] for n in edits["deviceNodes"]]
+    gpu_nodes = [n for n in nodes if _gpu_node_minor(n) is not None]
+    check(nodes[1:] == hand.device_nodes[1:],
+          f"the spec's control nodes {nodes[1:]} != {hand.device_nodes[1:]}")
+    cuda_nodes = _cuda_nodes()
+    check(len(gpu_nodes) == 1 and gpu_nodes == cuda_nodes,
+          f"the spec's GPU node {gpu_nodes} is not the card CUDA holds open"
+          f" {cuda_nodes}")
+    props = torch.cuda.get_device_properties(0)
+    cuda_bus = (f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:"
+                f"{props.pci_device_id:02x}.0")
+    minor = _gpu_node_minor(gpu_nodes[0])
+    agent_bus = dict((m, b) for b, m in gpus).get(minor)
+    check(agent_bus is not None, f"minor {minor} is not one of {gpus}")
+    check(agent_bus in ("", cuda_bus),
+          f"the spec's GPU has bus id {agent_bus}, CUDA's card {cuda_bus}")
+    listed = [(d.uuid, d.cdi_device_id) for s in store.list(ResourceSlice)
+              for d in s.spec.devices]
+    check(listed == [(u, cr.status.cdi_device_id) for u in cr.status.device_ids],
+          f"the ResourceSlice lists {listed}, not {cr.status.device_ids}")
+    rec = {"attach_to_online_host_ms": attach_ms, "card": card["nvidia_smi"],
+           "tpu_slots": len(gpus),
+           "driver": driver, "gpus": [{"bus_id": b, "minor": m} for b, m in gpus],
+           "spec": doc["devices"][0]["name"], "cdi": cr.status.cdi_device_id,
+           "device_nodes": nodes, "cuda_nodes": cuda_nodes,
+           "cuda_bus_id": cuda_bus,
+           "agent_bus_id": agent_bus or "not reported by the host's driver",
+           "device_ids": cr.status.device_ids,
+           "chip_indices": cr.status.chip_indices}
+    emit("operator_attach", **rec)
+    return {"agent": agent, "group": group,
+            "device_ids": list(cr.status.device_ids), "env": spec_env, **rec}
+
+
+def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
+    """The composed H100 worker: the kernels at the probe's new shapes in
+    this process (uncounted), then the worker's side of the operator's
+    composition (the env read back from its CDI spec, the coordinates,
+    the bootstrap) and the staged probe run on the card with that env.
+    Returns the records and the probe child's launch counts."""
+    from tpu_composer_torch.workload import SliceCoords, bootstrap_distributed
+    from tpu_composer_torch.workload.probe import staged_accelerator_probe
+
+    kernels = _composed_kernels(gen)
+    env = operator["env"]
+    coords = SliceCoords.from_env(env)
+    want = (0, 1, 1, ["localhost"], "1x1", "chip-smoke", H100_MODEL)
     got = (coords.worker_id, coords.num_workers, coords.num_chips,
            coords.worker_hostnames, coords.topology, coords.slice_name,
            coords.model)
     check(got == want, f"coordinates {got} != {want}")
     check(bootstrap_distributed(coords) == coords,
           "bootstrap changed the coordinates")
-    return env, {"topology": shape.topology, "cdi": spec.qualified_name,
-                 "device_nodes": [n["path"] for n in edits["deviceNodes"]],
-                 "env": spec_env, "coordinator": coords.coordinator_address}
-
-
-def phase_composed_worker(gen: torch.Generator, workdir: str) -> dict:
-    """The composed H100 worker: the kernels at the probe's new shapes in
-    this process (uncounted), then the slice composed and the staged
-    probe run on the card. Returns the records and the probe child's
-    launch counts."""
-    from tpu_composer_torch.workload.probe import staged_accelerator_probe
-
-    kernels = _composed_kernels(gen)
-    env, composed = _compose_one_gpu(workdir)
-    emit("composed_worker", check="composed", **composed)
+    emit("composed_worker", check="composed", topology=coords.topology,
+         cdi=operator["cdi"], device_nodes=operator["device_nodes"], env=env,
+         coordinator=coords.coordinator_address)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = staged_accelerator_probe(repo_root=HERE, env=env,
@@ -2753,6 +2896,30 @@ def phase_composed_worker(gen: torch.Generator, workdir: str) -> dict:
                           ("fwd_speedup_long", "bwd_speedup_long")}}
     emit("composed_worker", check="summary",
          **{k: v for k, v in out.items() if k != "kernels"})
+    return out
+
+
+def phase_operator_busy(operator: dict) -> dict:
+    """The busy guard on the composed group (docstring, phase 21); then
+    the operator stops."""
+    from tpu_composer_torch.agent.nodeagent import DeviceBusyError
+
+    agent, group, ids = operator["agent"], operator["group"], operator["device_ids"]
+    try:
+        idle = agent.check_no_loads("localhost", ids, group=group)
+        check(not idle, "check_no_loads reports the composed card idle")
+        try:
+            agent.drain("localhost", ids, force=False, group=group)
+        except DeviceBusyError as e:
+            busy = str(e)
+        else:
+            raise RuntimeError("drain(force=False) did not raise DeviceBusyError")
+        check(f" {os.getpid()}(" in f" {busy}",
+              f"DeviceBusyError does not name this process {os.getpid()}: {busy}")
+    finally:
+        operator["manager"].stop()
+    out = {"check_no_loads": idle, "device_busy": busy, "pid": os.getpid()}
+    emit("operator_busy", **out)
     return out
 
 
@@ -2976,8 +3143,12 @@ def main() -> int:
                      done["train_exact"], worlds)),)),
                 ("composed_worker", train_kernels + ("flash_fwd",
                                                      "paged_decode"),
-                 (("composed_worker", lambda: phase_composed_worker(
-                     gen, workdir)),))):
+                 (("operator_attach", lambda: phase_operator_attach(
+                     workdir, card)),
+                  ("composed_worker", lambda: phase_composed_worker(
+                      gen, done["operator_attach"])),
+                  ("operator_busy", lambda: phase_operator_busy(
+                      done["operator_attach"]))))):
             _reset_counts()
             for phase_name, fn in phases:
                 done[phase_name] = timed_phase(phase_name, fn)
@@ -2993,6 +3164,8 @@ def main() -> int:
     finally:
         for w in worlds.values():
             w.close()
+        if "operator_attach" in done:
+            done["operator_attach"]["manager"].stop()
         shutil.rmtree(workdir, ignore_errors=True)
     emit("timing", wall_s=time.perf_counter() - t_start, phase_s=seconds)
     emit("launches", **paths)

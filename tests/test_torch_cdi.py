@@ -131,3 +131,21 @@ def test_gpu_subset_of_a_host():
     spec = generate_cdi_spec("s", 0, [4, 5], model=H100)
     assert spec.device_nodes[:2] == ["/dev/nvidia4", "/dev/nvidia5"]
     assert isinstance(spec, CdiSpec) and spec.cdi_class == CDI_CLASS_GPU
+
+
+def test_gpu_nodes_are_ordinals_that_the_agent_rebases_onto_minors(tmp_path):
+    """The spec names GPU ordinals; the node agent that publishes it writes
+    the minor of the host's GPU of each ordinal. On a host listing minors
+    0 and 3 (and no 1), ordinal 1 is /dev/nvidia3."""
+    from tests.torch_operator import nvidia_host
+    from tpu_composer_torch.agent.nodeagent import LocalNodeAgent
+
+    spec = generate_cdi_spec("s", 0, [1], model=H100)
+    assert spec.device_nodes[0] == "/dev/nvidia1"
+    agent = LocalNodeAgent(**nvidia_host(str(tmp_path), minors=(0, 3)))
+    agent.refresh_device_stack("n0", spec=spec)
+    with open(os.path.join(agent.cdi_dir, "tpu.composer.dev-gpu-s-worker0.json")) as f:
+        edits = json.load(f)["devices"][0]["containerEdits"]
+    assert [n["path"] for n in edits["deviceNodes"]][0] == "/dev/nvidia3"
+    # Everything else in the spec is as generated.
+    assert [n["path"] for n in edits["deviceNodes"]][1:] == spec.device_nodes[1:]

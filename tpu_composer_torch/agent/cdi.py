@@ -5,14 +5,22 @@ A composed chip group is published to container runtimes as a CDI spec,
 one JSON document per group, exposing:
 
 - the chips' device nodes: ``/dev/accel<N>`` (or vfio nodes) for TPU
-  chips; for NVIDIA GPUs ``/dev/nvidia<N>`` plus NVIDIA's control
-  nodes ``/dev/nvidiactl``, ``/dev/nvidia-uvm`` and
-  ``/dev/nvidia-uvm-tools``;
+  chips; for NVIDIA GPUs ``/dev/nvidia<k>`` for each GPU ordinal ``k``
+  (the host's k-th GPU) plus NVIDIA's control nodes ``/dev/nvidiactl``,
+  ``/dev/nvidia-uvm`` and ``/dev/nvidia-uvm-tools``;
 - the user-space library the framework drives the chips through:
   ``libtpu.so`` for TPUs; for GPUs CUDA's ``libcuda.so.1`` and NVML,
   ``libnvidia-ml.so.1``;
 - the coordinate env (``admission/coordinates.slice_env``) so the job
   sees its slice.
+
+A GPU's device node is named by its minor number, and a minor is not an
+ordinal: a host, or a container that sees some of its GPUs, may list
+``/dev/nvidia0`` and ``/dev/nvidia3`` only. The spec built here names
+ordinals; the node agent that publishes it (``agent/nodeagent.py``,
+``LocalNodeAgent.refresh_device_stack``) rebases each ordinal onto the
+minor of the host's GPU of that ordinal, from the driver's listing, so the
+file a container runtime reads names the real nodes.
 
 Spec layout follows the CDI 0.6 schema (cdi.k8s.io), so real container
 runtimes (containerd/CRI-O with CDI enabled) can consume it unchanged.
@@ -96,7 +104,8 @@ def generate_cdi_spec(
     """Build the spec for one worker's chip group.
 
     chip_indices are host-local chip indices (0..chips_per_host-1). For a
-    GPU ``model`` they name ``/dev/nvidia<N>``, and slice-local indices (as
+    GPU ``model`` they are GPU ordinals, named ``/dev/nvidia<ordinal>``
+    for the node agent to rebase onto minors, and slice-local indices (as
     ``SliceShape.worker_chip_indices`` gives them) are taken modulo the
     host's GPU count; otherwise they are TPU accel indices, exposed through
     vfio device nodes with ``use_vfio`` (IOMMU passthrough hosts).
@@ -106,6 +115,7 @@ def generate_cdi_spec(
         if use_vfio:
             raise ValueError("vfio passthrough applies to TPU chips only")
         per_host = GPU_MODELS[model].chips_per_host
+        # Ordinals, not minors: the publishing agent rebases them.
         nodes = [f"/dev/nvidia{i % per_host}" for i in chip_indices]
         nodes += list(NVIDIA_CONTROL_NODES)
         return CdiSpec(name=name, device_nodes=nodes, env=dict(env or {}),

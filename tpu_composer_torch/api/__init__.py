@@ -1,5 +1,45 @@
-"""The control plane's API types (port of ``tpu_composer/api/``).
+"""API object model (port of ``tpu_composer/api/``): typed objects,
+metadata, the scheme registry and validation.
 
-Only :class:`~tpu_composer_torch.api.types.SliceStatus`, the record a
-composed slice's coordinates are derived from, is ported so far; the
-rest of the API waits for the control plane's port."""
+The kinds the port has are ComposabilityRequest, ComposableResource, Node
+and the DRA pair ResourceSlice and DeviceTaintRule; Lease, FleetTelemetry
+and NodeMaintenance come with the sub-slices that use them."""
+
+from tpu_composer_torch.api.meta import ObjectMeta, OwnerReference, now_iso
+from tpu_composer_torch.api.scheme import Scheme, default_scheme
+from tpu_composer_torch.api.types import (
+    ComposabilityRequest,
+    ComposabilityRequestSpec,
+    ComposabilityRequestStatus,
+    ComposableResource,
+    ComposableResourceSpec,
+    ComposableResourceStatus,
+    Node,
+    NodeSpec,
+    NodeStatus,
+    ResourceDetails,
+    ResourceStatus,
+    OtherSpec,
+    SliceStatus,
+)
+
+__all__ = [
+    "ObjectMeta",
+    "OwnerReference",
+    "now_iso",
+    "Scheme",
+    "default_scheme",
+    "ComposabilityRequest",
+    "ComposabilityRequestSpec",
+    "ComposabilityRequestStatus",
+    "ComposableResource",
+    "ComposableResourceSpec",
+    "ComposableResourceStatus",
+    "Node",
+    "NodeSpec",
+    "NodeStatus",
+    "ResourceDetails",
+    "ResourceStatus",
+    "OtherSpec",
+    "SliceStatus",
+]

@@ -10,6 +10,7 @@ from tpu_composer_torch.topology.slices import (
     SliceShape,
     TopologyError,
     TpuModel,
+    is_chip_group_model,
     is_gpu_model,
     is_tpu_model,
     solve_slice,
@@ -23,6 +24,7 @@ __all__ = [
     "TopologyError",
     "TpuModel",
     "TPU_MODELS",
+    "is_chip_group_model",
     "is_gpu_model",
     "is_tpu_model",
     "solve_slice",

@@ -97,6 +97,14 @@ def is_gpu_model(model: str) -> bool:
     return model in GPU_MODELS
 
 
+def is_chip_group_model(model: str) -> bool:
+    """Whether ``model`` is composed as slice-member chip groups: host-local
+    chip indices, a CDI spec with the coordinate env, per-group device
+    claims. True for the TPU generations and the H100; other models (the
+    ``gpu-a100`` compat path) attach as loose devices."""
+    return is_tpu_model(model) or is_gpu_model(model)
+
+
 @dataclass(frozen=True)
 class SliceShape:
     model: str
