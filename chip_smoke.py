@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving, speculative-decoding and training
 paths, dense and MoE, one rank and several ranks over a device mesh
 (pipelined over 'pp' too, and resharded live onto another mesh), and the
-composed worker (the port's operator attaching the card, then coordinates
-from its CDI spec, bootstrap, staged probe), on one NVIDIA GPU and hold
+composed worker (the port's operator attaching the card, then placing a
+user's request for it and composing it, then coordinates from the
+request's CDI spec, bootstrap, staged probe), on one NVIDIA GPU and hold
 every CUDA kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--nccl-world]
@@ -21,9 +22,10 @@ nonzero. Phases, in order:
 
 1. ``card``: the card, its power limit, torch and CUDA versions. The
    raw ``nvidia-smi --query-gpu=name,power.limit`` line follows it.
-2. ``build``: nvcc seconds per kernel source (all three compile at once)
-   and ptxas's report per kernel (registers, spills); a spill in the
-   tensor-core B3 or in K2 fails the phase.
+2. ``build``: nvcc seconds per kernel source (all three compile at once,
+   with the host compiler's build of the scheduler's ``tpusched.cc``
+   beside them) and ptxas's report per kernel (registers, spills); a
+   spill in the tensor-core B3 or in K2 fails the phase.
 3. ``flash_fwd``: kernel K1 against its plain version over B in {1, 2},
    S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 (at both
    CTA heights, 16 and 64 rows) and fp32, with and without lse; times at
@@ -157,8 +159,36 @@ nonzero. Phases, in order:
     ResourceSlice must list the device. It prints the attach-to-Online
     host milliseconds beside the card's name and power limit, the nodes,
     minors and bus ids, and the spec's name. The control plane never
-    touches CUDA; the Manager runs on through phase 20.
-20. ``composed_worker``: the H100 worker the operator composed. First,
+    touches CUDA.
+20. ``operator_busy``: the node agent's busy guard on that group:
+    ``check_no_loads`` is False and ``drain(force=False)`` raises
+    ``DeviceBusyError`` naming this process's pid, whose CUDA context
+    holds the card open. Then that Manager stops. The card runs no
+    controller detach: the in-memory fabric cannot take the card off the
+    host, so the node keeps enumerating and a detach would wait in
+    Detaching for good (the CPU tests run it over a fake device tree).
+21. ``operator_request``: the user's path into the operator: a fresh
+    Store, ``InMemoryPool`` and ``LocalNodeAgent`` (its own CDI and state
+    directories), the Node ``localhost`` of one slot per listed GPU, a
+    ``ClusterScheduler`` on the port's native scan (``tpusched.cc``, built
+    by phase 2) with its decision ledger, and a ``Manager`` (health port
+    on localhost) running the request and resource reconcilers with 2
+    workers each. The request ``chip-smoke`` (type gpu,
+    ``nvidia-h100-sxm``, size 1, no target node: the scan must choose the
+    host) must be Running within 30 s with ``status.slice``
+    (``chip-smoke-slice``, ``1x1``, 1 host, 1 GPU, ``localhost``), the
+    pool's reservation made by the controller, exactly one child Online
+    through the device scan, its CDI spec env equal to ``slice_env`` of
+    that slice and to the hand composition renamed, its per-GPU node the
+    one CUDA's context holds, ``last_scan_kind == "native"``, and
+    ``/debug/scheduler/explain/chip-smoke`` naming ``localhost``. A
+    second request of size 1 must stay queued with an AllocationError,
+    its explain record giving ``localhost``'s verdict (``no-tpu-ports
+    free=0 need=1``). It prints the request-to-Running host ms, the
+    placement decision's ms (its ``scheduler.decide`` span), the native
+    build's seconds, the spec's name and the nodes, beside the card's
+    name and power limit. This Manager runs on through phase 23.
+22. ``composed_worker``: the H100 worker the operator composed. First,
     in this process and uncounted, K1 without and with lse, B3 and B4
     against their plain versions at the staged probe's flash sweep (bf16,
     causal, head_dim 128: (2, 1024, 8/8), (2, 2048, 8/2), (1, 4096, 8/2),
@@ -166,29 +196,25 @@ nonzero. Phases, in order:
     device times and bounds beside SDPA's forward and backward; K2
     against the gather path at the decode stage's geometry (16 heads over
     4, Dh 64, blocks of 128, 2 slots a row, lengths 129-256; fp32, bf16,
-    int8). Then the coordinate env read back from the operator's CDI
-    spec file (phase 19), ``SliceCoords.from_env``,
+    int8). Then the coordinate env read back from the CDI spec file of
+    the request's child (phase 21), ``SliceCoords.from_env``,
     ``bootstrap_distributed``, and ``staged_accelerator_probe`` run on the
     card with that env: every stage completes with no error and nothing
     skipped, flash numerics hold, the child rebuilds no kernel, and its
     stages' launches are the path's.
-21. ``operator_busy``: the node agent's busy guard on the composed
-    group: ``check_no_loads`` is False and ``drain(force=False)`` raises
-    ``DeviceBusyError`` naming this process's pid, whose CUDA context
-    holds the card open. Then the Manager stops. The card runs no
-    controller detach: the in-memory fabric cannot take the card off the
-    host, so the node keeps enumerating and a detach would wait in
-    Detaching for good (the CPU tests run it over a fake device tree).
-22. ``timing`` (the whole run's seconds, builds included, and each
+23. ``operator_request_busy``: phase 20's busy guard on the request's
+    child group; then phase 21's Manager stops, with no delete on the
+    card (see phase 20).
+24. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
     mesh_training 15-16, pipeline_training 17, reshard_training 18,
-    composed_worker 19-21, the ranks' and the probe child's counts
+    composed_worker 19-23, the ranks' and the probe child's counts
     summed in); then the kernels line ``{"kernels": [...]}``: per kernel
     its launches summed over every path and by path, max error, kernel /
     plain / library ms (device time), the kernel's issue ms, and the
     bound.
-23. the last line: ``{"ok": true, "device": {...}}``.
+25. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -403,14 +429,35 @@ def _ptxas_report(log: str) -> list:
 
 
 def phase_build() -> None:
+    import threading
+
     from tpu_composer_torch.ops import _build
+    from tpu_composer_torch.scheduler import native
 
     t0 = time.perf_counter()
-    seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
+    # The scheduler's host library compiles beside the CUDA sources.
+    native_err = []
+
+    def build_native():
+        try:
+            native.build_native()
+        except BaseException as e:  # re-raised below, on this thread
+            native_err.append(e)
+
+    host = threading.Thread(target=build_native, name="tpusched-build")
+    host.start()
+    try:
+        seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
+    finally:
+        host.join()
+    if native_err:
+        raise native_err[0]
     ptxas = {name: _ptxas_report(log)
              for name, (_, log) in _build.build_log.items()}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0,
-         ptxas=ptxas)
+         ptxas=ptxas,
+         tpusched_s=native.build_log.get("tpusched", (0.0,))[0],
+         tpusched_lib=os.path.relpath(native.library_path(), HERE))
     for name, rows in ptxas.items():
         for kernel, targs, regs, spill in rows:
             check(not (kernel in NO_SPILL and spill),
@@ -2687,17 +2734,17 @@ def _composed_kernels(gen: torch.Generator) -> dict:
     return out_rec
 
 
-def _compose_one_gpu():
+def _compose_one_gpu(slice_name: str = "chip-smoke"):
     """One H100 host of 1 GPU composed by hand: the slice solved and its
-    coordinate env put in the worker's CDI spec. The operator's spec
-    (``operator_attach``) is held to it."""
+    coordinate env put in the worker's CDI spec. The operator's specs
+    (``operator_attach``, ``operator_request``) are held to it."""
     from tpu_composer_torch.admission import slice_env
     from tpu_composer_torch.agent.cdi import generate_cdi_spec
     from tpu_composer_torch.api.types import SliceStatus
     from tpu_composer_torch.topology import solve_slice
 
     shape = solve_slice(H100_MODEL, 1)
-    status = SliceStatus(name="chip-smoke", topology=shape.topology,
+    status = SliceStatus(name=slice_name, topology=shape.topology,
                          num_hosts=shape.num_hosts,
                          chips_per_host=shape.chips_per_host,
                          worker_hostnames=["localhost"])
@@ -2834,11 +2881,188 @@ def _attach_and_check(store, agent, gpus, driver, card) -> dict:
             "device_ids": list(cr.status.device_ids), "env": spec_env, **rec}
 
 
+def _get_json(port: int, route: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=10) as resp:
+        return json.load(resp)
+
+
+def phase_operator_request(workdir: str, card: dict) -> dict:
+    """A user's request for this card through the port's operator
+    (docstring, phase 21). Returns the running operator and what it
+    composed; ``operator_request_busy`` stops it."""
+    from tpu_composer_torch.agent.nodeagent import LocalNodeAgent
+    from tpu_composer_torch.api import Node, ObjectMeta
+    from tpu_composer_torch.controllers import (
+        ComposabilityRequestReconciler, ComposableResourceReconciler,
+        RequestTiming, ResourceTiming)
+    from tpu_composer_torch.fabric.inmem import InMemoryPool
+    from tpu_composer_torch.runtime import Manager, Store
+    from tpu_composer_torch.scheduler import ClusterScheduler, native
+
+    root = os.path.join(workdir, "operator_request")
+    agent = LocalNodeAgent(cdi_dir=os.path.join(root, "cdi"),
+                           state_dir=os.path.join(root, "state"))
+    driver = agent.ensure_driver("localhost")
+    gpus = agent.gpus()
+    check(gpus, "the node agent lists no GPU on this host")
+    store = Store()
+    node = Node(metadata=ObjectMeta(name="localhost"))
+    node.status.tpu_slots = len(gpus)
+    store.create(node)
+    pool = InMemoryPool()
+    sched = ClusterScheduler(store, native_sched=True)
+    check(sched.engine.kernel_kind == "native",
+          f"the scheduler runs {sched.engine.kernel_kind}, not the native scan")
+    req_rec = ComposabilityRequestReconciler(
+        store, pool, scheduler=sched,
+        timing=RequestTiming(updating_poll=0.05, cleaning_poll=0.05))
+    mgr = Manager(store=store, health_addr="127.0.0.1:0",
+                  decisions=sched.ledger)
+    mgr.add_controller(req_rec)
+    mgr.add_controller(ComposableResourceReconciler(
+        store, pool, agent, decision_ledger=sched.ledger,
+        timing=ResourceTiming(attach_poll=0.05, visibility_poll=0.05)))
+    mgr.start(workers_per_controller=2)
+    try:
+        out = _request_and_check(store, pool, agent, sched, mgr, gpus,
+                                 driver, card)
+        out["native_build_s"] = native.build_log.get("tpusched", (0.0,))[0]
+        out["native_lib"] = os.path.relpath(native.library_path(), HERE)
+    except BaseException:
+        mgr.stop()
+        raise
+    emit("operator_request", **{k: v for k, v in out.items()
+                                if k not in ("agent",)})
+    return {"manager": mgr, **out}
+
+
+def _request_and_check(store, pool, agent, sched, mgr, gpus, driver,
+                       card) -> dict:
+    from tpu_composer_torch.admission import slice_env
+    from tpu_composer_torch.agent.cdi import spec_path
+    from tpu_composer_torch.api import (
+        ComposabilityRequest, ComposabilityRequestSpec, ComposableResource,
+        ObjectMeta, ResourceDetails)
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+    from tpu_composer_torch.runtime import tracing
+
+    def submit(name):
+        store.create(ComposabilityRequest(
+            metadata=ObjectMeta(name=name),
+            spec=ComposabilityRequestSpec(resource=ResourceDetails(
+                type="gpu", model=H100_MODEL, size=1))))
+
+    name, slice_name = "chip-smoke", "chip-smoke-slice"
+    t0 = time.perf_counter()
+    submit(name)
+    deadline = t0 + 30.0
+    while True:
+        req = store.get(ComposabilityRequest, name)
+        if req.status.state == "Running" or time.perf_counter() > deadline:
+            break
+        time.sleep(0.002)
+    running_ms = (time.perf_counter() - t0) * 1e3
+    check(req.status.state == "Running",
+          f"the request is not Running after 30 s: {req.status.to_dict()}")
+    want_slice = dict(name=slice_name, topology="1x1", num_hosts=1,
+                      chips_per_host=1, worker_hostnames=["localhost"])
+    check(req.status.slice.to_dict() == want_slice,
+          f"status.slice {req.status.slice.to_dict()} != {want_slice}")
+    reserved = pool._slices.get(slice_name)
+    check(reserved is not None and reserved.nodes == ["localhost"]
+          and reserved.model == H100_MODEL and reserved.topology == "1x1",
+          f"the pool holds no reservation {slice_name} on localhost:"
+          f" {sorted(pool._slices)}")
+    children = store.list(ComposableResource,
+                          label_selector={LABEL_MANAGED_BY: name})
+    check(len(children) == 1, f"{len(children)} children, not 1")
+    (child,) = children
+    check(child.status.state == "Online" and child.spec.chip_count == 1
+          and child.spec.slice_name == slice_name,
+          f"the child is not one Online GPU of {slice_name}:"
+          f" {child.spec.to_dict()} {child.status.to_dict()}")
+    group = f"{slice_name}-worker{child.spec.worker_id}"
+    check(agent.check_visible("localhost", child.status.device_ids,
+                              group=group),
+          "the request's GPU does not enumerate on the host")
+
+    hand = _compose_one_gpu(slice_name)
+    path = spec_path(agent.cdi_dir, hand)
+    check(os.path.exists(path), f"no CDI spec at {path}")
+    with open(path) as f:
+        doc = json.load(f)
+    edits = doc["devices"][0]["containerEdits"]
+    spec_env = dict(e.split("=", 1) for e in edits["env"])
+    want_env = slice_env(req.status.slice, child.spec.worker_id, H100_MODEL)
+    check(spec_env == want_env,
+          f"the child's spec env {spec_env} != slice_env {want_env}")
+    check(spec_env == hand.env,
+          f"the child's spec env {spec_env} != the hand composition's"
+          f" {hand.env}")
+    nodes = [n["path"] for n in edits["deviceNodes"]]
+    gpu_nodes = [n for n in nodes if _gpu_node_minor(n) is not None]
+    cuda_nodes = _cuda_nodes()
+    check(len(gpu_nodes) == 1 and gpu_nodes == cuda_nodes,
+          f"the spec's GPU node {gpu_nodes} is not the card CUDA holds open"
+          f" {cuda_nodes}")
+    scan = sched.engine.last_scan_kind
+    check(scan == "native", f"the placement ran the {scan} scan")
+
+    explain = _get_json(mgr.health_port,
+                        f"/debug/scheduler/explain/{name}")
+    latest = explain["latest"]
+    check(latest["outcome"] == "placed" and latest["chosen"] == ["localhost"],
+          f"the explain route's decision does not place on localhost: {latest}")
+    spans = [e for e in tracing.trace_events(latest["decision_id"])
+             if e.get("ph") == "X" and e.get("name") == "scheduler.decide"]
+    check(spans, "the placement decision left no scheduler.decide span")
+    decide_ms = spans[0]["dur"] / 1e3
+
+    # A second request: the host's one GPU is taken.
+    submit("chip-smoke-2")
+    deadline = time.perf_counter() + 30.0
+    while True:
+        second = store.get(ComposabilityRequest, "chip-smoke-2")
+        led = sched.ledger.latest("chip-smoke-2")
+        if (second.status.error and led is not None) or \
+                time.perf_counter() > deadline:
+            break
+        time.sleep(0.002)
+    check(second.status.state in ("", "NodeAllocating")
+          and not store.list(ComposableResource,
+                             label_selector={LABEL_MANAGED_BY: "chip-smoke-2"}),
+          f"the second request was placed: {second.status.to_dict()}")
+    held = _get_json(mgr.health_port,
+                     "/debug/scheduler/explain/chip-smoke-2")["latest"]
+    verdicts = {c["node"]: c["verdict"] for c in held.get("candidates", ())}
+    check(held["outcome"] == "held-back"
+          and verdicts.get("localhost") == "no-tpu-ports free=0 need=1",
+          f"the second request's record: {held}")
+    return {"agent": agent, "group": group, "slice": slice_name,
+            "device_ids": list(child.status.device_ids), "env": spec_env,
+            "cdi": child.status.cdi_device_id, "device_nodes": nodes,
+            "request_to_running_host_ms": running_ms,
+            "placement_decision_ms": decide_ms, "scan_kind": scan,
+            "card": card["nvidia_smi"], "driver": driver, "gpus": len(gpus),
+            "spec": doc["devices"][0]["name"], "cuda_nodes": cuda_nodes,
+            "child": child.metadata.name, "chip_indices": child.status.chip_indices,
+            "explain": {"outcome": latest["outcome"], "chosen": latest["chosen"],
+                        "engine": explain.get("engine"),
+                        "nonces": len(latest.get("nonces", ()))},
+            "second": {"error": second.status.error,
+                       "outcome": held["outcome"], "verdicts": verdicts,
+                       "binding": held.get("binding")}}
+
+
 def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
     """The composed H100 worker: the kernels at the probe's new shapes in
     this process (uncounted), then the worker's side of the operator's
-    composition (the env read back from its CDI spec, the coordinates,
-    the bootstrap) and the staged probe run on the card with that env.
+    composition (the env read back from the CDI spec of the request's
+    child, the coordinates, the bootstrap) and the staged probe run on
+    the card with that env.
     Returns the records and the probe child's launch counts."""
     from tpu_composer_torch.workload import SliceCoords, bootstrap_distributed
     from tpu_composer_torch.workload.probe import staged_accelerator_probe
@@ -2846,7 +3070,7 @@ def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
     kernels = _composed_kernels(gen)
     env = operator["env"]
     coords = SliceCoords.from_env(env)
-    want = (0, 1, 1, ["localhost"], "1x1", "chip-smoke", H100_MODEL)
+    want = (0, 1, 1, ["localhost"], "1x1", operator["slice"], H100_MODEL)
     got = (coords.worker_id, coords.num_workers, coords.num_chips,
            coords.worker_hostnames, coords.topology, coords.slice_name,
            coords.model)
@@ -2899,9 +3123,9 @@ def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
     return out
 
 
-def phase_operator_busy(operator: dict) -> dict:
-    """The busy guard on the composed group (docstring, phase 21); then
-    the operator stops."""
+def phase_operator_busy(operator: dict, phase: str = "operator_busy") -> dict:
+    """The busy guard on the composed group (docstring, phases 20 and
+    23); then that operator stops."""
     from tpu_composer_torch.agent.nodeagent import DeviceBusyError
 
     agent, group, ids = operator["agent"], operator["group"], operator["device_ids"]
@@ -2918,8 +3142,9 @@ def phase_operator_busy(operator: dict) -> dict:
               f"DeviceBusyError does not name this process {os.getpid()}: {busy}")
     finally:
         operator["manager"].stop()
-    out = {"check_no_loads": idle, "device_busy": busy, "pid": os.getpid()}
-    emit("operator_busy", **out)
+    out = {"check_no_loads": idle, "device_busy": busy, "pid": os.getpid(),
+           "group": group}
+    emit(phase, **out)
     return out
 
 
@@ -3145,10 +3370,14 @@ def main() -> int:
                                                      "paged_decode"),
                  (("operator_attach", lambda: phase_operator_attach(
                      workdir, card)),
-                  ("composed_worker", lambda: phase_composed_worker(
-                      gen, done["operator_attach"])),
                   ("operator_busy", lambda: phase_operator_busy(
-                      done["operator_attach"]))))):
+                      done["operator_attach"])),
+                  ("operator_request", lambda: phase_operator_request(
+                      workdir, card)),
+                  ("composed_worker", lambda: phase_composed_worker(
+                      gen, done["operator_request"])),
+                  ("operator_request_busy", lambda: phase_operator_busy(
+                      done["operator_request"], "operator_request_busy"))))):
             _reset_counts()
             for phase_name, fn in phases:
                 done[phase_name] = timed_phase(phase_name, fn)
@@ -3164,8 +3393,9 @@ def main() -> int:
     finally:
         for w in worlds.values():
             w.close()
-        if "operator_attach" in done:
-            done["operator_attach"]["manager"].stop()
+        for phase_name in ("operator_attach", "operator_request"):
+            if phase_name in done:
+                done[phase_name]["manager"].stop()
         shutil.rmtree(workdir, ignore_errors=True)
     emit("timing", wall_s=time.perf_counter() - t_start, phase_s=seconds)
     emit("launches", **paths)

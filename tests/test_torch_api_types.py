@@ -117,8 +117,22 @@ def _taint(tw):
     )
 
 
+def _maintenance(tw):
+    m = tw.maintenance
+    nm = m.NodeMaintenance(
+        metadata=_meta(tw, "drain-worker-0"),
+        spec=m.NodeMaintenanceSpec(node_name="worker-0", deadline_seconds=30.0,
+                                   reason="firmware"),
+    )
+    nm.status = m.NodeMaintenanceStatus(
+        state=m.MAINTENANCE_STATE_DRAINING, started_at=TS, evacuated=1,
+        remaining=2, message="m")
+    return nm
+
+
 KINDS = {
     "ComposabilityRequest": (_request, "types"),
+    "NodeMaintenance": (_maintenance, "maintenance"),
     "ComposableResource": (_resource, "types"),
     "Node": (_node, "types"),
     "ResourceSlice": (_slice, "dra"),
@@ -145,7 +159,7 @@ def test_scheme_registers_the_ported_kinds():
     jax_kinds = set(JAX.scheme.default_scheme().kinds())
     port_kinds = set(PORT.scheme.default_scheme().kinds())
     assert port_kinds == set(KINDS)
-    assert jax_kinds - port_kinds == {"Lease", "FleetTelemetry", "NodeMaintenance"}
+    assert jax_kinds - port_kinds == {"Lease", "FleetTelemetry"}
     s = PORT.scheme.default_scheme()
     with pytest.raises(PORT.scheme.SchemeError):
         s.decode({"kind": "Lease"})

@@ -11,9 +11,13 @@ the JAX tests': the resized run's losses equal the never-resized run's
 within 2e-4 relative (``tests/test_reshard.py:74``), and training
 progresses.
 
-``tests/test_reshard.py``'s operator-driven case (a watch on the
-control plane's request drives the reshard) needs the control plane,
-which the port has not reached yet.
+``tests/test_reshard.py``'s operator-driven case runs in the same world
+(``test_operator_resize_drives_reshard``): rank 0 runs the port's
+threaded operator over fake nodes, an H100 request grows from 2 to 4
+GPUs, rank 0's watch (not a poll) sees it Running with 4 and broadcasts
+the count, and every rank reshards the live state from the mesh of 2
+onto the mesh of 4; the losses equal the never-resized run's within
+2e-4 relative, the JAX test's tolerance.
 """
 
 from __future__ import annotations
@@ -176,3 +180,20 @@ def test_abstract_train_state_allocates_nothing():
         assert a.is_meta and a.shape == b.shape and a.dtype == b.dtype
     # Without a pp mesh the layers stay a list, as in the JAX package.
     assert isinstance(abstract["params"]["layers"], list)
+
+
+def test_operator_resize_drives_reshard(world):
+    res = world.run("operator_reshard", MODEL, 3, 2)
+    slices = res[0]["slices"]
+    assert [(s["topology"], s["num_hosts"], s["chips_per_host"])
+            for s in slices] == [("2x1", 1, 2), ("4x1", 1, 4)]
+    control = res[0]["control"]
+    assert control[-1] < control[0]
+    for rank, r in enumerate(res):
+        # Every rank built its meshes from the counts rank 0's watch saw.
+        assert r["counts"] == [2, 4]
+        assert (r["control"] is not None) == (rank in (0, 1))
+        if rank in (0, 1):
+            assert r["resized"] == pytest.approx(control, rel=2e-4)
+        else:
+            assert r["resized"][3:] == pytest.approx(control[3:], rel=2e-4)

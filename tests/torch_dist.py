@@ -501,6 +501,145 @@ def reshard_run(model, train, src, dst, n_before: int, n_after: int):
             "holds_state": state is not None, "kept": kept, "moved": moved}
 
 
+class _RequestOperator:
+    """The port's threaded operator over fake nodes (rank 0 of
+    ``operator_reshard``): one host of 8 H100 slots, the in-memory pool,
+    the fake agent, a Manager with the request and resource reconcilers;
+    a watch on ComposabilityRequests opened before anything is created."""
+
+    MODEL = "nvidia-h100-sxm"
+
+    def __init__(self):
+        from tpu_composer_torch.agent.fake import FakeNodeAgent
+        from tpu_composer_torch.api.meta import ObjectMeta
+        from tpu_composer_torch.api.types import Node
+        from tpu_composer_torch.controllers import (
+            ComposabilityRequestReconciler,
+            ComposableResourceReconciler,
+            RequestTiming,
+            ResourceTiming,
+        )
+        from tpu_composer_torch.fabric.inmem import InMemoryPool
+        from tpu_composer_torch.runtime.manager import Manager
+        from tpu_composer_torch.runtime.store import Store
+
+        self.store = Store()
+        node = Node(metadata=ObjectMeta(name="gpu-host"))
+        node.status.tpu_slots = 8
+        self.store.create(node)
+        pool = InMemoryPool(chips={self.MODEL: 8})
+        self.mgr = Manager(store=self.store)
+        self.mgr.add_controller(ComposabilityRequestReconciler(
+            self.store, pool,
+            timing=RequestTiming(updating_poll=0.02, cleaning_poll=0.02)))
+        self.mgr.add_controller(ComposableResourceReconciler(
+            self.store, pool, FakeNodeAgent(pool=pool),
+            timing=ResourceTiming(attach_poll=0.02, visibility_poll=0.02,
+                                  detach_poll=0.02, detach_fast=0.02,
+                                  busy_poll=0.02)))
+        self.events = self.store.watch("ComposabilityRequest")
+        self.mgr.start(workers_per_controller=2)
+
+    @staticmethod
+    def gpus(req) -> int:
+        s = req.status.slice
+        return s.num_hosts * s.chips_per_host
+
+    def submit(self, name: str, size: int) -> None:
+        from tpu_composer_torch.api.meta import ObjectMeta
+        from tpu_composer_torch.api.types import (
+            ComposabilityRequest,
+            ComposabilityRequestSpec,
+            ResourceDetails,
+        )
+
+        self.store.create(ComposabilityRequest(
+            metadata=ObjectMeta(name=name),
+            spec=ComposabilityRequestSpec(resource=ResourceDetails(
+                type="gpu", model=self.MODEL, size=size))))
+
+    def resize(self, name: str, size: int) -> None:
+        from tpu_composer_torch.api.types import ComposabilityRequest
+
+        req = self.store.get(ComposabilityRequest, name)
+        req.spec.resource.size = size
+        self.store.update(req)
+
+    def watch_running(self, name: str, gpus: int, timeout: float = 10.0):
+        """The GPU count of the first watch event that shows ``name``
+        Running with ``gpus`` GPUs (events only: no poll of the store)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                evt = self.events.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                break
+            if (evt.obj.metadata.name == name and evt.type != "DELETED"
+                    and evt.obj.status.state == "Running"
+                    and self.gpus(evt.obj) == gpus):
+                return self.gpus(evt.obj), evt.obj.status.slice.to_dict()
+        raise AssertionError(f"the watch never showed {name} Running with"
+                             f" {gpus} GPUs")
+
+    def stop(self) -> None:
+        self.mgr.stop()
+
+
+def operator_reshard(model, n_before: int, n_after: int):
+    """tests/test_reshard.py's operator-driven reshard on the port: rank 0
+    runs the threaded operator; an H100 request of 2 GPUs reaches Running
+    and rank 0 broadcasts its GPU count, from which every rank builds the
+    mesh (tp = 2, dp = GPUs / 2) and trains ``n_before`` steps; the
+    request grows to 4; rank 0's watch sees it Running with 4 and
+    broadcasts the count; every rank reshards the live state onto the
+    grown mesh and trains ``n_after`` steps. Returns the never-resized
+    run's losses (the mesh of 2), the resized run's, the counts each rank
+    received, and on rank 0 the slices the watch delivered."""
+    import torch.distributed as dist
+
+    from tpu_composer_torch.parallel.mesh import in_mesh
+    from tpu_composer_torch.parallel.train import (
+        make_train_state,
+        reshard_train_state,
+    )
+
+    op = _RequestOperator() if dist.get_rank() == 0 else None
+    counts, slices = [], []
+
+    def agree(gpus):
+        box = [None]
+        if op is not None:
+            box[0], sl = op.watch_running("train-job", gpus)
+            slices.append(sl)
+        dist.broadcast_object_list(box, src=0)
+        counts.append(box[0])
+        n = box[0]
+        return mesh({"dp": n // 2, "tp": 2}, list(range(n)) if n < dist.get_world_size() else None)
+
+    try:
+        if op is not None:
+            op.submit("train-job", 2)
+        tc = _configs(model, False, {})
+        batches = _batches(tc.model.vocab_size, n_before + n_after)
+        a = agree(2)
+        control = resized = state = None
+        if in_mesh(a):
+            control = _steps(tc, a, make_train_state(tc, 0, "cpu", a), batches)[1]
+            state, resized = _steps(tc, a, make_train_state(tc, 0, "cpu", a),
+                                    batches[:n_before])
+        if op is not None:
+            op.resize("train-job", 4)
+        b = agree(4)
+        state = reshard_train_state(tc, state, b, a, "cpu")
+        state, after = _steps(tc, b, state, batches[n_before:])
+        resized = (resized or [None] * n_before) + after
+        return {"control": control, "resized": resized, "counts": counts,
+                "slices": slices}
+    finally:
+        if op is not None:
+            op.stop()
+
+
 def reshard_refused(model, src, dst):
     """A pipelined state resharded onto a mesh without pp: the error."""
     from tpu_composer_torch.parallel.mesh import in_mesh

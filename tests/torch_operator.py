@@ -9,10 +9,12 @@ written against ``twin(root)`` runs on either package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import os
 import random
 import time
+import uuid
 from types import SimpleNamespace
 
 JAX_ROOT = "tpu_composer"
@@ -21,10 +23,12 @@ ROOTS = (JAX_ROOT, PORT_ROOT)
 
 #: Fields that differ between two runs of one script whatever the package:
 #: identities and clocks (uid, timestamps, intent nonces and the trace ids
-#: they become). They are replaced by their presence, never dropped.
+#: they become, and the wall-clock stamps the controllers write into
+#: annotations). They are replaced by their presence, never dropped.
 MASKED = frozenset({
     "uid", "creationTimestamp", "deletionTimestamp", "nonce", "started_at",
     "observed_at", "first_ready_time", "trace_id",
+    "tpu.composer.dev/repair-drain-start", "tpu.composer.dev/orphan-first-seen",
 })
 
 _MODULES = dict(
@@ -36,8 +40,18 @@ _MODULES = dict(
     provider="fabric.provider", inmem="fabric.inmem",
     adapter="fabric.adapter",
     cdi="agent.cdi", nodeagent="agent.nodeagent", fake="agent.fake",
+    publisher="agent.publisher",
     rc="controllers.resource_controller",
     coordinates="admission.coordinates", slices="topology.slices",
+    maintenance="api.maintenance", events="runtime.events",
+    capacity="runtime.capacity", goodput="runtime.goodput",
+    sched="scheduler", sched_core="scheduler.core",
+    snapshot="scheduler.snapshot",
+    native="scheduler.native", placement="scheduler.placement",
+    preemption="scheduler.preemption", ledger="scheduler.ledger",
+    defrag="scheduler.defrag",
+    req="controllers.request_controller", syncer="controllers.syncer",
+    adoption="controllers.adoption", mc="controllers.maintenance",
 )
 
 
@@ -59,15 +73,161 @@ def mask(obj):
     return obj
 
 
+@contextlib.contextmanager
+def seeded_uuids(seed: int = 0):
+    """``uuid.uuid4`` drawn from a generator seeded with ``seed`` for the
+    duration: generated names (``<type>-<uuid>`` children, uids, nonces)
+    come out the same in two runs that make the same calls in the same
+    order."""
+    rng = random.Random(seed)
+    real = uuid.uuid4
+    uuid.uuid4 = lambda: uuid.UUID(int=rng.getrandbits(128), version=4)
+    try:
+        yield
+    finally:
+        uuid.uuid4 = real
+
+
 def run_both(scenario, *args, seed: int = 0, **kwargs):
     """Run ``scenario(twin, ...)`` on the JAX package and on the port,
-    with Python's ``random`` seeded the same before each; returns the two
-    masked results."""
+    with Python's ``random`` and ``uuid.uuid4`` seeded the same before
+    each; returns the two masked results."""
     out = []
     for root in ROOTS:
         random.seed(seed)
-        out.append(mask(scenario(twin(root), *args, **kwargs)))
+        with seeded_uuids(seed):
+            out.append(mask(scenario(twin(root), *args, **kwargs)))
     return out
+
+
+def outcome(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``'s result (a reconcile ``Result`` as
+    ``("requeue", seconds)``), or ``("raised", type, message)``."""
+    try:
+        out = fn(*args, **kwargs)
+    except Exception as e:  # noqa: BLE001 - the outcome is compared
+        return ("raised", type(e).__name__, str(e))
+    if hasattr(out, "requeue_after"):
+        return ("requeue", out.requeue_after)
+    return out
+
+
+class RequestWorld:
+    """One package's request side, stepped by hand: a Store with
+    ``n_nodes`` nodes of ``slots`` chip slots, an ``InMemoryPool``, a
+    ``FakeNodeAgent``, the request reconciler (its ClusterScheduler built
+    on the store) and the resource reconciler joined to its decision
+    ledger. ``req_kw`` goes to the request reconciler."""
+
+    def __init__(self, tw, n_nodes=4, slots=4, chips=None, **req_kw):
+        self.tw = tw
+        t = tw.types
+        self.store = tw.store.Store()
+        for i in range(n_nodes):
+            n = t.Node(metadata=tw.meta.ObjectMeta(name=f"worker-{i}"))
+            n.status.tpu_slots = slots
+            n.status.milli_cpu = 8000
+            n.status.memory = 64 << 30
+            n.status.allowed_pod_number = 100
+            self.store.create(n)
+        self.pool = tw.inmem.InMemoryPool(chips=chips or {"tpu-v4": 64})
+        self.agent = tw.fake.FakeNodeAgent(pool=self.pool)
+        self.req_rec = tw.req.ComposabilityRequestReconciler(
+            self.store, self.pool, **req_kw)
+        self.res_rec = tw.rc.ComposableResourceReconciler(
+            self.store, self.pool, self.agent,
+            decision_ledger=self.req_rec.scheduler.ledger)
+
+    # -- objects ----------------------------------------------------------
+    def request(self, name, size=4, model="tpu-v4", type_=None, priority=0,
+                policy="", **resource):
+        t = self.tw.types
+        type_ = type_ or ("tpu" if model.startswith("tpu-") else "gpu")
+        spec = t.ComposabilityRequestSpec(
+            resource=t.ResourceDetails(type=type_, model=model, size=size,
+                                       **resource),
+            priority=priority)
+        if policy:
+            spec.preemption_policy = policy
+        return self.store.create(t.ComposabilityRequest(
+            metadata=self.tw.meta.ObjectMeta(name=name), spec=spec))
+
+    def get(self, name):
+        return self.store.try_get(self.tw.types.ComposabilityRequest, name)
+
+    def children(self, name):
+        t = self.tw.types
+        return self.store.list(t.ComposableResource,
+                               label_selector={t.LABEL_MANAGED_BY: name})
+
+    def resize(self, name, size):
+        req = self.get(name)
+        req.spec.resource.size = size
+        self.store.update(req)
+
+    def delete(self, name):
+        self.store.delete(self.tw.types.ComposabilityRequest, name)
+
+    # -- stepping ---------------------------------------------------------
+    def pump(self, steps=40):
+        """Step every request and resource reconciler ``steps`` times,
+        tolerating the operational errors that land in status."""
+        quiet = (self.tw.provider.FabricError, self.tw.slices.TopologyError)
+        t = self.tw.types
+        for _ in range(steps):
+            for r in self.store.list(t.ComposabilityRequest):
+                try:
+                    self.req_rec.reconcile(r.metadata.name)
+                except quiet:
+                    pass
+            for c in self.store.list(t.ComposableResource):
+                try:
+                    self.res_rec.reconcile(c.metadata.name)
+                except self.tw.provider.FabricError:
+                    pass
+
+    def run_to_ready(self, name, max_steps=60):
+        for _ in range(max_steps):
+            self.pump(1)
+            if self.get(name).status.state == self.tw.types.REQUEST_STATE_RUNNING:
+                return
+        raise AssertionError(f"{name} never reached Running: "
+                             f"{self.get(name).status.to_dict()}")
+
+    def settle(self, name, max_steps=60):
+        """Pump until request ``name`` and its children are gone."""
+        for _ in range(max_steps):
+            self.pump(1)
+            if self.get(name) is None and not self.children(name):
+                return
+        raise AssertionError(f"{name} never went away")
+
+    # -- observing --------------------------------------------------------
+    def view(self):
+        """Every request's state, error, slice and rows; every child's
+        spec, state, devices, chip indices and annotations; the pool's
+        slice reservations and free chips."""
+        t = self.tw.types
+        reqs = {r.metadata.name: dict(
+            state=r.status.state, error=r.status.error,
+            slice=r.status.slice.to_dict(),
+            rows={k: v.to_dict() for k, v in r.status.resources.items()},
+            deleting=r.being_deleted)
+            for r in self.store.list(t.ComposabilityRequest)}
+        kids = {c.metadata.name: dict(
+            spec=c.spec.to_dict(), state=c.status.state,
+            device_ids=list(c.status.device_ids),
+            chip_indices=list(c.status.chip_indices),
+            owner=c.metadata.labels.get(t.LABEL_MANAGED_BY, ""),
+            annotations=dict(c.metadata.annotations),
+            deleting=c.being_deleted)
+            for c in self.store.list(t.ComposableResource)}
+        pool = {n: dict(model=r.model, topology=r.topology,
+                        nodes=list(r.nodes),
+                        groups={w: len(ids) for w, ids in r.groups.items()})
+                for n, r in sorted(self.pool._slices.items())}
+        free = {m: self.pool.free_chips(m) for m in sorted(self.pool._chips)}
+        return dict(requests=reqs, children=kids, pool=pool, free=free)
 
 
 def wait_for(predicate, timeout: float = 10.0, interval: float = 0.02) -> bool:

@@ -10,12 +10,16 @@ mesh) and checkpoints, ``data/`` the packed-LM
 pipeline, ``workload/`` the training loop and slice qualification, and
 ``examples/`` a runnable training script.
 
-The operator's resource side composes the accelerator onto a node:
-``api/`` (the API objects), ``runtime/`` (the object store, work queues,
-controllers and the manager), ``fabric/`` (the provider interface and the
-in-memory pool), ``agent/`` (the node agent, ``/dev/accel*`` and
-``/dev/nvidia*``, and the CDI spec) and ``controllers/`` (the
-ComposableResource reconciler). These import no torch.
+The operator composes the accelerator onto a node: ``api/`` (the API
+objects), ``runtime/`` (the object store, work queues, controllers, the
+manager and the scheduler's capacity and goodput observatory),
+``fabric/`` (the provider interface and the in-memory pool), ``agent/``
+(the node agent, ``/dev/accel*`` and ``/dev/nvidia*``, and the CDI spec),
+``scheduler/`` (placement, preemption, defragmentation and the decision
+ledger, with the native scan of ``native/tpusched.cc`` built by the host
+C++ compiler at first use) and ``controllers/`` (the ComposabilityRequest
+and ComposableResource reconcilers, the syncer, cold-start adoption and
+the NodeMaintenance drain). These import no torch.
 
 Entry points that create tensors take a ``device`` (default ``"cuda"``)
 and raise when no card is present unless the caller asks for ``"cpu"``.

@@ -1,9 +1,9 @@
 """API object model (port of ``tpu_composer/api/``): typed objects,
 metadata, the scheme registry and validation.
 
-The kinds the port has are ComposabilityRequest, ComposableResource, Node
-and the DRA pair ResourceSlice and DeviceTaintRule; Lease, FleetTelemetry
-and NodeMaintenance come with the sub-slices that use them."""
+The kinds the port has are ComposabilityRequest, ComposableResource, Node,
+NodeMaintenance and the DRA pair ResourceSlice and DeviceTaintRule; Lease
+and FleetTelemetry come with the sub-slice that uses them."""
 
 from tpu_composer_torch.api.meta import ObjectMeta, OwnerReference, now_iso
 from tpu_composer_torch.api.scheme import Scheme, default_scheme

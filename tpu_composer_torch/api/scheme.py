@@ -1,7 +1,8 @@
 """Kind registry + serde entry point (port of ``tpu_composer/api/scheme.py``).
 
 Registers the kinds the port has: ComposabilityRequest,
-ComposableResource, Node, ResourceSlice and DeviceTaintRule.
+ComposableResource, Node, NodeMaintenance, ResourceSlice and
+DeviceTaintRule (Lease and FleetTelemetry join with the HA sub-slice).
 
 Reference analog: api/v1alpha1/groupversion_info.go:25-36 (SchemeBuilder /
 AddToScheme) — maps kind strings to Go types so clients can decode. Ours maps
@@ -15,6 +16,7 @@ import json
 from typing import Any, Dict, Type
 
 from tpu_composer_torch.api.dra import DeviceTaintRule, ResourceSlice
+from tpu_composer_torch.api.maintenance import NodeMaintenance
 from tpu_composer_torch.api.meta import ApiObject
 from tpu_composer_torch.api.types import ComposabilityRequest, ComposableResource, Node
 
@@ -62,6 +64,7 @@ def default_scheme() -> Scheme:
     s.register(ComposabilityRequest)
     s.register(ComposableResource)
     s.register(Node)
+    s.register(NodeMaintenance)
     s.register(ResourceSlice)
     s.register(DeviceTaintRule)
     return s

@@ -25,14 +25,19 @@ TPU slice member (``topology.is_chip_group_model``): its GPUs get host-local
 ordinals, its CDI spec names ``/dev/nvidia<ordinal>`` (which the node agent
 rebases onto minors), NVIDIA's control nodes and driver libraries, and
 carries the torchrun coordinate env of ``admission/coordinates.slice_env``;
-the spec is retracted on detach. Other gpu models keep the loose compat
-path.
+the spec is retracted on detach. Since a job's torchrun reads its world
+from that spec (a TPU pod gets its coordinates from the admission webhook
+instead), an H100 group re-publishes the spec when its coordinate env
+moves, as it does after a live resize of its slice. Other gpu models keep
+the loose compat path.
 
-Fabric verbs run inline on the worker thread. The JAX package's optional
+Fabric verbs run inline on the worker thread. With the scheduler's
+decision ledger wired (``decision_ledger=``), attach intents join the
+placement decision that planned them. The JAX package's other optional
 collaborators (the fabric dispatcher, shard ownership and fencing, the
-scheduler's decision ledger, the circuit breaker's endpoint-wide
-rejections) arrive with the sub-slices that port them; the code paths
-kept here are the ones that run without them.
+circuit breaker's endpoint-wide rejections) arrive with the sub-slices
+that port them; the code paths kept here are the ones that run without
+them.
 """
 
 from __future__ import annotations
@@ -91,7 +96,7 @@ from tpu_composer_torch.runtime.store import (
     WatchEvent,
     delete_tolerant,
 )
-from tpu_composer_torch.topology.slices import is_chip_group_model
+from tpu_composer_torch.topology.slices import is_chip_group_model, is_gpu_model
 
 
 @dataclass
@@ -175,8 +180,15 @@ class ComposableResourceReconciler(Controller):
         timing: Optional[ResourceTiming] = None,
         recorder: Optional[EventRecorder] = None,
         publisher=None,  # DevicePublisher; default built on the store
+        decision_ledger=None,  # scheduler.DecisionLedger; None = no joins
     ) -> None:
         super().__init__(store)
+        # The scheduler's decision ledger (the same instance the request
+        # controller's ClusterScheduler records into): attach intents join
+        # the placement decision that planned them at mint time. Explicit
+        # handle, never the process-global — in-proc multi-replica
+        # harnesses run one ledger per replica.
+        self.decision_ledger = decision_ledger
         self.fabric = fabric
         self.agent = agent
         self.timing = timing or ResourceTiming()
@@ -219,6 +231,9 @@ class ComposableResourceReconciler(Controller):
         # restarts the window, which can only delay a Degraded transition
         # by < threshold probes.
         self._health_streaks: Dict[str, int] = {}
+        # resource name -> the coordinate env its CDI spec was last
+        # published with (H100 groups re-publish when it moves).
+        self._published_env: Dict[str, Dict[str, str]] = {}
         self._recovery_streaks: Dict[str, int] = {}
         # Node escalation clock: node -> monotonic stamps of recent
         # Degraded transitions there (post-Ready analog of attach streaks),
@@ -281,6 +296,7 @@ class ComposableResourceReconciler(Controller):
             self._health_streaks.pop(name, None)
             self._recovery_streaks.pop(name, None)
             self._escalation_counted.discard(name)
+            self._published_env.pop(name, None)
             return Result()
         # Causal tracing: a durable intent's nonce IS the trace id for that
         # fabric op. Adopting it here back-fills the already-open reconcile
@@ -500,14 +516,7 @@ class ComposableResourceReconciler(Controller):
         # replacement): TPU_* for a TPU group, torchrun's for an H100 group,
         # whose device nodes the spec names by model.
         if is_chip_group_model(res.spec.model):
-            spec = generate_cdi_spec(
-                slice_name=res.spec.slice_name or res.name,
-                worker_id=res.spec.worker_id,
-                chip_indices=list(res.status.chip_indices),
-                env=self._coordinate_env(res),
-                model=res.spec.model,
-            )
-            self.agent.refresh_device_stack(res.spec.target_node, spec=spec)
+            self._publish_spec(res, self._coordinate_env(res))
 
         if not self.agent.check_visible(
             res.spec.target_node, res.status.device_ids, group=self._cdi_name(res)
@@ -672,6 +681,18 @@ class ComposableResourceReconciler(Controller):
             return ""
         return f"{res.spec.slice_name or res.name}-worker{res.spec.worker_id}"
 
+    def _publish_spec(self, res: ComposableResource, env: Dict[str, str]) -> None:
+        """Publish this chip group's CDI spec with ``env`` on its node."""
+        spec = generate_cdi_spec(
+            slice_name=res.spec.slice_name or res.name,
+            worker_id=res.spec.worker_id,
+            chip_indices=list(res.status.chip_indices),
+            env=env,
+            model=res.spec.model,
+        )
+        self.agent.refresh_device_stack(res.spec.target_node, spec=spec)
+        self._published_env[res.name] = env
+
     def _coordinate_env(self, res: ComposableResource):
         """Coordinate env for this worker's CDI spec (TPU_* for a TPU group,
         torchrun's for an H100 group), sourced from the owning
@@ -710,6 +731,15 @@ class ComposableResourceReconciler(Controller):
         # exists so the transition write and the fabric submission that
         # follow in this same reconcile belong to the op's trace.
         tracing.adopt_trace(tracing.TraceContext(trace_id=po.nonce))
+        if verb == "add" and self.decision_ledger is not None:
+            # Join the placement decision that planned this worker: the
+            # ledger's pending flow handle becomes the Perfetto arrow
+            # scheduler.decide -> this reconcile's span, and the nonce is
+            # recorded on the decision so /debug/scheduler/explain shows
+            # which intents executed it.
+            self.decision_ledger.link_decision(
+                res.metadata.labels.get(LABEL_MANAGED_BY, ""), po.nonce
+            )
         return po
 
     def _ensure_intent(
@@ -774,6 +804,15 @@ class ComposableResourceReconciler(Controller):
             return teardown
 
         name = res.name
+        if is_gpu_model(res.spec.model):
+            # A TPU pod takes its coordinates from the admission webhook
+            # (off status.slice); an H100 job's torchrun reads them from
+            # the CDI spec. After a live resize the survivors' specs must
+            # carry the new world, so an H100 group re-publishes when its
+            # coordinate env moved.
+            env = self._coordinate_env(res)
+            if env != self._published_env.get(name):
+                self._publish_spec(res, env)
         health = self.fabric.check_resource(res)
         fabric_requests_total.inc(op="check", outcome=health.state.lower())
         if health.healthy:
@@ -961,6 +1000,15 @@ class ComposableResourceReconciler(Controller):
         if teardown is not None:
             return teardown
         name = res.name
+        if is_gpu_model(res.spec.model):
+            # A TPU pod takes its coordinates from the admission webhook
+            # (off status.slice); an H100 job's torchrun reads them from
+            # the CDI spec. After a live resize the survivors' specs must
+            # carry the new world, so an H100 group re-publishes when its
+            # coordinate env moved.
+            env = self._coordinate_env(res)
+            if env != self._published_env.get(name):
+                self._publish_spec(res, env)
         health = self.fabric.check_resource(res)
         fabric_requests_total.inc(op="check", outcome=health.state.lower())
         if health.healthy:

@@ -7,11 +7,13 @@ readyz endpoints back the Deployment probes (config/manager/manager.yaml:73-85),
 and a metrics endpoint serves Prometheus text.
 
 The port keeps the controllers, the runnables, leader election on a lock
-file, the health server (``/healthz``, ``/readyz``, ``/metrics`` and the
-trace and lifecycle routes), the startup hooks, the lifecycle recorder and
-the graceful stop. The JAX manager's optional collaborators (the fabric
-dispatcher's drain, the sampling profiler, the SLO engine, the fleet plane,
-defrag, the decision ledger, capacity, goodput, the overload governor, the
+file, the health server (``/healthz``, ``/readyz``, ``/metrics``, the
+trace and lifecycle routes, and the scheduler's observatory:
+``/debug/defrag``, ``/debug/scheduler/explain/<name>``,
+``/debug/scheduler/capacity`` and ``/debug/goodput``), the startup hooks,
+the lifecycle recorder and the graceful stop. The JAX manager's other
+optional collaborators (the fabric dispatcher's drain, the sampling
+profiler, the SLO engine, the fleet plane, the overload governor, the
 watchdog, the store breaker, lease electors, replica identity and the TLS
 metrics port) and their ``/debug/*`` routes arrive with the modules they
 need.
@@ -49,6 +51,19 @@ DEBUG_ENDPOINTS = {
     "/debug/requests": "names with recorded lifecycle timelines",
     "/debug/requests/<name>": "one CR's timeline: phase transitions,"
                               " events, span summaries",
+    "/debug/defrag": "defragmentation report: a fresh dry-run plan (never"
+                     " executed) with per-candidate skip reasons, plus the"
+                     " last periodic pass's record and breaker state",
+    "/debug/scheduler/explain/<name>": "one CR's decision ring: every"
+                      " placement / hold-back / preemption with inputs"
+                      " digest, candidate verdicts, tiebreak rationale and"
+                      " binding constraint (503 under TPUC_DECISIONS=0)",
+    "/debug/scheduler/capacity": "capacity timeline: largest-placeable-"
+                      "slice, free-chip distribution, fragmentation and"
+                      " goodput samples on the observatory cadence",
+    "/debug/goodput": "per-request goodput accounting: Ready-serving vs"
+                      " queued/degraded/repairing/migrating wall seconds"
+                      " and the fleet-local ratio",
 }
 
 # A runnable is the analog of manager.Add(RunnableFunc) used by the
@@ -126,6 +141,57 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
         elif path in ("/debug", "/debug/"):
             self._respond_json(200, json.dumps(
                 {"endpoints": DEBUG_ENDPOINTS}, indent=1).encode())
+        elif path == "/debug/defrag":
+            loop = self.manager.defrag
+            if loop is None:
+                self._respond(
+                    503, "defrag loop not running (--defrag-interval 0)"
+                )
+            else:
+                self._respond_json(
+                    200, json.dumps(loop.report(), indent=1).encode()
+                )
+        elif path.startswith("/debug/scheduler/explain/"):
+            # The decision ledger's per-CR ring: why this request landed
+            # where it did / is still queued / preempted whom.
+            led = self.manager.decisions
+            if led is None:
+                self._respond(
+                    503, "decision ledger disabled (TPUC_DECISIONS=0)"
+                )
+            else:
+                name = urllib.parse.unquote(
+                    path[len("/debug/scheduler/explain/"):]
+                )
+                doc = led.explain(name)
+                if doc is None:
+                    self._respond(
+                        404, f"no scheduler decisions recorded for {name!r}"
+                    )
+                else:
+                    self._respond_json(
+                        200, json.dumps(doc, indent=1).encode()
+                    )
+        elif path == "/debug/scheduler/capacity":
+            cap = self.manager.capacity
+            if cap is None:
+                self._respond(
+                    503, "capacity observatory disabled (TPUC_DECISIONS=0)"
+                )
+            else:
+                self._respond_json(
+                    200, json.dumps(cap.snapshot(), indent=1).encode()
+                )
+        elif path == "/debug/goodput":
+            gp = self.manager.goodput
+            if gp is None:
+                self._respond(
+                    503, "goodput accounting disabled (TPUC_DECISIONS=0)"
+                )
+            else:
+                self._respond_json(
+                    200, json.dumps(gp.snapshot(), indent=1).encode()
+                )
         else:
             self._respond(404, "not found")
 
@@ -164,6 +230,10 @@ class Manager:
         leader_elect: bool = False,
         leader_lock_path: Optional[str] = None,
         health_addr: Optional[str] = None,  # "host:port" or None to disable
+        defrag=None,  # scheduler.DefragLoop serving /debug/defrag
+        decisions=None,  # scheduler.DecisionLedger serving explain routes
+        capacity=None,  # runtime.capacity.CapacityObservatory
+        goodput=None,  # runtime.goodput.GoodputTracker
     ) -> None:
         # `is not None`, not `or`: an EMPTY store is falsy (Store.__len__),
         # and silently swapping in a fresh one would orphan the caller's
@@ -181,6 +251,17 @@ class Manager:
         self._elector = LeaderElector(leader_lock_path) if leader_elect else None
         self._health_addr = health_addr
         self._health_server: Optional[http.server.ThreadingHTTPServer] = None
+        # Defrag loop handle for /debug/defrag (dry-run plan + skip
+        # reasons); None = loop not wired.
+        self.defrag = defrag
+        # Decision observatory handles (all None under TPUC_DECISIONS=0):
+        # the scheduler's decision ledger (/debug/scheduler/explain/*),
+        # the capacity timeline sampler (/debug/scheduler/capacity) and
+        # the goodput tracker (/debug/goodput; its lifecycle transition
+        # sink is unregistered at stop()).
+        self.decisions = decisions
+        self.capacity = capacity
+        self.goodput = goodput
         # Post-leader-acquire / pre-controller-start hooks: they run only
         # once leadership is held — a standby must not probe the fabric —
         # and strictly before the first reconcile fires.
@@ -294,8 +375,9 @@ class Manager:
     def stop(self) -> None:
         """Graceful stop: controllers first (their queues drain and their
         workers join), then the health server, the runnables and the
-        lifecycle watch, then the leader lock; the span ring is persisted
-        when ``$TPUC_TRACE_FILE`` is set."""
+        lifecycle watch, the goodput tracker's sink, then the leader
+        lock; the span ring is persisted when ``$TPUC_TRACE_FILE`` is
+        set."""
         self._stop.set()
         for c in self._controllers:
             c.stop()
@@ -306,6 +388,11 @@ class Manager:
         for t in self._threads:
             t.join(timeout=5)
         self._threads.clear()
+        # Unregister the goodput tracker's lifecycle sink: the sink list
+        # is process-global, and a test cycling managers must not
+        # accumulate dead trackers behind every later transition.
+        if self.goodput is not None:
+            lifecycle.remove_transition_sink(self.goodput.observe)
         if self._elector is not None:
             self._elector.release()
         self._started = False
