@@ -3,8 +3,9 @@
 paths, dense and MoE, one rank and several ranks over a device mesh
 (pipelined over 'pp' too, and resharded live onto another mesh), and the
 composed worker (the port's operator attaching the card, then placing a
-user's request for it and composing it, then coordinates from the
-request's CDI spec, bootstrap, staged probe), on one NVIDIA GPU and hold
+user's request for it and composing it, in process and over each remote
+fabric backend, then coordinates from the REST_CM request's CDI spec,
+bootstrap, staged probe), on one NVIDIA GPU and hold
 every CUDA kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--nccl-world]
@@ -187,8 +188,31 @@ nonzero. Phases, in order:
     free=0 need=1``). It prints the request-to-Running host ms, the
     placement decision's ms (its ``scheduler.decide`` span), the native
     build's seconds, the spec's name and the nodes, beside the card's
-    name and power limit. This Manager runs on through phase 23.
-22. ``composed_worker``: the H100 worker the operator composed. First,
+    name and power limit. This Manager runs on through phase 24.
+22. ``operator_remote``: the same user's request through each remote
+    fabric backend, REST_CM, REST_FM, LAYOUT and REDFISH, in turn. Each
+    gets its own ``tests/torch_fake_fabric.py`` server (a fresh
+    ``InMemoryPool``, ``require_auth``: the token path is on the wire),
+    a provider from ``new_fabric_provider(kind)`` with
+    ``FABRIC_ENDPOINT`` (and the token env) pointing at that server,
+    which must come back behind the circuit breaker, and a fresh Store,
+    ``LocalNodeAgent`` and native-scan ``ClusterScheduler``; a
+    ``FabricDispatcher`` stands in front of both reconcilers and the
+    ``Manager`` (``dispatcher=``, with cold-start adoption as its startup
+    hook), and for REST_CM a ``FabricSession`` long-polls the server's
+    ``/v1/events``. The request ``chip-smoke`` (gpu, ``nvidia-h100-sxm``,
+    size 1) must be Running with its one child Online within 30 s; the
+    fabric's reservation, the child's CDI id and spec env (equal to the
+    hand composition's and to ``slice_env``), the spec's control nodes
+    (the hand composition's) and GPU node (the card CUDA holds), the
+    native scan, a fetched token and a dispatcher call are checked. It
+    prints, per backend, the request-to-Running host ms, the wire
+    requests (by route), the token fetches, the dispatcher's provider
+    calls (group or single) and the session's events. The other three
+    operators stop at once (each Manager's stop drains its dispatcher);
+    REST_CM's runs on through phase 25. No backend falls back to the
+    in-process pool.
+23. ``composed_worker``: the H100 worker the operator composed. First,
     in this process and uncounted, K1 without and with lse, B3 and B4
     against their plain versions at the staged probe's flash sweep (bf16,
     causal, head_dim 128: (2, 1024, 8/8), (2, 2048, 8/2), (1, 4096, 8/2),
@@ -197,24 +221,27 @@ nonzero. Phases, in order:
     against the gather path at the decode stage's geometry (16 heads over
     4, Dh 64, blocks of 128, 2 slots a row, lengths 129-256; fp32, bf16,
     int8). Then the coordinate env read back from the CDI spec file of
-    the request's child (phase 21), ``SliceCoords.from_env``,
+    the REST_CM request's child (phase 22), ``SliceCoords.from_env``,
     ``bootstrap_distributed``, and ``staged_accelerator_probe`` run on the
     card with that env: every stage completes with no error and nothing
     skipped, flash numerics hold, the child rebuilds no kernel, and its
     stages' launches are the path's.
-23. ``operator_request_busy``: phase 20's busy guard on the request's
+24. ``operator_request_busy``: phase 20's busy guard on the request's
     child group; then phase 21's Manager stops, with no delete on the
     card (see phase 20).
-24. ``timing`` (the whole run's seconds, builds included, and each
+25. ``operator_remote_busy``: the same guard on the REST_CM child's
+    group; then that operator stops, its Manager draining the dispatcher
+    (one clean drain), and its fake fabric server closes.
+26. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
     mesh_training 15-16, pipeline_training 17, reshard_training 18,
-    composed_worker 19-23, the ranks' and the probe child's counts
+    composed_worker 19-25, the ranks' and the probe child's counts
     summed in); then the kernels line ``{"kernels": [...]}``: per kernel
     its launches summed over every path and by path, max error, kernel /
     plain / library ms (device time), the kernel's issue ms, and the
     bound.
-25. the last line: ``{"ok": true, "device": {...}}``.
+27. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -335,19 +362,27 @@ def timed(fn, iters: int = 50, warmup: int = 5) -> tuple:
     end.synchronize()
     issue_ms = start.elapsed_time(end) / iters
     spin_ms, cycles_per_ms = 2 * host_ms + 1.0, _spin_cycles_per_ms()
+    tried = []  # (spin ms asked, host ms to queue the calls behind it)
     for _ in range(4):
         torch.cuda.synchronize()
         torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        t1 = time.perf_counter()
         start.record()
         for _ in range(iters):
             fn()
         end.record()
         filled = not start.query()
+        tried.append((spin_ms, (time.perf_counter() - t1) * 1e3))
         end.synchronize()
         if filled:
             return start.elapsed_time(end) / iters, issue_ms
         spin_ms *= 2
-    raise RuntimeError("the host never got ahead of the device")
+    raise RuntimeError(
+        "the host never got ahead of the device: issue"
+        f" {issue_ms * iters:.3f} ms and host {host_ms:.3f} ms for {iters}"
+        f" calls unspun; behind each spin (ms asked, host ms to queue the"
+        f" calls): {[(round(a, 3), round(b, 3)) for a, b in tried]};"
+        f" calibration {cycles_per_ms:.1f} cycles/ms")
 
 
 def timings(kernel, plain, library=None) -> dict:
@@ -3057,12 +3092,286 @@ def _request_and_check(store, pool, agent, sched, mgr, gpus, driver,
                        "binding": held.get("binding")}}
 
 
+REMOTE_BACKENDS = ("REST_CM", "REST_FM", "LAYOUT", "REDFISH")
+#: The backend whose child's spec env the composed worker runs from.
+WORKER_BACKEND = "REST_CM"
+
+
+def _fake_fabric_module():
+    """``tests/torch_fake_fabric.py`` of this checkout, loaded by path (a
+    ``tests`` package elsewhere on the path must not shadow it)."""
+    import importlib.util
+
+    path = os.path.join(HERE, "tests", "torch_fake_fabric.py")
+    check(os.path.exists(path), f"no fake fabric server at {path}")
+    spec = importlib.util.spec_from_file_location("torch_fake_fabric", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fabric_calls() -> dict:
+    from tpu_composer_torch.runtime.metrics import fabric_calls_total
+
+    return {f"{ls['verb']}/{'group' if ls['batched'] == 'true' else 'single'}":
+            fabric_calls_total.value(**ls)
+            for ls in fabric_calls_total.label_sets()}
+
+
+def _remote_operator(kind: str, workdir: str, server) -> dict:
+    """One operator composing through ``kind`` against ``server``: the
+    provider from ``new_fabric_provider`` (behind the breaker, the token
+    path on), a ``FabricDispatcher`` in front of both reconcilers and the
+    Manager, and for REST_CM a ``FabricSession`` on the server's
+    ``/v1/events``. Returns the running pieces."""
+    from tpu_composer_torch.agent.nodeagent import LocalNodeAgent
+    from tpu_composer_torch.api import Node, ObjectMeta
+    from tpu_composer_torch.controllers import (
+        ComposabilityRequestReconciler, ComposableResourceReconciler,
+        RequestTiming, ResourceTiming)
+    from tpu_composer_torch.controllers.adoption import adopt_pending_ops
+    from tpu_composer_torch.fabric import (
+        BreakerFabricProvider, FabricDispatcher, FabricSession,
+        new_fabric_provider)
+    from tpu_composer_torch.runtime import Manager, Store
+    from tpu_composer_torch.scheduler import ClusterScheduler
+
+    env = {"FABRIC_ENDPOINT": server.url, "FABRIC_AUTH_URL": server.token_url,
+           "FABRIC_USERNAME": server.username,
+           "FABRIC_PASSWORD": server.password}
+    saved = {k: os.environ.get(k) for k in (*env, "TPU_COMPOSER_BREAKER")}
+    os.environ.update(env)
+    os.environ.pop("TPU_COMPOSER_BREAKER", None)
+    try:
+        fabric = new_fabric_provider(kind)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(isinstance(fabric, BreakerFabricProvider),
+          f"{kind}: the provider is {type(fabric).__name__}, not behind the"
+          " breaker")
+    root = os.path.join(workdir, f"operator_{kind.lower()}")
+    agent = LocalNodeAgent(cdi_dir=os.path.join(root, "cdi"),
+                           state_dir=os.path.join(root, "state"))
+    driver = agent.ensure_driver("localhost")
+    gpus = agent.gpus()
+    check(gpus, "the node agent lists no GPU on this host")
+    store = Store()
+    node = Node(metadata=ObjectMeta(name="localhost"))
+    node.status.tpu_slots = len(gpus)
+    store.create(node)
+    sched = ClusterScheduler(store, native_sched=True)
+    check(sched.engine.kernel_kind == "native",
+          f"the scheduler runs {sched.engine.kernel_kind}, not the native scan")
+    disp = FabricDispatcher(fabric, batch_window=0.005, poll_interval=0.05)
+    session = None
+    if kind == "REST_CM":
+        session = FabricSession(fabric, poll_timeout=0.5, name=server.url)
+        disp.attach_session(session)
+    mgr = Manager(store=store, dispatcher=disp)
+    mgr.add_controller(ComposabilityRequestReconciler(
+        store, fabric, scheduler=sched,
+        timing=RequestTiming(updating_poll=0.05, cleaning_poll=0.05)))
+    mgr.add_controller(ComposableResourceReconciler(
+        store, fabric, agent, decision_ledger=sched.ledger, dispatcher=disp,
+        timing=ResourceTiming(attach_poll=0.05, visibility_poll=0.05)))
+    mgr.add_runnable(disp.run)
+    if session is not None:
+        mgr.add_runnable(session.run)
+    mgr.add_startup_hook(lambda: adopt_pending_ops(store, fabric, disp))
+    return {"kind": kind, "manager": mgr, "server": server, "store": store,
+            "agent": agent, "sched": sched, "session": session,
+            "dispatcher": disp, "driver": driver, "gpus": gpus}
+
+
+def _remote_request_and_check(op: dict, card: dict) -> dict:
+    """A user's request for one H100 through one remote operator, held
+    to the hand composition and the card CUDA runs on."""
+    from tpu_composer_torch.admission import slice_env
+    from tpu_composer_torch.agent.cdi import spec_path
+    from tpu_composer_torch.api import (
+        ComposabilityRequest, ComposabilityRequestSpec, ComposableResource,
+        ObjectMeta, ResourceDetails)
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+
+    kind, store, server, agent = op["kind"], op["store"], op["server"], op["agent"]
+    name, slice_name = "chip-smoke", "chip-smoke-slice"
+    calls0 = _fabric_calls()
+    t0 = time.perf_counter()
+    store.create(ComposabilityRequest(
+        metadata=ObjectMeta(name=name),
+        spec=ComposabilityRequestSpec(resource=ResourceDetails(
+            type="gpu", model=H100_MODEL, size=1))))
+    deadline = t0 + 30.0
+    while True:
+        req = store.get(ComposabilityRequest, name)
+        kids = store.list(ComposableResource,
+                          label_selector={LABEL_MANAGED_BY: name})
+        if (req.status.state == "Running" and len(kids) == 1
+                and kids[0].status.state == "Online") \
+                or time.perf_counter() > deadline:
+            break
+        time.sleep(0.002)
+    running_ms = (time.perf_counter() - t0) * 1e3
+    check(req.status.state == "Running" and len(kids) == 1
+          and kids[0].status.state == "Online",
+          f"{kind}: the request is not Running with its child Online after"
+          f" 30 s: {req.status.to_dict()}"
+          f" {[k.status.to_dict() for k in kids]}")
+    want_slice = dict(name=slice_name, topology="1x1", num_hosts=1,
+                      chips_per_host=1, worker_hostnames=["localhost"])
+    check(req.status.slice.to_dict() == want_slice,
+          f"{kind}: status.slice {req.status.slice.to_dict()} != {want_slice}")
+    reserved = server.pool._slices.get(slice_name)
+    check(reserved is not None and reserved.nodes == ["localhost"]
+          and reserved.model == H100_MODEL,
+          f"{kind}: the fabric holds no reservation {slice_name}:"
+          f" {sorted(server.pool._slices)}")
+    (child,) = kids
+    group = f"{slice_name}-worker{child.spec.worker_id}"
+    check(agent.check_visible("localhost", child.status.device_ids,
+                              group=group),
+          f"{kind}: the request's GPU does not enumerate on the host")
+    hand = _compose_one_gpu(slice_name)
+    check(child.status.cdi_device_id == hand.qualified_name,
+          f"{kind}: the fabric's CDI id {child.status.cdi_device_id} !="
+          f" {hand.qualified_name}")
+    path = spec_path(agent.cdi_dir, hand)
+    check(os.path.exists(path), f"{kind}: no CDI spec at {path}")
+    with open(path) as f:
+        doc = json.load(f)
+    edits = doc["devices"][0]["containerEdits"]
+    spec_env = dict(e.split("=", 1) for e in edits["env"])
+    check(spec_env == hand.env == slice_env(req.status.slice, 0, H100_MODEL),
+          f"{kind}: the child's spec env {spec_env} != the hand"
+          f" composition's {hand.env}")
+    nodes = [n["path"] for n in edits["deviceNodes"]]
+    gpu_nodes = [n for n in nodes if _gpu_node_minor(n) is not None]
+    check(nodes[1:] == hand.device_nodes[1:],
+          f"{kind}: the spec's control nodes {nodes[1:]} !="
+          f" {hand.device_nodes[1:]}")
+    cuda_nodes = _cuda_nodes()
+    check(len(gpu_nodes) == 1 and gpu_nodes == cuda_nodes,
+          f"{kind}: the spec's GPU node {gpu_nodes} is not the card CUDA"
+          f" holds open {cuda_nodes}")
+    scan = op["sched"].engine.last_scan_kind
+    check(scan == "native", f"{kind}: the placement ran the {scan} scan")
+    check(server.token_requests >= 1,
+          f"{kind}: no token was fetched: the token path was not on the wire")
+    calls = {k: v - calls0.get(k, 0.0) for k, v in _fabric_calls().items()
+             if v != calls0.get(k, 0.0)}
+    check(calls.get("add/single", 0) + calls.get("add/group", 0) >= 1,
+          f"{kind}: the attach did not go through the dispatcher: {calls}")
+    wire = {}
+    for line in server.request_log:
+        method, route = line.split(" ", 1)
+        parts = route.strip("/").split("/")
+        key = f"{method} /" + "/".join(parts[:3 if parts[0] == "redfish" else 2])
+        wire[key] = wire.get(key, 0) + 1
+    rec = {"request_to_running_host_ms": running_ms,
+           "wire_requests": len(server.request_log), "wire": wire,
+           "token_fetches": server.token_requests,
+           "dispatcher_calls": calls, "scan_kind": scan,
+           "device_ids": list(child.status.device_ids),
+           "chip_indices": list(child.status.chip_indices),
+           "cdi": child.status.cdi_device_id, "device_nodes": nodes,
+           "cuda_nodes": cuda_nodes, "spec": doc["devices"][0]["name"],
+           "child": child.metadata.name}
+    session = op["session"]
+    if session is not None:
+        check(session.healthy() and session.supported(),
+              f"{kind}: the event session is not streaming")
+        rec["session"] = {"events_seen": session.events_seen,
+                          "cursor": session.cursor(), "gaps": session.gaps}
+    return {"group": group, "slice": slice_name, "env": spec_env,
+            "device_ids": list(child.status.device_ids), "rec": rec}
+
+
+def _stop_remote(op: dict) -> None:
+    """Stop one remote operator (its Manager drains the dispatcher), then
+    its fake fabric server."""
+    try:
+        op["manager"].stop()
+    finally:
+        op["server"].close()
+
+
+def phase_operator_remote(workdir: str, card: dict) -> dict:
+    """The port's operator composes this card through each remote fabric
+    backend (docstring, phase 22). Returns the REST_CM operator, still
+    running, and every backend's record; ``operator_remote_busy`` stops
+    it."""
+    from tpu_composer_torch.fabric import InMemoryPool
+    from tpu_composer_torch.runtime.metrics import dispatcher_drains_total
+
+    fake = _fake_fabric_module()
+    ops, records, kept = {}, {}, None
+    try:
+        for kind in REMOTE_BACKENDS:
+            server = fake.FakeFabricServer(pool=InMemoryPool(),
+                                           require_auth=True)
+            try:
+                op = _remote_operator(kind, workdir, server)
+            except BaseException:
+                server.close()
+                raise
+            ops[kind] = op
+            op["manager"].start(workers_per_controller=2)
+            if op["session"] is not None:
+                deadline = time.perf_counter() + 10.0
+                while not op["session"].healthy() and \
+                        time.perf_counter() < deadline:
+                    time.sleep(0.005)
+                check(op["session"].healthy(),
+                      f"{kind}: the event session never connected")
+            got = _remote_request_and_check(op, card)
+            records[kind] = got["rec"]
+            if kind == WORKER_BACKEND:
+                kept = {**op, **got}
+            else:
+                clean0 = dispatcher_drains_total.value(outcome="clean")
+                _stop_remote(ops.pop(kind))
+                records[kind]["drains_clean"] = (
+                    dispatcher_drains_total.value(outcome="clean") - clean0)
+                check(records[kind]["drains_clean"] == 1,
+                      f"{kind}: stopping the operator drained no dispatcher")
+    except BaseException:
+        for op in ops.values():
+            _stop_remote(op)
+        raise
+    emit("operator_remote", card=card["nvidia_smi"], backends=records,
+         worker_backend=WORKER_BACKEND)
+    rest = records[WORKER_BACKEND]
+    return {**kept, "cdi": rest["cdi"], "device_nodes": rest["device_nodes"],
+            "backends": records}
+
+
+def phase_operator_remote_busy(operator: dict) -> dict:
+    """The busy guard on the REST_CM operator's group, then that operator
+    stops: its Manager drains the dispatcher (docstring, phase 25)."""
+    from tpu_composer_torch.runtime.metrics import dispatcher_drains_total
+
+    clean0 = dispatcher_drains_total.value(outcome="clean")
+    try:
+        out = phase_operator_busy(operator, "operator_remote_busy")
+    finally:
+        operator["server"].close()
+    drained = dispatcher_drains_total.value(outcome="clean") - clean0
+    check(drained == 1, f"the REST_CM operator's stop drained {drained}"
+          " dispatchers, not 1")
+    emit("operator_remote_busy", check="drain", drains_clean=drained)
+    return {**out, "drains_clean": drained}
+
+
 def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
     """The composed H100 worker: the kernels at the probe's new shapes in
     this process (uncounted), then the worker's side of the operator's
-    composition (the env read back from the CDI spec of the request's
-    child, the coordinates, the bootstrap) and the staged probe run on
-    the card with that env.
+    composition (the env read back from the CDI spec of the child that
+    the operator composed through the REST_CM backend, the coordinates,
+    the bootstrap) and the staged probe run on the card with that env.
     Returns the records and the probe child's launch counts."""
     from tpu_composer_torch.workload import SliceCoords, bootstrap_distributed
     from tpu_composer_torch.workload.probe import staged_accelerator_probe
@@ -3124,8 +3433,8 @@ def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
 
 
 def phase_operator_busy(operator: dict, phase: str = "operator_busy") -> dict:
-    """The busy guard on the composed group (docstring, phases 20 and
-    23); then that operator stops."""
+    """The busy guard on the composed group (docstring, phases 20, 24
+    and 25); then that operator stops."""
     from tpu_composer_torch.agent.nodeagent import DeviceBusyError
 
     agent, group, ids = operator["agent"], operator["group"], operator["device_ids"]
@@ -3374,10 +3683,14 @@ def main() -> int:
                       done["operator_attach"])),
                   ("operator_request", lambda: phase_operator_request(
                       workdir, card)),
+                  ("operator_remote", lambda: phase_operator_remote(
+                      workdir, card)),
                   ("composed_worker", lambda: phase_composed_worker(
-                      gen, done["operator_request"])),
+                      gen, done["operator_remote"])),
                   ("operator_request_busy", lambda: phase_operator_busy(
-                      done["operator_request"], "operator_request_busy"))))):
+                      done["operator_request"], "operator_request_busy")),
+                  ("operator_remote_busy", lambda: phase_operator_remote_busy(
+                      done["operator_remote"]))))):
             _reset_counts()
             for phase_name, fn in phases:
                 done[phase_name] = timed_phase(phase_name, fn)
@@ -3393,9 +3706,12 @@ def main() -> int:
     finally:
         for w in worlds.values():
             w.close()
-        for phase_name in ("operator_attach", "operator_request"):
+        for phase_name in ("operator_attach", "operator_request",
+                           "operator_remote"):
             if phase_name in done:
                 done[phase_name]["manager"].stop()
+        if "operator_remote" in done:
+            done["operator_remote"]["server"].close()
         shutil.rmtree(workdir, ignore_errors=True)
     emit("timing", wall_s=time.perf_counter() - t_start, phase_s=seconds)
     emit("launches", **paths)

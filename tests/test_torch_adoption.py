@@ -1,6 +1,5 @@
 """The port's cold-start adoption (tpu_composer_torch/controllers/adoption.py)
-against the JAX package's (tests/test_adoption.py's twin, the cases that
-need no ``FabricDispatcher``).
+against the JAX package's (tests/test_adoption.py's twin).
 
 Each scenario builds the same crash state in both packages — a CR whose
 ``status.pending_op`` intent was persisted and whose outcome was not —
@@ -11,11 +10,13 @@ pool's free chips. The Manager wiring runs the pass as a startup hook
 ``tpu_composer/cmd/main.py`` wires it. Masked: uid, timestamps, intent
 nonces, trace ids. Tolerance: exact.
 
-Waiting for the fabric I/O sub-slice (the port has no ``FabricDispatcher``
-yet): ``test_async_attach_handed_to_dispatcher_repoll`` and
-``test_ineffective_detach_repolled_and_ids_adopted``'s re-poll. Without a
-dispatcher the same crash states are deferred to the reconcile's poll
-timers, which the cases below hold (with the ids still adopted).
+With a ``FabricDispatcher`` (``dispatcher=``) the in-progress ops go to
+its shared per-node re-poll pass: ``async_attach_handed_to_dispatcher_repoll``
+and ``ineffective_detach_repolled_and_ids_adopted`` record the report,
+the CR's status and the dispatcher's op states after the pass drove them
+to completion. Without a dispatcher the same crash states are deferred
+to the reconcile's poll timers, which the cases below hold (with the ids
+still adopted).
 """
 
 from __future__ import annotations
@@ -26,7 +27,14 @@ import time
 import pytest
 import torch
 
-from tests.torch_operator import JAX_ROOT, PORT_ROOT, run_both, seeded_uuids, twin
+from tests.torch_operator import (
+    JAX_ROOT,
+    PORT_ROOT,
+    run_both,
+    seeded_uuids,
+    twin,
+    wait_for,
+)
 
 torch.set_num_threads(1)
 
@@ -215,7 +223,52 @@ def no_pending_intents_never_lists_fabric(tw):
     return report_view(report)
 
 
+def _op_done(disp, verb, name):
+    assert wait_for(lambda: disp.op_state(verb, name) == "done",
+                    timeout=10.0, interval=0.005)
+
+
+def async_attach_handed_to_dispatcher_repoll(tw):
+    store, _ = world(tw)
+    pool = tw.inmem.InMemoryPool(async_steps=2)
+    res = make_cr(tw, store, "r0")
+    with pytest.raises(Exception):
+        pool.add_resource(res)  # pre-crash submission, fabric-async now
+    disp = tw.dispatcher.FabricDispatcher(pool, batch_window=0.0,
+                                          poll_interval=0.01)
+    try:
+        report = tw.adoption.adopt_pending_ops(store, pool, disp)
+        assert report.repolled == ["r0"]
+        _op_done(disp, "add", "r0")
+        out = disp.add_resource(store.get(tw.types.ComposableResource, "r0"))
+        return [report_view(report), cr_view(tw, store, "r0"),
+                list(out.device_ids), disp.op_state("add", "r0")]
+    finally:
+        disp.stop()
+
+
+def ineffective_detach_repolled_and_ids_adopted(tw):
+    store, pool = world(tw)
+    res = make_cr(tw, store, "r0", state=tw.types.RESOURCE_STATE_DETACHING,
+                  verb="remove")
+    attach = pool.add_resource(res)
+    disp = tw.dispatcher.FabricDispatcher(pool, batch_window=0.0,
+                                          poll_interval=0.01)
+    try:
+        report = tw.adoption.adopt_pending_ops(store, pool, disp)
+        assert report.repolled == ["r0"]
+        view = cr_view(tw, store, "r0")
+        assert view["device_ids"] == sorted(attach.device_ids)
+        _op_done(disp, "remove", "r0")
+        return [report_view(report), view, pool.attachment_record("r0"),
+                pool.free_chips("tpu-v4")]
+    finally:
+        disp.stop()
+
+
 SCENARIOS = [
+    async_attach_handed_to_dispatcher_repoll,
+    ineffective_detach_repolled_and_ids_adopted,
     completed_but_unrecorded_attach_is_adopted,
     never_issued_attach_cleared_when_fabric_rejects,
     never_issued_attach_probe_completes_synchronously,

@@ -1,10 +1,12 @@
 """Guards of the PyTorch port's boundaries.
 
 - The port (every ``.py`` under ``tpu_composer_torch/``),
-  ``chip_smoke.py`` and the staged probe's child (a source string the
-  probe runs with ``python -c``) import nothing of JAX and nothing of the
-  JAX package: no ``jax``, ``jaxlib``, ``ml_dtypes`` or ``tpu_composer``
-  import.
+  ``chip_smoke.py``, the fake fabric server it composes through
+  (``tests/torch_fake_fabric.py``) and the staged probe's child (a source
+  string the probe runs with ``python -c``) import nothing of JAX and
+  nothing of the JAX package: no ``jax``, ``jaxlib``, ``ml_dtypes`` or
+  ``tpu_composer`` import, by an AST scan and, for the port's fabric with
+  that server, by what a fresh interpreter has loaded.
 - The port calls no finished attention kernel and no compiler
   (``scaled_dot_product_attention``, ``torch.compile``); ``chip_smoke.py``
   may time SDPA as a yardstick, the package may not.
@@ -37,8 +39,11 @@ FORBIDDEN_CALLS = ("torch.compile", "F.scaled_dot_product_attention")
 torch.set_num_threads(1)
 
 
+FAKE_FABRIC = REPO / "tests" / "torch_fake_fabric.py"
+
+
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", FAKE_FABRIC]
     assert len(files) > 10
     return files
 
@@ -58,6 +63,25 @@ def test_imports_nothing_of_jax_or_the_jax_package(path):
     bad = [(line, mod) for line, mod in _imported_modules(tree)
            if mod.split(".")[0] in FORBIDDEN_IMPORTS]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_fake_fabric_server_and_the_remote_port_load_no_jax_package():
+    """A fresh interpreter that imports the fake fabric server, the port's
+    remote backends, dispatcher and event session (what chip_smoke.py's
+    remote phase loads) has no module of JAX or of the JAX package."""
+    assert FAKE_FABRIC in _sources()
+    code = (
+        "import sys\n"
+        "import tests.torch_fake_fabric\n"
+        "from tpu_composer_torch.fabric import adapter, breaker, chaos, "
+        "dispatcher, events, layout, redfish, rest, token\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n" % (FORBIDDEN_IMPORTS,))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
 
 
 def test_probe_child_imports_nothing_of_jax_or_the_jax_package():

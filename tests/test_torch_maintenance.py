@@ -14,16 +14,21 @@ the cordon held, surge budgets); the observations compared are the
 final world (``RequestWorld.view``-style: requests, children, pool), the
 NodeMaintenance status, the quarantine markers and the deltas of the
 repair and migration counters. ``uuid.uuid4`` is seeded the same on both
-sides. Masked: uid, timestamps, intent nonces, trace ids; in the two
-deadline scenarios also what the wall clock decides (``untimed``: the
-count of placement attempts that failed before the deadline, kept as its
-presence, and the seconds the abort message quotes). Tolerance: exact.
+sides. Masked: uid, timestamps, intent nonces, trace ids. Tolerance:
+exact.
 
-Waiting for the fabric backends sub-slice (they drive a
-``ChaosFabricProvider``): test_repair.py's ``TestRepairBreaker::
-test_brownout_freezes_repairs_instead_of_mass_detach``,
-``TestSyncerVanishDetection`` and ``TestFabricAttachedStaleness``. Waiting
-for the admission sub-slice: test_migration.py's
+The two deadline scenarios run on a stepped clock (``StepClock``): the
+``now_iso`` that both packages' ``maintenance`` and ``request_controller``
+modules read moves by the pump's ``sleep`` once per pump step, and the
+pump does not sleep. The count of placement attempts that failed before
+the deadline and the seconds the abort message quotes are then a
+function of the steps alone, and are compared exactly.
+
+The scenarios of test_repair.py that drive a ``ChaosFabricProvider``
+(``TestRepairBreaker::test_brownout_freezes_repairs_instead_of_mass_detach``,
+``TestSyncerVanishDetection``, ``TestFabricAttachedStaleness``) run with
+``World(chaos=True)``: the reconcilers compose through each package's
+chaos provider round its pool. Waiting for the admission sub-slice: test_migration.py's
 ``test_node_name_is_immutable`` (the validating webhooks). The workload
 half of the drain (``TestMaintenanceDrivesReshard``) is held by
 tests/test_torch_reshard.py's operator-driven reshard.
@@ -31,6 +36,8 @@ tests/test_torch_reshard.py's operator-driven reshard.
 
 from __future__ import annotations
 
+import contextlib
+import datetime
 import time
 
 import pytest
@@ -44,12 +51,45 @@ MODEL = "tpu-v4"
 MANAGED_BY = "app.kubernetes.io/managed-by"
 
 
+class StepClock:
+    """A ``now_iso`` that moves only when stepped: from a fixed instant,
+    by the seconds each ``step`` is given."""
+
+    def __init__(self):
+        self.t = datetime.datetime(2026, 1, 1, tzinfo=datetime.timezone.utc)
+
+    def __call__(self):
+        return self.t.isoformat(timespec="microseconds").replace("+00:00", "Z")
+
+    def step(self, seconds):
+        self.t += datetime.timedelta(seconds=seconds)
+
+
+@contextlib.contextmanager
+def step_clock(tw):
+    """Both controllers' ``now_iso`` (their module globals) replaced by
+    one ``StepClock`` for the duration."""
+    clock = StepClock()
+    mods = (tw.mc, tw.req)
+    saved = [m.now_iso for m in mods]
+    for m in mods:
+        m.now_iso = clock
+    try:
+        yield clock
+    finally:
+        for m, f in zip(mods, saved):
+            m.now_iso = f
+
+
 class World:
     def __init__(self, tw, nodes=4, slots=8, chips=64, migrate=None,
                  repair=None, failure_threshold=2, recovery_threshold=1,
                  node_degrade_threshold=0, default_deadline=1800.0,
-                 pool_cls=None):
+                 pool_cls=None, clock=None, chaos=False):
         self.tw = tw
+        # With a StepClock the pump steps it by ``sleep`` instead of
+        # sleeping.
+        self.clock = clock
         t = tw.types
         self.store = tw.store.Store()
         for i in range(nodes):
@@ -57,15 +97,17 @@ class World:
             n.status.tpu_slots = slots
             self.store.create(n)
         self.pool = (pool_cls or tw.inmem.InMemoryPool)(chips={MODEL: chips})
+        self.fabric = (tw.chaos.ChaosFabricProvider(self.pool) if chaos
+                       else self.pool)
         self.agent = tw.fake.FakeNodeAgent(pool=self.pool)
         self.req_rec = tw.req.ComposabilityRequestReconciler(
-            self.store, self.pool,
+            self.store, self.fabric,
             timing=tw.req.RequestTiming(updating_poll=0.01, cleaning_poll=0.01,
                                         running_poll=5.0, repair_poll=0.01),
             repair=repair or tw.req.RepairConfig(),
             migrate=migrate or tw.req.MigrateConfig())
         self.res_rec = tw.rc.ComposableResourceReconciler(
-            self.store, self.pool, self.agent,
+            self.store, self.fabric, self.agent,
             timing=tw.rc.ResourceTiming(
                 health_failure_threshold=failure_threshold,
                 health_recovery_threshold=recovery_threshold,
@@ -146,7 +188,9 @@ class World:
                 invariant()
             if done is not None and done():
                 return True
-            if sleep:
+            if self.clock is not None:
+                self.clock.step(sleep)
+            elif sleep:
                 time.sleep(sleep)
         return False
 
@@ -195,22 +239,6 @@ class World:
             free=self.pool.free_chips(MODEL), dead=self.pool.dead_chips(MODEL),
             counters={k: v - base.get(k, 0.0) for k, v in now.items()
                       if v - base.get(k, 0.0)})
-
-
-def untimed(view):
-    """``view`` without what the wall clock decides in a deadline
-    scenario: how many placement attempts failed before the deadline
-    (kept as their presence) and the seconds the abort message quotes."""
-    import re
-
-    view = dict(view)
-    view["counters"] = {k: (bool(v) if "outcome=failed" in k else v)
-                        for k, v in view["counters"].items()}
-    view["maintenance"] = {
-        name: {k: (re.sub(r"after \d+s", "after <elapsed>s", v)
-                   if k == "message" else v) for k, v in st.items()}
-        for name, st in view["maintenance"].items()}
-    return view
 
 
 # -- NodeMaintenance drains (tests/test_migration.py) ---------------------------------
@@ -283,7 +311,12 @@ def escalation_quarantine_marker_is_never_cleared(tw):
 
 
 def drain_deadline_expiry_aborts(tw):
-    w = World(tw, nodes=2)
+    with step_clock(tw) as clock:
+        return _drain_deadline_expiry_aborts(tw, clock)
+
+
+def _drain_deadline_expiry_aborts(tw, clock):
+    w = World(tw, nodes=2, clock=clock)
     w.request(size=8)
     w.to_running()
     node = w.store.get(tw.types.ComposabilityRequest,
@@ -297,11 +330,16 @@ def drain_deadline_expiry_aborts(tw):
     for c in w.members():
         assert c.status.state == "Online"
         assert tw.types.ANNOTATION_EVACUATE not in c.metadata.annotations
-    return untimed(w.view())
+    return w.view()
 
 
 def repair_policy_none_members_are_never_claimed(tw):
-    w = World(tw)
+    with step_clock(tw) as clock:
+        return _repair_policy_none_members_are_never_claimed(tw, clock)
+
+
+def _repair_policy_none_members_are_never_claimed(tw, clock):
+    w = World(tw, clock=clock)
     w.request(size=8, repair_policy=tw.types.REPAIR_NONE)
     w.to_running()
     node = w.store.get(tw.types.ComposabilityRequest,
@@ -314,7 +352,7 @@ def repair_policy_none_members_are_never_claimed(tw):
         assert tw.types.ANNOTATION_EVACUATE not in c.metadata.annotations
     w.pump(sleep=0.02, done=lambda: w.maint_state() == "Aborted")
     assert w.maint_state() == "Aborted" and not w.quarantined(node)
-    return [msg, untimed(w.view())]
+    return [msg, w.view()]
 
 
 def surge_budgets_bound_concurrent_migrations(tw):
@@ -661,6 +699,160 @@ def node_deletion_replaces_member_and_reclaims_orphan(tw):
     return w.view()
 
 
+# -- the chaos provider's scenarios (tests/test_repair.py) -------------------------------
+
+def brownout_freezes_repairs_instead_of_mass_detach(tw):
+    with step_clock(tw) as clock:
+        w = World(tw, nodes=8, clock=clock, chaos=True,
+                  repair=tw.req.RepairConfig(breaker_fraction=0.5,
+                                             breaker_min_members=2,
+                                             min_degraded_seconds=0.5))
+        gauge = tw.metrics.repair_breaker_open
+        try:
+            w.request(size=16)
+            w.to_running()
+            before = sorted(c.name for c in w.members())
+            victims = sorted(w.members(), key=lambda c: c.spec.worker_id)[:3]
+            for v in victims:
+                w.fabric.degrade_node(v.spec.target_node)
+            w.pump(steps=30, done=lambda: gauge.value() == 1.0)
+            w.pump(steps=5)
+            frozen = [gauge.value(), sorted(c.name for c in w.members()) == before,
+                      sorted(c.status.state for c in w.members()), w.view()]
+            reasons = sorted({e.reason for e in w.req_rec.recorder.for_object(
+                kind="ComposabilityRequest", name="req-1")})
+            w.fabric.heal()
+            w.pump(steps=60, done=w.converged)
+            w.req_rec.reconcile("req-1")
+            assert frozen[0] == 1.0 and "RepairsFrozen" in reasons
+            assert sorted(c.name for c in w.members()) == before
+            return frozen + [reasons, w.view(), gauge.value()]
+        finally:
+            gauge.set(0.0)
+
+
+def _online_member(w):
+    tw, t = w.tw, w.tw.types
+    w.pool.reserve_slice("s1", MODEL, "2x2x1", ["worker-0"])
+    w.store.create(t.ComposableResource(
+        metadata=tw.meta.ObjectMeta(name="r0"),
+        spec=t.ComposableResourceSpec(
+            type="tpu", model=MODEL, target_node="worker-0", chip_count=4,
+            slice_name="s1", worker_id=0, topology="2x2x1")))
+    w.res_rec.reconcile("r0")
+    w.res_rec.reconcile("r0")
+    cr = w.store.get(t.ComposableResource, "r0")
+    assert cr.status.state == "Online"
+    return cr
+
+
+def _syncer(w):
+    return w.tw.syncer.UpstreamSyncer(w.store, w.fabric, period=0.01,
+                                      grace=100.0, vanish_threshold=2)
+
+
+def _member(w, name="r0"):
+    c = w.store.get(w.tw.types.ComposableResource, name)
+    f = c.status.failure
+    return (c.status.state, None if f is None else (f.source, f.reason))
+
+
+def _sync(w, syncer, now):
+    try:
+        syncer.sync_once(now=now)
+        return "ok"
+    except w.tw.provider.FabricError as e:
+        return type(e).__name__
+
+
+def vanished_device_degrades_after_damping_window(tw):
+    w = World(tw, chaos=True)
+    cr = _online_member(w)
+    syncer = _syncer(w)
+    w.fabric.vanish_device(cr.status.device_ids[0])
+    t = [_sync(w, syncer, 0.0), _member(w)]
+    t += [_sync(w, syncer, 1.0), _member(w)]
+    return t
+
+
+def listing_blip_does_not_count_toward_vanish(tw):
+    w = World(tw, chaos=True)
+    _online_member(w)
+    syncer = _syncer(w)
+    w.fabric.fail_op("get_resources", times=2)
+    t = [_sync(w, syncer, 0.0) for _ in range(2)]
+    t += [_sync(w, syncer, 1.0), _sync(w, syncer, 2.0), _member(w)]
+    return t
+
+
+def vanished_member_recovers_when_devices_reappear(tw):
+    w = World(tw, chaos=True)
+    cr = _online_member(w)
+    syncer = _syncer(w)
+    dev = cr.status.device_ids[0]
+    w.fabric.vanish_device(dev)
+    t = [_sync(w, syncer, 0.0), _sync(w, syncer, 1.0), _member(w)]
+    for _ in range(w.res_rec.timing.health_recovery_threshold + 1):
+        w.res_rec.reconcile("r0")
+    t.append(_member(w))
+    w.fabric.unvanish_device(dev)
+    t += [_sync(w, syncer, 2.0), _member(w)]
+    return t
+
+
+def vanished_member_is_repaired_despite_healthy_probe(tw):
+    w = World(tw, chaos=True)
+    w.request()
+    w.to_running()
+    victim = w.members()[0]
+    syncer = _syncer(w)
+    for dev in victim.status.device_ids:
+        w.fabric.vanish_device(dev)
+    t = [_sync(w, syncer, 0.0), _sync(w, syncer, 1.0), _member(w, victim.name)]
+    w.pump(steps=160, done=lambda: (
+        victim.name not in {c.name for c in w.store.list(
+            tw.types.ComposableResource)} and w.converged()))
+    assert victim.name not in {c.name for c in w.members()}
+    return t + [w.view()]
+
+
+def reappearing_device_resets_the_vanish_clock(tw):
+    w = World(tw, chaos=True)
+    cr = _online_member(w)
+    syncer = _syncer(w)
+    dev = cr.status.device_ids[0]
+    w.fabric.vanish_device(dev)
+    t = [_sync(w, syncer, 0.0)]
+    w.fabric.unvanish_device(dev)
+    t.append(_sync(w, syncer, 1.0))
+    w.fabric.vanish_device(dev)
+    t += [_sync(w, syncer, 2.0), _member(w)]
+    return t
+
+
+def unreachable_fabric_returns_none_not_empty(tw):
+    w = World(tw, chaos=True)
+    w.fabric.blackout()
+    t = [w.res_rec.fabric_attached("worker-0")]
+    w.fabric.heal()
+    return t + [w.res_rec.fabric_attached("worker-0")]
+
+
+def gauge_keeps_last_value_through_a_blip(tw):
+    w = World(tw, chaos=True)
+    w.request(size=4)
+    w.to_running()
+    node = w.members()[0].spec.target_node
+    gauge = tw.metrics.composed_chips
+    t = [gauge.value(node=node)]
+    w.fabric.blackout()
+    w.res_rec._refresh_composed_gauge(node)
+    t.append(gauge.value(node=node))
+    w.fabric.heal()
+    w.res_rec._refresh_composed_gauge(node)
+    return t + [gauge.value(node=node)]
+
+
 SCENARIOS = [
     drain_migrates_make_before_break, deleting_maintenance_uncordons,
     escalation_quarantine_marker_is_never_cleared, drain_deadline_expiry_aborts,
@@ -681,6 +873,14 @@ SCENARIOS = [
     single_failure_on_small_fleet_still_repairs,
     repeated_post_ready_failures_quarantine_the_node,
     node_deletion_replaces_member_and_reclaims_orphan,
+    brownout_freezes_repairs_instead_of_mass_detach,
+    vanished_device_degrades_after_damping_window,
+    listing_blip_does_not_count_toward_vanish,
+    vanished_member_recovers_when_devices_reappear,
+    vanished_member_is_repaired_despite_healthy_probe,
+    reappearing_device_resets_the_vanish_clock,
+    unreachable_fabric_returns_none_not_empty,
+    gauge_keeps_last_value_through_a_blip,
 ]
 
 

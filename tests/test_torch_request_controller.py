@@ -26,6 +26,7 @@ model)``.
 from __future__ import annotations
 
 import logging
+import re
 
 import pytest
 import torch
@@ -431,6 +432,52 @@ def delete_children_tolerates_gone_child(tw):
     return w.view()
 
 
+_UNKNOWN_MODEL = re.compile(
+    r"unknown (?:TPU|accelerator) model ('[^']*'); known: \[[^\]]*\]")
+
+
+def _model_table_neutral(obj):
+    """``obj`` with the topology table's unknown-model message reduced to
+    the model it names: the port's table (and so its wording and its list
+    of known models) also holds the H100."""
+    if isinstance(obj, str):
+        return _UNKNOWN_MODEL.sub(r"unknown model \1", obj)
+    if isinstance(obj, dict):
+        return {k: _model_table_neutral(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_model_table_neutral(v) for v in obj]
+    return obj
+
+
+def _six_reconciles(w, name="req-1"):
+    """Six passes of the request reconciler, each followed by one pass
+    over its children; every pass's outcome and the world after it."""
+    trace = []
+    for _ in range(6):
+        trace.append(outcome(w.req_rec.reconcile, name))
+        for c in w.children(name):
+            trace.append(outcome(w.res_rec.reconcile, c.metadata.name))
+        trace.append(w.view())
+    return _model_table_neutral(trace)
+
+
+def tpu_type_with_a_model_not_in_the_table(tw):
+    """``type="tpu"`` picks the slice path, whatever the model: a model
+    the topology table lacks is a TopologyError on every pass, and no
+    child is made."""
+    w = world(tw)
+    w.request("req-1", size=4, model="tpu-v9", type_="tpu")
+    return _six_reconciles(w)
+
+
+def gpu_type_with_a_tpu_model(tw):
+    """``type="gpu"`` with a TPU model takes the loose path: ``size``
+    one-chip children, no slice reservation."""
+    w = world(tw)
+    w.request("req-1", size=4, model="tpu-v4", type_="gpu")
+    return _six_reconciles(w)
+
+
 SCENARIOS = [
     single_host_slice_to_running, multi_host_pod_slice,
     all_or_nothing_when_pool_too_small, not_enough_hosts_is_allocation_error,
@@ -449,6 +496,7 @@ SCENARIOS = [
     finalizer_put_races_concurrent_purge,
     target_node_gc_races_finalizerless_purge,
     delete_children_tolerates_gone_child,
+    tpu_type_with_a_model_not_in_the_table, gpu_type_with_a_tpu_model,
 ]
 
 
@@ -456,6 +504,21 @@ SCENARIOS = [
 def test_scenario_matches_jax(scenario):
     jax_out, port_out = run_both(scenario)
     assert port_out == jax_out
+
+
+def test_request_type_picks_the_path_as_jax_does():
+    """Anchors on the JAX records of the two type-versus-model requests:
+    ``type="tpu"`` with an unknown model raises on every pass and makes
+    no child; ``type="gpu"`` with a TPU model makes four one-chip
+    children and reserves no slice."""
+    jax, _ = run_both(tpu_type_with_a_model_not_in_the_table)
+    assert [step[:2] for step in jax[0::2]] == [["raised", "TopologyError"]] * 6
+    assert jax[-1]["children"] == {} and jax[-1]["pool"] == {}
+    jax, _ = run_both(gpu_type_with_a_tpu_model)
+    kids = jax[-1]["children"]
+    assert len(kids) == 4 and jax[-1]["pool"] == {}
+    assert [len(k["device_ids"]) for k in kids.values()] == [1, 1, 1, 1]
+    assert {k["spec"]["type"] for k in kids.values()} == {"gpu"}
 
 
 def test_retopologize_conflict_is_logged_and_retried(caplog):

@@ -38,7 +38,11 @@ _MODULES = dict(
     leader="runtime.leader", metrics="runtime.metrics",
     lifecycle="runtime.lifecycle", tracing="runtime.tracing",
     provider="fabric.provider", inmem="fabric.inmem",
-    adapter="fabric.adapter",
+    adapter="fabric.adapter", fevents="fabric.events",
+    token="fabric.token", httpx="fabric.httpx", poolapi="fabric.poolapi",
+    rest="fabric.rest", layout="fabric.layout", redfish="fabric.redfish",
+    breaker="fabric.breaker", chaos="fabric.chaos",
+    dispatcher="fabric.dispatcher",
     cdi="agent.cdi", nodeagent="agent.nodeagent", fake="agent.fake",
     publisher="agent.publisher",
     rc="controllers.resource_controller",
@@ -117,9 +121,13 @@ class RequestWorld:
     ``n_nodes`` nodes of ``slots`` chip slots, an ``InMemoryPool``, a
     ``FakeNodeAgent``, the request reconciler (its ClusterScheduler built
     on the store) and the resource reconciler joined to its decision
-    ledger. ``req_kw`` goes to the request reconciler."""
+    ledger. ``req_kw`` goes to the request reconciler. With ``pool`` and
+    ``fabric`` given (a remote client over a fake fabric server serving
+    ``pool``), the reconcilers compose through ``fabric`` while the agent
+    and ``view`` read ``pool``."""
 
-    def __init__(self, tw, n_nodes=4, slots=4, chips=None, **req_kw):
+    def __init__(self, tw, n_nodes=4, slots=4, chips=None, pool=None,
+                 fabric=None, **req_kw):
         self.tw = tw
         t = tw.types
         self.store = tw.store.Store()
@@ -130,12 +138,13 @@ class RequestWorld:
             n.status.memory = 64 << 30
             n.status.allowed_pod_number = 100
             self.store.create(n)
-        self.pool = tw.inmem.InMemoryPool(chips=chips or {"tpu-v4": 64})
+        self.pool = pool or tw.inmem.InMemoryPool(chips=chips or {"tpu-v4": 64})
+        self.fabric = fabric or self.pool
         self.agent = tw.fake.FakeNodeAgent(pool=self.pool)
         self.req_rec = tw.req.ComposabilityRequestReconciler(
-            self.store, self.pool, **req_kw)
+            self.store, self.fabric, **req_kw)
         self.res_rec = tw.rc.ComposableResourceReconciler(
-            self.store, self.pool, self.agent,
+            self.store, self.fabric, self.agent,
             decision_ledger=self.req_rec.scheduler.ledger)
 
     # -- objects ----------------------------------------------------------
@@ -230,6 +239,24 @@ class RequestWorld:
         return dict(requests=reqs, children=kids, pool=pool, free=free)
 
 
+def fabric_summary(out):
+    """A comparable form of one fabric call's result: an attach result,
+    a health answer, a listed device, an error (its class and message),
+    or a list of those."""
+    if isinstance(out, Exception):
+        return ("error", type(out).__name__, str(out))
+    if hasattr(out, "cdi_device_id"):
+        return ("attach", list(out.device_ids), out.cdi_device_id)
+    if hasattr(out, "healthy"):
+        return ("health", out.state, out.detail, out.healthy)
+    if hasattr(out, "device_id"):
+        return ("device", out.device_id, out.node, out.model, out.slice_name,
+                out.type, out.resource_name, out.health.state)
+    if isinstance(out, (list, tuple)):
+        return [fabric_summary(o) for o in out]
+    return out
+
+
 def wait_for(predicate, timeout: float = 10.0, interval: float = 0.02) -> bool:
     """Poll ``predicate`` until true or ``timeout`` seconds pass."""
     deadline = time.monotonic() + timeout
@@ -284,3 +311,40 @@ def nvidia_host(root, minors=(0, 3), held=None, bus_ids=None,
     return dict(dev_dir=dev, proc_dir=proc, cdi_dir=os.path.join(root, "cdi"),
                 state_dir=os.path.join(root, "state"), libtpu_paths=[tpu],
                 libcuda_paths=[lib], run_dir=os.path.join(root, "run"))
+
+
+#: A fake fabric server's knobs and logs as a fresh server starts them.
+_SERVER_DEFAULTS = dict(require_auth=False, username="composer",
+                        password="secret", token_ttl=300.0, apply_steps=1)
+
+
+def reset_server(srv, pool, **knobs):
+    """Give a running fake fabric server (``tests/fake_fabric`` or
+    ``tests/torch_fake_fabric``) ``pool`` and a fresh server's state:
+    knobs (overridden by ``knobs``), issued tokens, logs, layout applies
+    and forced failures. One server then serves both packages' runs of a
+    scenario in turn."""
+    with srv._lock:
+        srv.pool = pool
+        for k, v in {**_SERVER_DEFAULTS, **knobs}.items():
+            setattr(srv, k, v)
+        srv.valid_tokens = set()
+        srv.token_requests = 0
+        srv.request_log = []
+        srv.mutation_log = []
+        srv._applies = {}
+        srv._active_apply = None
+        srv._forced_failures = []
+    return srv
+
+
+def run_both_served(scenario, srv, pool_factory, *args, seed: int = 0,
+                    knobs=None, **kwargs):
+    """``run_both`` for scenarios that talk to one fake fabric server:
+    before each package's run the server gets a fresh pool from
+    ``pool_factory()`` and a fresh server's state (``reset_server``);
+    ``scenario(twin, srv, ...)``."""
+    def on_server(tw, *a, **kw):
+        reset_server(srv, pool_factory(), **(knobs or {}))
+        return scenario(tw, srv, *a, **kw)
+    return run_both(on_server, *args, seed=seed, **kwargs)

@@ -42,11 +42,10 @@ either field — a probe failure simply leaves the retry (and its counting)
 to the normal reconcile path, exactly like pre-crash failures that were
 only floor-persisted.
 
-The port runs the pass without a fabric dispatcher (``dispatcher=`` stays
-None until the fabric I/O sub-slice ports it): an add or remove still in
-progress is left to the reconcile's own poll timers. The pass is unscoped;
-the shard-scoped variant (``shards=``) arrives with the sharded control
-plane. Adoption is the one designated raw-mutation path: it runs
+With a fabric dispatcher (``dispatcher=``) an add or remove still in
+progress is handed to its shared per-node re-poll pass; without one it is
+left to the reconcile's own poll timers. The pass is unscoped; the
+shard-scoped variant (``shards=``) comes with the sharded control plane. Adoption is the one designated raw-mutation path: it runs
 post-leader-acquire and pre-controller-start, and its verbs are idempotent
 completion re-reads keyed by the durable intent nonce.
 """

@@ -39,13 +39,15 @@ when the scheduler names victims — driving their eviction through the same
 child-delete / re-solve paths every other disruption uses.
 
 The NVIDIA H100 (``nvidia-h100-sxm``) is solved and placed as a chip group
-like a TPU slice (``topology.is_chip_group_model``): one child per host
-holding that host's GPUs (``chip_count`` = GPUs per host), never ``size``
-one-GPU children, with the slice reserved up front and ``status.slice``
-written, so each child's CDI spec carries the torchrun coordinates of
+like a TPU slice: one child per host holding that host's GPUs
+(``chip_count`` = GPUs per host), never ``size`` one-GPU children, with the
+slice reserved up front and ``status.slice`` written, so each child's CDI
+spec carries the torchrun coordinates of
 ``admission/coordinates.slice_env``. Every branch that the JAX package takes
-on ``type == "tpu"`` asks that predicate of the object's own model; other
-gpu models keep the reference's independent-device path.
+on ``type == "tpu"`` asks ``topology.is_chip_group(type, model)`` of the
+object's own type and model, which is that test plus the H100; other gpu
+models (TPU model names under ``type="gpu"`` among them) keep the
+reference's independent-device path.
 
 Writes and reads go to ``self.store`` (the port's Store). Shard ownership
 and the fence at the fabric boundary (``ShardFencedError``) arrive with the
@@ -126,7 +128,7 @@ from tpu_composer_torch.runtime.store import (
 from tpu_composer_torch.scheduler import AllocationError, ClusterScheduler
 from tpu_composer_torch.topology.slices import (
     TopologyError,
-    is_chip_group_model,
+    is_chip_group,
     solve_slice,
 )
 
@@ -403,7 +405,7 @@ class ComposabilityRequestReconciler(Controller):
                 node_name=child.spec.target_node,
                 device_ids=list(child.status.device_ids),
                 cdi_device_id=child.status.cdi_device_id,
-                worker_id=child.spec.worker_id if is_chip_group_model(child.spec.model) else -1,
+                worker_id=child.spec.worker_id if is_chip_group(child.spec.type, child.spec.model) else -1,
                 error=child.status.error,
                 quarantined=child.status.quarantined,
                 # Surface in-flight fabric intent on the parent: `kubectl
@@ -484,7 +486,7 @@ class ComposabilityRequestReconciler(Controller):
             res = req.spec.resource
             children = self._children(req)
 
-            if is_chip_group_model(res.model):
+            if is_chip_group(res.type, res.model):
                 return self._allocate_tpu(req, children)
             return self._allocate_scalar(req, children)
 
@@ -888,7 +890,7 @@ class ComposabilityRequestReconciler(Controller):
                 target_node=rs.node_name,
                 force_detach=res.force_detach,
             )
-            if is_chip_group_model(res.model):
+            if is_chip_group(res.type, res.model):
                 child.spec.chip_count = req.status.slice.chips_per_host
                 child.spec.slice_name = req.status.slice.name
                 child.spec.worker_id = rs.worker_id if rs.worker_id >= 0 else 0
@@ -954,7 +956,7 @@ class ComposabilityRequestReconciler(Controller):
         # Authoritative member count — NOT len(status.resources), which the
         # fold step already shrank when a child vanished.
         expected = (
-            req.status.slice.num_hosts if is_chip_group_model(res.model) and res.size > 0 else res.size
+            req.status.slice.num_hosts if is_chip_group(res.type, res.model) and res.size > 0 else res.size
         )
         # A member that is fully GONE (child object lost — node deletion
         # GC, manual delete) is a structural hole the repair driver cannot
@@ -1147,7 +1149,7 @@ class ComposabilityRequestReconciler(Controller):
                 # them for the whole retry window.
                 w = c.spec.worker_id
                 if (
-                    is_chip_group_model(req.spec.resource.model)
+                    is_chip_group(req.spec.resource.type, req.spec.resource.model)
                     and 0 <= w < len(req.status.slice.worker_hostnames)
                     and req.status.slice.worker_hostnames[w] != c.spec.target_node
                 ):
@@ -1163,7 +1165,7 @@ class ComposabilityRequestReconciler(Controller):
             # worker_hostnames would hand the webhook the dead node.
             w = repl.spec.worker_id
             if (
-                is_chip_group_model(req.spec.resource.model)
+                is_chip_group(req.spec.resource.type, req.spec.resource.model)
                 and 0 <= w < len(req.status.slice.worker_hostnames)
                 and req.status.slice.worker_hostnames[w] != repl.spec.target_node
             ):
@@ -1330,7 +1332,7 @@ class ComposabilityRequestReconciler(Controller):
         """Place ONE replacement for member ``c`` on healthy capacity
         (slice-aware for tpu, scalar otherwise)."""
         res = req.spec.resource
-        if is_chip_group_model(res.model) and c.spec.slice_name:
+        if is_chip_group(res.type, res.model) and c.spec.slice_name:
             shape = solve_slice(res.model, res.size, res.topology)
             return self.scheduler.place_extra(
                 req, shape, exclude=exclude, count=1, quarantined=quarantined
@@ -1420,7 +1422,7 @@ class ComposabilityRequestReconciler(Controller):
             for ch in self._children(req) if not ch.being_deleted
         }
         node = self._pick_replacement_node(req, c, quarantined, exclude)
-        if is_chip_group_model(res.model) and c.spec.slice_name:
+        if is_chip_group(res.type, res.model) and c.spec.slice_name:
             # Fabric step: swap worker w's chip group onto the new node
             # from healthy inventory (raises UnsupportedRepair -> caller
             # falls back; FabricError -> retried next pass, nothing
@@ -1438,10 +1440,10 @@ class ComposabilityRequestReconciler(Controller):
         # claim) and the authoritative coordinates for worker w.
         req.status.resources[repl.metadata.name] = ResourceStatus(
             node_name=node,
-            worker_id=c.spec.worker_id if is_chip_group_model(res.model) else -1,
+            worker_id=c.spec.worker_id if is_chip_group(res.type, res.model) else -1,
         )
         if (
-            is_chip_group_model(res.model)
+            is_chip_group(res.type, res.model)
             and 0 <= c.spec.worker_id < len(req.status.slice.worker_hostnames)
         ):
             req.status.slice.worker_hostnames[c.spec.worker_id] = node
@@ -1660,7 +1662,7 @@ class ComposabilityRequestReconciler(Controller):
             # the drain grace before detaching the source.
             w = repl.spec.worker_id
             if (
-                is_chip_group_model(req.spec.resource.model)
+                is_chip_group(req.spec.resource.type, req.spec.resource.model)
                 and 0 <= w < len(req.status.slice.worker_hostnames)
                 and req.status.slice.worker_hostnames[w] != repl.spec.target_node
             ):
@@ -1821,7 +1823,7 @@ class ComposabilityRequestReconciler(Controller):
         node = self._migration_target(c, exclude, quarantined)
         if node is None:
             node = self._pick_replacement_node(req, c, quarantined, exclude)
-        if is_chip_group_model(res.model) and c.spec.slice_name:
+        if is_chip_group(res.type, res.model) and c.spec.slice_name:
             # Re-carve worker w's chip group on the target from healthy
             # inventory (UnsupportedRepair -> caller falls back; the
             # source group stays attached until the source detaches).
@@ -1843,7 +1845,7 @@ class ComposabilityRequestReconciler(Controller):
         # NOT flip yet — the source still serves worker w until cutover.
         req.status.resources[repl.metadata.name] = ResourceStatus(
             node_name=node,
-            worker_id=c.spec.worker_id if is_chip_group_model(res.model) else -1,
+            worker_id=c.spec.worker_id if is_chip_group(res.type, res.model) else -1,
         )
         req.status.migration[c.name] = MigrationRecord(
             member=c.name,

@@ -18,7 +18,12 @@ TPU-first deltas:
   coordinate env instead of restarting nvidia daemonsets (:252-286);
 - the group's chips are one fabric call, not per-device loops;
 - polling quanta are sub-second and configurable (ResourceTiming) instead of
-  the fixed 30s/3s requeues (:236,:298,:400).
+  the fixed 30s/3s requeues (:236,:298,:400);
+- with a FabricDispatcher wired (``dispatcher=``), attach/detach SUBMIT and
+  return instead of blocking the worker: same-node submissions coalesce
+  into group provider calls, and completion re-enqueues this CR
+  immediately — the poll quanta above become a safety net rather than the
+  requeue clock.
 
 The NVIDIA H100 (``nvidia-h100-sxm``) is composed as a chip group like a
 TPU slice member (``topology.is_chip_group_model``): its GPUs get host-local
@@ -31,13 +36,13 @@ instead), an H100 group re-publishes the spec when its coordinate env
 moves, as it does after a live resize of its slice. Other gpu models keep
 the loose compat path.
 
-Fabric verbs run inline on the worker thread. With the scheduler's
-decision ledger wired (``decision_ledger=``), attach intents join the
-placement decision that planned them. The JAX package's other optional
-collaborators (the fabric dispatcher, shard ownership and fencing, the
-circuit breaker's endpoint-wide rejections) arrive with the sub-slices
-that port them; the code paths kept here are the ones that run without
-them.
+Without a dispatcher, fabric verbs run inline on the worker thread. With
+the scheduler's decision ledger wired (``decision_ledger=``), attach
+intents join the placement decision that planned them. A breaker's
+endpoint-wide rejection (``BreakerOpenError`` without a scope) never burns
+a node's attach budget. Shard ownership and the fence at the fabric write
+boundary are the JAX package's only collaborators the port leaves out:
+they come with the sharded control plane.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from tpu_composer_torch.agent.nodeagent import AgentError, DeviceBusyError, Node
 from tpu_composer_torch.agent.publisher import quarantined_nodes, retire_node
 from tpu_composer_torch.api.meta import now_iso
 from tpu_composer_torch.api.types import (
+    ANNOTATION_REPLACED_BY,
     ComposabilityRequest,
     ComposableResource,
     FailureRecord,
@@ -69,7 +75,10 @@ from tpu_composer_torch.api.types import (
     RESOURCE_STATE_ONLINE,
     RESOURCE_STATE_REPAIRING,
 )
+from tpu_composer_torch.fabric.breaker import BreakerOpenError
 from tpu_composer_torch.fabric.provider import (
+    AttachResult,
+    DispatchedAttaching,
     FabricError,
     FabricProvider,
     TransientFabricError,
@@ -181,6 +190,7 @@ class ComposableResourceReconciler(Controller):
         recorder: Optional[EventRecorder] = None,
         publisher=None,  # DevicePublisher; default built on the store
         decision_ledger=None,  # scheduler.DecisionLedger; None = no joins
+        dispatcher=None,  # fabric.dispatcher.FabricDispatcher; None = direct
     ) -> None:
         super().__init__(store)
         # The scheduler's decision ledger (the same instance the request
@@ -189,6 +199,12 @@ class ComposableResourceReconciler(Controller):
         # handle, never the process-global — in-proc multi-replica
         # harnesses run one ledger per replica.
         self.decision_ledger = decision_ledger
+        # Fabric I/O pipeline: with a dispatcher, attach/detach SUBMIT and
+        # return — the worker thread never blocks on the fabric, same-node
+        # submissions coalesce into group calls, and completion re-enqueues
+        # this CR's key immediately (the poll timers below stay as the
+        # safety net). Without one, fabric verbs run inline.
+        self.dispatcher = dispatcher
         self.fabric = fabric
         self.agent = agent
         self.timing = timing or ResourceTiming()
@@ -297,6 +313,13 @@ class ComposableResourceReconciler(Controller):
             self._recovery_streaks.pop(name, None)
             self._escalation_counted.discard(name)
             self._published_env.pop(name, None)
+            if self.dispatcher is not None:
+                # Drop queued submissions and parked outcomes for a purged
+                # CR. An op already at the fabric is left to complete: the
+                # verbs are idempotent and the syncer's anti-drift sweep
+                # reclaims any attachment that materializes without a CR.
+                self.dispatcher.cancel("add", name)
+                self.dispatcher.cancel("remove", name)
             return Result()
         # Causal tracing: a durable intent's nonce IS the trace id for that
         # fabric op. Adopting it here back-fills the already-open reconcile
@@ -413,14 +436,23 @@ class ComposableResourceReconciler(Controller):
     def _handle_attaching(self, res: ComposableResource) -> Result:
         if res.being_deleted:
             # Nothing durable attached yet vs attached-but-not-online —
-            # same split as :214-218.
+            # same split as :214-218. With a dispatcher, an attach already
+            # issued to the fabric cannot be cancelled: route through
+            # Detaching anyway — per-node FIFO queues the (idempotent)
+            # detach BEHIND the materializing attach, so whichever chips
+            # land are released rather than leaked.
+            uncancellable_add = (
+                self.dispatcher is not None
+                and not self.dispatcher.cancel("add", res.metadata.name)
+            )
             res.status.state = (
                 RESOURCE_STATE_DETACHING
-                if res.status.device_ids
+                if res.status.device_ids or uncancellable_add
                 else RESOURCE_STATE_DELETING
             )
             # Replace the attach intent: either a remove intent for the
-            # teardown about to run, or nothing (the fabric never saw it).
+            # teardown about to run, or nothing (cancelled before the
+            # fabric saw it).
             res.status.pending_op = (
                 self._new_intent("remove", res)
                 if res.status.state == RESOURCE_STATE_DETACHING
@@ -444,8 +476,17 @@ class ComposableResourceReconciler(Controller):
             res = self._ensure_intent(res, "add")
 
         try:
-            attach = self.fabric.add_resource(res)
+            attach = self._fabric_add(res)
             fabric_requests_total.inc(op="add", outcome="ok")
+        except DispatchedAttaching:
+            # Synthetic dispatcher acknowledgment: the submission is queued
+            # or executing but the FABRIC has not answered for this node —
+            # the failure streak must survive (only the real wait sentinel
+            # below is evidence of fabric-side progress). Completion fires
+            # the latch and re-enqueues this key immediately; attach_poll
+            # is the safety-net fallback.
+            fabric_requests_total.inc(op="add", outcome="dispatched")
+            return Result(requeue_after=self.timing.attach_poll)
         except WaitingDeviceAttaching:
             fabric_requests_total.inc(op="add", outcome="waiting")
             # The fabric answered for THIS node — break the failure streak
@@ -548,8 +589,14 @@ class ComposableResourceReconciler(Controller):
         on exhaustion, otherwise surface the error and let the queue's
         jittered backoff retry (raising keeps requeueOnErr semantics).
 
-        (The circuit breaker's endpoint-wide rejections, which must not
-        burn a node's budget, arrive with the breaker.)"""
+        Endpoint-scoped breaker rejections are NOT counted: when the whole
+        fabric manager is dark, every node's attach fails instantly, and
+        counting those would durably quarantine the entire fleet during a
+        brief outage — strictly worse than retry-forever. Only evidence
+        against THIS node (real transport failures reaching it, or its own
+        node breaker) burns its budget."""
+        if isinstance(err, BreakerOpenError) and not err.scope:
+            raise err
         name = res.name
         attempts = self._attach_streaks.get(name, res.status.attach_attempts) + 1
         self._attach_streaks[name] = attempts
@@ -755,15 +802,59 @@ class ComposableResourceReconciler(Controller):
         res.status.pending_op = self._new_intent(verb, res)
         return self.store.update_status(res)
 
+    def _fabric_add(self, res: ComposableResource):
+        """Attach via the dispatcher (submit-and-return + completion latch)
+        or inline when batching is disabled."""
+        if self.dispatcher is None:
+            return self.fabric.add_resource(res)
+        name = res.metadata.name
+        if res.status.device_ids and self.dispatcher.op_state("add", name) is None:
+            # Visibility-poll re-entry: the durable attach result already
+            # sits in status and nothing is in flight — serving it skips a
+            # fresh batch window + idempotent provider re-read per poll
+            # cycle. A fabric-side loss of the attachment in this window
+            # surfaces the same way the direct path's between-re-adds gap
+            # does: via Online health polling / the anti-drift syncer.
+            return AttachResult(
+                list(res.status.device_ids), res.status.cdi_device_id
+            )
+        return self.dispatcher.add_resource(
+            res, on_ready=lambda: self.queue.add(name)
+        )
+
+    def _fabric_remove(self, res: ComposableResource) -> None:
+        if self.dispatcher is None:
+            return self.fabric.remove_resource(res)
+        name = res.metadata.name
+        # Migration/repair-ordered op pair: a source member that has a
+        # named replacement parks its detach behind the replacement's
+        # attach at the DISPATCHER level — even if controller sequencing
+        # raced (crash replay, adoption re-drives), the fabric can never
+        # see the source release before the target attach settled. A
+        # replacement already settled (or unknown to this process) imposes
+        # no wait.
+        after = None
+        repl = res.metadata.annotations.get(ANNOTATION_REPLACED_BY, "")
+        if repl:
+            after = ("add", repl)
+        return self.dispatcher.remove_resource(
+            res, on_ready=lambda: self.queue.add(name), after=after
+        )
+
     def fabric_attached(self, node: str) -> Optional[List]:
         """Devices the fabric reports attached to ``node`` — or ``None``
         when the fabric is unreachable. The two outcomes MUST stay
         distinguishable: swallowing the error into ``[]`` made "fabric
         blip" identical to "no devices attached", and every caller that
         refreshed a gauge or reasoned about emptiness silently zeroed out
-        on a wire flake."""
+        on a wire flake.
+
+        Dispatcher-served listings are single-flighted and snapshot-cached
+        (staleness bounded by its batch window) — an attach wave's
+        per-node gauge refreshes share one provider call."""
+        provider = self.dispatcher if self.dispatcher is not None else self.fabric
         try:
-            return [d for d in self.fabric.get_resources() if d.node == node]
+            return [d for d in provider.get_resources() if d.node == node]
         except FabricError as e:
             self.log.debug("fabric listing for %s unavailable: %s", node, e)
             return None  # stale — callers must not treat as empty
@@ -1032,7 +1123,16 @@ class ComposableResourceReconciler(Controller):
         # and run only the fabric detach (the syncer's orphan-reclaim case).
         node_exists = self.store.try_get(Node, node) is not None
         # 1. Load check unless force (:340-353).
-        if not res.spec.force_detach and node_exists:
+        # Dispatcher fast path: once a remove is submitted (or its outcome
+        # is parked awaiting consumption), the host-side prep below already
+        # ran in the submitting pass — re-entries driven by the completion
+        # latch / detach_poll must not re-pay the load check, taint writes
+        # and drain every cycle.
+        remove_submitted = (
+            self.dispatcher is not None
+            and self.dispatcher.op_state("remove", res.metadata.name) is not None
+        )
+        if not res.spec.force_detach and node_exists and not remove_submitted:
             if not self.agent.check_no_loads(node, res.status.device_ids, group=self._cdi_name(res)):
                 msg = f"chips in use on {node}; waiting for workloads to finish"
                 if res.status.error != msg:
@@ -1041,7 +1141,7 @@ class ComposableResourceReconciler(Controller):
                     self.recorder.event(res, WARNING, "DeviceBusy", msg)
                 return Result(requeue_after=self.timing.busy_poll)
 
-        if node_exists:
+        if node_exists and not remove_submitted:
             # 2. Quarantine scheduling (:355-363 via DeviceTaintRule): both
             # the node-local marker the agent's drain honors and the
             # cluster-level rule a scheduler sees.
@@ -1057,11 +1157,15 @@ class ComposableResourceReconciler(Controller):
 
         # Fallback durability point (normally a no-op: every transition
         # into Detaching piggybacks the remove intent on its own write).
-        res = self._ensure_intent(res, "remove")
+        if not remove_submitted:
+            res = self._ensure_intent(res, "remove")
 
-        # 4. Fabric detach with wait sentinel (:372-378).
+        # 4. Fabric detach with wait sentinel (:372-378). DispatchedDetaching
+        # (the dispatcher's submit-and-return acknowledgment) subclasses the
+        # wait sentinel: same requeue, but completion re-enqueues this key
+        # immediately so detach_poll is only the fallback.
         try:
-            self.fabric.remove_resource(res)
+            self._fabric_remove(res)
             fabric_requests_total.inc(op="remove", outcome="ok")
         except WaitingDeviceDetaching:
             fabric_requests_total.inc(op="remove", outcome="waiting")

@@ -11,11 +11,6 @@ vars. Same pattern, TPU backends:
                         REST_FM     -> sync REST pool client (FM-style)
                         LAYOUT      -> layout-apply pool client (NEC-style)
                         REDFISH     -> redfish-style client (Sunfish-style)
-
-The port serves MOCK. The remote backends (and the circuit breaker every
-remote backend ships behind) arrive with the fabric I/O sub-slice; until
-then naming one raises :class:`AdapterError`, with no fallback to the
-mock.
 """
 
 from __future__ import annotations
@@ -28,10 +23,6 @@ from tpu_composer_torch.fabric.provider import FabricProvider
 from tpu_composer_torch.runtime import tracing
 
 _shared_mock: Optional[InMemoryPool] = None
-
-
-#: The JAX package's remote backends, which the port does not have yet.
-REMOTE_BACKENDS = ("REST_CM", "REST_FM", "LAYOUT", "REDFISH")
 
 
 class AdapterError(ValueError):
@@ -48,7 +39,7 @@ _TRACED_METHODS = (
 class TracedFabricProvider:
     """Transparent tracing wrapper: every fabric verb becomes a span, so a
     slow attach shows WHICH fabric call ate the time (the reference has no
-    tracing at all — SURVEY.md §5). Wraps by delegation, so it composes
+    tracing at all). Wraps by delegation, so it composes
     with any provider including ones defining only the base-class
     resize_slice default.
 
@@ -103,12 +94,54 @@ def new_fabric_provider(provider_type: Optional[str] = None) -> FabricProvider:
                 async_steps=int(os.environ.get("MOCK_FABRIC_ASYNC_STEPS", "0"))
             )
         return _shared_mock
-    if kind in REMOTE_BACKENDS:
-        raise AdapterError(
-            f"CDI_PROVIDER_TYPE {kind} is not ported yet: the port serves"
-            " MOCK only"
-        )
+    if kind in ("REST_CM", "REST_FM", "LAYOUT", "REDFISH"):
+        endpoint = os.environ.get("FABRIC_ENDPOINT", "")
+        if not endpoint:
+            raise AdapterError(f"{kind} requires FABRIC_ENDPOINT")
+        try:
+            if kind in ("REST_CM", "REST_FM"):
+                from tpu_composer_torch.fabric.rest import RestPoolClient
+
+                client: FabricProvider = RestPoolClient(
+                    endpoint=endpoint,
+                    tenant_id=os.environ.get("FABRIC_TENANT_ID", ""),
+                    cluster_id=os.environ.get("FABRIC_CLUSTER_ID", ""),
+                    synchronous=(kind == "REST_FM"),
+                )
+            elif kind == "LAYOUT":
+                from tpu_composer_torch.fabric.layout import LayoutApplyClient
+
+                client = LayoutApplyClient(endpoint=endpoint)
+            else:
+                from tpu_composer_torch.fabric.redfish import RedfishClient
+
+                client = RedfishClient(endpoint=endpoint)
+        except ModuleNotFoundError as e:
+            raise AdapterError(f"{kind} backend not available: {e}") from e
+        return _wrap_breaker(client, endpoint)
     raise AdapterError(f"unknown CDI_PROVIDER_TYPE {kind!r}")
+
+
+def _wrap_breaker(client: FabricProvider, endpoint: str) -> FabricProvider:
+    """Every remote provider ships behind a per-endpoint circuit breaker
+    TPU_COMPOSER_BREAKER=0 opts out; threshold/reset
+    are env-tunable for known-flaky fabrics."""
+    if os.environ.get("TPU_COMPOSER_BREAKER", "1") == "0":
+        return client
+    from tpu_composer_torch.fabric.breaker import BreakerConfig, BreakerFabricProvider
+
+    config = BreakerConfig()
+    try:
+        config.failure_threshold = int(
+            os.environ.get("TPU_COMPOSER_BREAKER_THRESHOLD",
+                           config.failure_threshold)
+        )
+        config.reset_timeout = float(
+            os.environ.get("TPU_COMPOSER_BREAKER_RESET_S", config.reset_timeout)
+        )
+    except ValueError as e:
+        raise AdapterError(f"bad breaker env override: {e}") from e
+    return BreakerFabricProvider(client, endpoint=endpoint, config=config)
 
 
 def reset_shared_mock() -> None:

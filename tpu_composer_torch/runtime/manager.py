@@ -11,9 +11,9 @@ file, the health server (``/healthz``, ``/readyz``, ``/metrics``, the
 trace and lifecycle routes, and the scheduler's observatory:
 ``/debug/defrag``, ``/debug/scheduler/explain/<name>``,
 ``/debug/scheduler/capacity`` and ``/debug/goodput``), the startup hooks,
-the lifecycle recorder and the graceful stop. The JAX manager's other
-optional collaborators (the fabric dispatcher's drain, the sampling
-profiler, the SLO engine, the fleet plane, the overload governor, the
+the lifecycle recorder and the graceful stop, which drains the fabric
+dispatcher's lanes first (``dispatcher=``). The JAX manager's other
+optional collaborators (the sampling profiler, the SLO engine, the fleet plane, the overload governor, the
 watchdog, the store breaker, lease electors, replica identity and the TLS
 metrics port) and their ``/debug/*`` routes arrive with the modules they
 need.
@@ -230,6 +230,8 @@ class Manager:
         leader_elect: bool = False,
         leader_lock_path: Optional[str] = None,
         health_addr: Optional[str] = None,  # "host:port" or None to disable
+        dispatcher=None,  # FabricDispatcher to drain at shutdown/handoff
+        drain_timeout: float = 8.0,  # seconds; <= 0 disables graceful drain
         defrag=None,  # scheduler.DefragLoop serving /debug/defrag
         decisions=None,  # scheduler.DecisionLedger serving explain routes
         capacity=None,  # runtime.capacity.CapacityObservatory
@@ -251,6 +253,8 @@ class Manager:
         self._elector = LeaderElector(leader_lock_path) if leader_elect else None
         self._health_addr = health_addr
         self._health_server: Optional[http.server.ThreadingHTTPServer] = None
+        self._dispatcher = dispatcher
+        self._drain_timeout = drain_timeout
         # Defrag loop handle for /debug/defrag (dry-run plan + skip
         # reasons); None = loop not wired.
         self.defrag = defrag
@@ -373,11 +377,47 @@ class Manager:
                 return
 
     def stop(self) -> None:
-        """Graceful stop: controllers first (their queues drain and their
-        workers join), then the health server, the runnables and the
-        lifecycle watch, the goodput tracker's sink, then the leader
-        lock; the span ring is persisted when ``$TPUC_TRACE_FILE`` is
-        set."""
+        """Graceful stop: the dispatcher's drain, then the controllers
+        (their queues drain and their workers join), the health server,
+        the runnables and the lifecycle watch, the goodput tracker's sink,
+        then the leader lock; the span ring is persisted when
+        ``$TPUC_TRACE_FILE`` is set."""
+        # Graceful drain BEFORE anything is torn down: the controllers
+        # must stay live while lanes flush, because completions re-enqueue
+        # CR keys and those reconciles are what persist outcomes. Skipped
+        # when leadership was LOST (fencing: a deposed leader must stop
+        # driving the fabric immediately — queued ops are abandoned and
+        # the successor's adoption pass re-derives them from durable
+        # intent) and on re-entrant stop calls.
+        if (
+            self._dispatcher is not None
+            and self._drain_timeout > 0
+            and self._started
+            and not self.lost_leadership
+            # Live leadership check, not just the watchdog flag: the
+            # watchdog polls on a period, so a lock lost moments ago may
+            # not have set lost_leadership yet.
+            and (self._elector is None or self._elector.is_leader)
+            and not self._stop.is_set()
+        ):
+            from tpu_composer_torch.runtime.metrics import (
+                dispatcher_drains_total,
+            )
+
+            drained = self._dispatcher.drain(self._drain_timeout)
+            dispatcher_drains_total.inc(
+                outcome="clean" if drained else "timeout"
+            )
+            if not drained:
+                self.log.warning(
+                    "dispatcher drain exceeded %.1fs; in-flight intents"
+                    " recover via adoption on the next start",
+                    self._drain_timeout,
+                )
+                # A drain timeout is a crash-shaped exit: leave the black
+                # box behind (flight ledger + trace ring, both env-gated)
+                # so the operator can see WHAT was still in flight.
+                lifecycle.dump_crash("drain-timeout")
         self._stop.set()
         for c in self._controllers:
             c.stop()

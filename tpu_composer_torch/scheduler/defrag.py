@@ -70,7 +70,7 @@ from tpu_composer_torch.runtime.metrics import (
     scheduler_fragmentation_score,
 )
 from tpu_composer_torch.runtime.store import ConflictError, NotFoundError, StoreError
-from tpu_composer_torch.topology.slices import is_chip_group_model
+from tpu_composer_torch.topology.slices import is_chip_group
 
 
 @dataclass(frozen=True)
@@ -302,7 +302,7 @@ class DefragPlanner:
 
     def _immovable_reason(self, c, owner, node: Node) -> Optional[str]:
         """Why this chip group anchors its host (None = movable)."""
-        if not is_chip_group_model(c.spec.model):
+        if not is_chip_group(c.spec.type, c.spec.model):
             return "non-tpu"
         if owner is None or owner.being_deleted:
             return "no-live-owner"

@@ -28,7 +28,8 @@ Two placement properties matter for TPU slices and drive the scoring:
   smallest index span.
 
 The NVIDIA H100 (``nvidia-h100-sxm``) is placed as a chip group
-(``topology.is_chip_group_model``): a member holds ``chip_count`` of its
+(``topology.is_chip_group``, the reference's ``type == "tpu"`` plus the
+H100): a member holds ``chip_count`` of its
 host's GPU slots (``Node.status.tpu_slots``), never one. Its hosts meet
 over InfiniBand with no torus, so the contiguity window has no meaning for
 an H100; it is kept unchanged (it costs nothing there) so that TPU rows
@@ -48,7 +49,7 @@ from tpu_composer_torch.api.types import (
 )
 from tpu_composer_torch.fabric.provider import FabricError
 from tpu_composer_torch.scheduler import snapshot as snap_mod
-from tpu_composer_torch.topology.slices import SliceShape, is_chip_group_model
+from tpu_composer_torch.topology.slices import SliceShape, is_chip_group
 
 
 class AllocationError(FabricError):
@@ -157,7 +158,7 @@ class PlacementEngine:
         for c in existing.values():
             if c.being_deleted:
                 continue
-            n = c.spec.chip_count if is_chip_group_model(c.spec.model) else 1
+            n = c.spec.chip_count if is_chip_group(c.spec.type, c.spec.model) else 1
             node = c.spec.target_node
             occupied[node] = occupied.get(node, 0) + n
             if c.metadata.labels.get(LABEL_MANAGED_BY) != exclude_request:
@@ -167,7 +168,7 @@ class PlacementEngine:
                 continue
             per_member = (
                 other.status.slice.chips_per_host
-                if is_chip_group_model(other.spec.resource.model)
+                if is_chip_group(other.spec.resource.type, other.spec.resource.model)
                 and other.status.slice.chips_per_host
                 else 1
             )

@@ -39,7 +39,7 @@ from tpu_composer_torch.api.types import (
     PREEMPT_LOWER_PRIORITY,
     PREEMPT_NEVER,
 )
-from tpu_composer_torch.topology.slices import SliceShape, is_chip_group_model
+from tpu_composer_torch.topology.slices import SliceShape, is_chip_group
 
 #: Exhaustive minimal-set search bound: above this many candidate victims
 #: (or when no set ≤ _EXHAUSTIVE_MAX_SIZE works) fall back to greedy+prune,
@@ -308,7 +308,7 @@ class Preemptor:
             freed: Dict[str, int] = {}
             for c in children_by_owner.get(other.name, []):
                 if c.spec.target_node in usable:
-                    chips = c.spec.chip_count if is_chip_group_model(c.spec.model) else 1
+                    chips = c.spec.chip_count if is_chip_group(c.spec.type, c.spec.model) else 1
                     freed[c.spec.target_node] = (
                         freed.get(c.spec.target_node, 0) + chips
                     )
@@ -317,7 +317,7 @@ class Preemptor:
             # too, or a half-created gang could never be preempted.
             per_member = (
                 other.status.slice.chips_per_host
-                if is_chip_group_model(other.spec.resource.model)
+                if is_chip_group(other.spec.resource.type, other.spec.resource.model)
                 and other.status.slice.chips_per_host
                 else 1
             )

@@ -65,7 +65,7 @@ from tpu_composer_torch.api.types import (
     LABEL_MANAGED_BY,
     Node,
 )
-from tpu_composer_torch.topology.slices import is_chip_group_model
+from tpu_composer_torch.topology.slices import is_chip_group
 
 # Verdict codes shared by the native kernel (the port's ``native/tpusched.cc``), the
 # pure-Python port below, and the engine's string rendering. Order is the
@@ -321,7 +321,7 @@ class ChipIndexSnapshot:
             self._retire_child(name)
         else:
             node = obj.spec.target_node
-            chips = obj.spec.chip_count if is_chip_group_model(obj.spec.model) else 1
+            chips = obj.spec.chip_count if is_chip_group(obj.spec.type, obj.spec.model) else 1
             owner = obj.metadata.labels.get(LABEL_MANAGED_BY, "")
             new = (node, chips, owner)
             if self._child.get(name) != new:
@@ -353,7 +353,7 @@ class ChipIndexSnapshot:
         res = obj.spec.resource
         per = (
             obj.status.slice.chips_per_host
-            if is_chip_group_model(res.model) and obj.status.slice.chips_per_host
+            if is_chip_group(res.type, res.model) and obj.status.slice.chips_per_host
             else 1
         )
         new_rows = {

@@ -105,6 +105,14 @@ def is_chip_group_model(model: str) -> bool:
     return is_tpu_model(model) or is_gpu_model(model)
 
 
+def is_chip_group(type_: str, model: str) -> bool:
+    """Whether a request or member of ``type_`` and ``model`` takes the
+    slice path: every ``tpu`` request, as in the JAX package (an unknown
+    TPU model then fails in ``solve_slice``), and an H100 request. Other
+    gpu models, TPU model names among them, attach as loose devices."""
+    return type_ == "tpu" or is_gpu_model(model)
+
+
 @dataclass(frozen=True)
 class SliceShape:
     model: str
