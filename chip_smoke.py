@@ -5,7 +5,9 @@ paths, dense and MoE, one rank and several ranks over a device mesh
 composed worker (the port's operator attaching the card, then placing a
 user's request for it and composing it, in process and over each remote
 fabric backend, then coordinates from the REST_CM request's CDI spec,
-bootstrap, staged probe), on one NVIDIA GPU and hold
+bootstrap, staged probe), and the high-availability operator (three
+replicas over six shard leases composing the card through a crash, a
+planned handoff and a store outage), on one NVIDIA GPU and hold
 every CUDA kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--nccl-world]
@@ -232,16 +234,58 @@ nonzero. Phases, in order:
 25. ``operator_remote_busy``: the same guard on the REST_CM child's
     group; then that operator stops, its Manager draining the dispatcher
     (one clean drain), and its fake fabric server closes.
-26. ``timing`` (the whole run's seconds, builds included, and each
+26. ``operator_ha``: the high-availability operator, 3 replicas over
+    K = 6 shard leases (lease 3 s, renew every 0.25 s, renew deadline
+    2 s). One Store, wrapped in a ``ChaosStore``; per replica a crash fuse
+    over it, a ``BreakingStore`` and a ``CachedClient``, a
+    ``ShardLeaseElector`` on the fuse, a ``FabricDispatcher`` with
+    ``owns=``, both reconcilers with ``ownership=`` on the native scan, a
+    ``Manager`` with ``replica_id``, the overload governor (its shed gate
+    on the request controller), the watchdog and the store breaker, and
+    the shard hooks (scoped adoption on acquire, resync on ready, lane
+    fencing on lose); one ``InMemoryPool`` whose attaches take two
+    re-polls, and one ``LocalNodeAgent`` for the node ``localhost``
+    (its CDI and state directories), shared by the replicas as a node's
+    agent is. The request ``chip-smoke-ha`` (gpu, ``nvidia-h100-sxm``,
+    size 1) is submitted and the replica owning its shard crashes once
+    its cache shows the child with an attach intent, not Online: every
+    store call fails from then on, its watch goes silent, its dispatcher
+    is killed; no drain, no lease release (the crash state is printed).
+    Its renew loop fences its shards at the renew deadline, and its own
+    reconcile of the child, run by hand, must raise ``ShardFencedError``
+    with no fabric call. Within the lease duration plus 30 s a survivor
+    holds the shard, the request is Running with exactly one child
+    Online through the device scan, its CDI spec env equals
+    ``slice_env`` and the hand composition's, its GPU node is the one
+    CUDA's context holds, and the pool shows one reservation and one
+    attach of the child. As the composed worker's first work, K1 without
+    lse at the serving prefill shape (1, 256, 8/2, 64, bf16, causal) and
+    K2 at the dense engine's decode shape (8 rows, 8/2 heads, 64, blocks
+    of 16, 32 slots, bf16) run once each in this process, held to their
+    plain versions. Then, once the survivors have rebalanced, a planned
+    stop of the survivor owning the shard: one clean dispatcher drain,
+    the leases released, the third replica holding the shard within one
+    renew period. Last, ``ChaosStore.blackout_for(1.0)`` as a second
+    size-1 request arrives: ``/debug/storebreaker`` shows the breaker
+    trip and close, ``/debug/overload`` and ``/debug/watchdog`` answer
+    200, and the request ends held back with its AllocationError explain
+    record (``no-tpu-ports free=0 need=1``) and no child. It prints the
+    crash-to-fenced, crash-to-shard-acquired and crash-to-Running ms, the
+    handoff's ms, the lease timings, and the store round trips from
+    submission to Running (by verb and kind, leases aside) beside the
+    cached reads, with the card's name and power limit.
+27. ``operator_ha_busy``: phase 20's busy guard on the survivor's child
+    group; then the remaining replicas stop (the card runs no detach).
+28. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
     mesh_training 15-16, pipeline_training 17, reshard_training 18,
-    composed_worker 19-25, the ranks' and the probe child's counts
-    summed in); then the kernels line ``{"kernels": [...]}``: per kernel
-    its launches summed over every path and by path, max error, kernel /
-    plain / library ms (device time), the kernel's issue ms, and the
-    bound.
-27. the last line: ``{"ok": true, "device": {...}}``.
+    composed_worker 19-25, operator_ha 26-27, the ranks' and the probe
+    child's counts summed in); then the kernels line
+    ``{"kernels": [...]}``: per kernel its launches summed over every
+    path and by path, max error, kernel / plain / library ms (device
+    time), the kernel's issue ms, and the bound.
+29. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -268,7 +312,8 @@ losses 1e-3 relative; the pipelined forward's logits 1e-4; the
 resharded and restored runs' losses 2e-4 relative to the never-resized
 run's (``tests/test_reshard.py``'s bound), their states equal to the
 source's exactly. K2 mid-flight against the
-gather path: 5e-2 (bf16 pool), 1e-1 (int8). Token streams
+gather path: 5e-2 (bf16 pool), 1e-1 (int8). ``operator_ha``'s K1 and
+K2: bf16 2e-2. Token streams
 (``serve_exact``, ``moe_serve_exact``, ``speculative``): equal; on a
 mismatch the target's top-2 logit gap at the first diverging token is
 printed (under 1e-4 names float drift).
@@ -3366,6 +3411,609 @@ def phase_operator_remote_busy(operator: dict) -> dict:
     return {**out, "drains_clean": drained}
 
 
+# The HA operator's world (phases 26 and 27): the reference's failover
+# world of 3 replicas over K = 6 shards, with short lease timings.
+HA_REPLICAS = ("replica-a", "replica-b", "replica-c")
+HA_SHARDS = 6
+HA_LEASE_S = 3.0
+HA_RENEW_S = 0.25
+HA_RENEW_DEADLINE_S = 2.0
+HA_BREAKER = dict(failure_threshold=3, reset_timeout=0.5, resync_rate=50.0,
+                  resync_window=1.0)
+HA_BLACKOUT_S = 1.0
+
+
+class _CrashFuse:
+    """Store facade of a crashed replica (the reference's CrashFuse,
+    ``tests/test_crash_restart.py:128``): from ``die()`` on, every call
+    raises ``StoreError`` and the watch streams go silent, so the
+    replica's informer cache keeps what it last saw."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.dead = False
+
+    def die(self):
+        self.dead = True
+
+    def _gate(self):
+        if self.dead:
+            from tpu_composer_torch.runtime.store import StoreError
+
+            raise StoreError("crash: process dead")
+
+    def create(self, obj):
+        self._gate()
+        return self._inner.create(obj)
+
+    def get(self, cls, name):
+        self._gate()
+        return self._inner.get(cls, name)
+
+    def try_get(self, cls, name):
+        self._gate()
+        return self._inner.try_get(cls, name)
+
+    def list(self, cls, label_selector=None):
+        self._gate()
+        return self._inner.list(cls, label_selector)
+
+    def update(self, obj):
+        self._gate()
+        return self._inner.update(obj)
+
+    def update_status(self, obj):
+        self._gate()
+        return self._inner.update_status(obj)
+
+    def delete(self, cls, name):
+        self._gate()
+        return self._inner.delete(cls, name)
+
+    def watch(self, kind=None):
+        return _FusedWatch(self._inner.watch(kind), self)
+
+    def stop_watch(self, q):
+        self._inner.stop_watch(getattr(q, "_q", q))
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_inner"], name)
+
+
+class _FusedWatch:
+    """A watch queue that drops the store's events once its fuse is dead
+    (control items still pass)."""
+
+    def __init__(self, q, fuse):
+        self._q, self._fuse = q, fuse
+
+    def get(self, block: bool = True, timeout=None):
+        from tpu_composer_torch.runtime.store import WatchEvent
+
+        while True:
+            item = self._q.get(block, timeout)
+            if isinstance(item, WatchEvent) and self._fuse.dead:
+                continue
+            return item
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_q"], name)
+
+
+class _CountingFabric:
+    """One replica's view of the shared pool: counts the mutating verbs
+    this replica issues."""
+
+    _MUTATING = ("add_resource", "remove_resource", "add_resources",
+                 "remove_resources", "reserve_slice", "release_slice",
+                 "resize_slice", "repair_slice_member")
+
+    def __init__(self, pool):
+        self._pool = pool
+        self.calls = []
+
+    def __getattr__(self, name):
+        attr = getattr(self.__dict__["_pool"], name)
+        if name not in type(self)._MUTATING:
+            return attr
+
+        def counted(*args, **kwargs):
+            self.calls.append(name)
+            return attr(*args, **kwargs)
+
+        return counted
+
+
+def _recording_pool():
+    """An ``InMemoryPool`` that logs each attachment it materializes with
+    the intent nonce behind it, and each release."""
+    from tpu_composer_torch.fabric.inmem import InMemoryPool
+
+    class RecordingPool(InMemoryPool):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.events = []
+
+        def _add_one_locked(self, resource):
+            name = resource.metadata.name
+            before = name in self._attachments
+            out = super()._add_one_locked(resource)
+            if not before and name in self._attachments:
+                po = resource.status.pending_op
+                self.events.append(("attach", name, po.nonce if po else ""))
+            return out
+
+        def _remove_one_locked(self, resource):
+            name = resource.metadata.name
+            before = name in self._attachments
+            super()._remove_one_locked(resource)
+            if before and name not in self._attachments:
+                self.events.append(("release", name))
+
+    # Two fabric re-polls per attach: the crash has a window to land in.
+    return RecordingPool(async_steps=2)
+
+
+def _ha_replica(ident: str, store, chaos, pool, agent, reports: list) -> dict:
+    """One operator replica wired as the reference's entry point wires
+    ``--shards K``: its own crash fuse over the shared (chaos-wrapped)
+    store, a store breaker under a ``CachedClient``, a ``ShardLeaseElector``
+    on the fuse (leases need linearizable reads), a ``FabricDispatcher``
+    gated by ``owns=``, the native-scan scheduler, both reconcilers with
+    ``ownership=``, the overload governor with its shed gate, the
+    watchdog, and the shard hooks: scoped adoption on acquire, a resync
+    on ready, lane fencing on lose. The scheduler's snapshot follows the
+    shared store's own watch: the native scan declines a chaos-wrapped
+    source, whose watch may drop events (this one drops none)."""
+    from tpu_composer_torch.controllers import (
+        ComposabilityRequestReconciler, ComposableResourceReconciler,
+        RequestTiming, ResourceTiming)
+    from tpu_composer_torch.controllers.adoption import adopt_pending_ops
+    from tpu_composer_torch.fabric import FabricDispatcher
+    from tpu_composer_torch.runtime import Manager
+    from tpu_composer_torch.runtime.cache import CachedClient
+    from tpu_composer_torch.runtime.overload import (
+        OverloadGovernor, request_shed_gate)
+    from tpu_composer_torch.runtime.shards import ShardLeaseElector, shard_for
+    from tpu_composer_torch.runtime.storebreaker import BreakingStore
+    from tpu_composer_torch.runtime.watchdog import Watchdog
+    from tpu_composer_torch.scheduler import ClusterScheduler
+
+    fuse = _CrashFuse(chaos)
+    breaker = BreakingStore(fuse, **HA_BREAKER)
+    client = CachedClient(breaker)
+    elector = ShardLeaseElector(
+        fuse, HA_SHARDS, identity=ident, lease_duration_s=HA_LEASE_S,
+        renew_period_s=HA_RENEW_S, renew_deadline_s=HA_RENEW_DEADLINE_S,
+        expected_replicas=len(HA_REPLICAS))
+    own = elector.ownership
+    fabric = _CountingFabric(pool)
+    disp = FabricDispatcher(fabric, batch_window=0.005, poll_interval=0.05,
+                            owns=own.owns_key)
+    sched = ClusterScheduler(store, native_sched=True)
+    check(sched.engine.kernel_kind == "native",
+          f"{ident}: the scheduler runs {sched.engine.kernel_kind}")
+    watchdog = Watchdog(stall_after=30.0, restart_budget=3)
+    disp.watchdog = watchdog
+    governor = OverloadGovernor(period=0.25, shed_quantum=1.0,
+                                ledger=sched.ledger, store_breaker=breaker)
+    governor.watchdog = watchdog
+    mgr = Manager(store=client, leader_elector=elector,
+                  health_addr="127.0.0.1:0", dispatcher=disp,
+                  decisions=sched.ledger, replica_id=ident,
+                  overload=governor, watchdog=watchdog, storebreaker=breaker)
+    watchdog.recorder = governor.recorder = mgr.recorder
+    req_rec = ComposabilityRequestReconciler(
+        client, fabric, scheduler=sched, ownership=own,
+        timing=RequestTiming(updating_poll=0.05, cleaning_poll=0.05))
+    res_rec = ComposableResourceReconciler(
+        client, fabric, agent, decision_ledger=sched.ledger, dispatcher=disp,
+        ownership=own,
+        timing=ResourceTiming(attach_poll=0.05, visibility_poll=0.05))
+    req_rec.shed_gate = request_shed_gate(governor, client)
+    for c in (req_rec, res_rec):
+        mgr.add_controller(c)
+        governor.add_queue(lambda c=c: len(c.queue))
+        c.watchdog = watchdog
+    governor.stretch(sched.ledger, "hold_rescan_s")
+    watchdog.register("OverloadGovernor", stall_after=30.0, restartable=True)
+    mgr.add_runnable(disp.run)
+    mgr.add_runnable(watchdog.run)
+    mgr.add_runnable(governor.run)
+    elector.on_acquire.append(lambda wins: reports.append(
+        (ident, dict(wins), adopt_pending_ops(
+            client, fabric, disp, shards=set(wins), num_shards=HA_SHARDS))))
+    elector.on_ready.append(lambda shards: mgr.resync(
+        lambda key, _s=frozenset(shards): shard_for(key, HA_SHARDS) in _s))
+    elector.on_lose.append(lambda shard, reason: disp.abandon_unowned())
+    return {"ident": ident, "fuse": fuse, "breaker": breaker,
+            "client": client, "elector": elector, "fabric": fabric,
+            "dispatcher": disp, "sched": sched, "manager": mgr,
+            "req_rec": req_rec, "res_rec": res_rec, "governor": governor,
+            "watchdog": watchdog}
+
+
+class _Managers:
+    """Stops the HA phase's remaining managers together."""
+
+    def __init__(self, replicas):
+        self.replicas = replicas
+
+    def stop(self):
+        for r in self.replicas:
+            r["manager"].stop()
+
+
+def _wait(pred, timeout: float, interval: float = 0.002) -> bool:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(interval)
+    return True
+
+
+def _ha_worker_kernels(gen: torch.Generator) -> dict:
+    """The composed worker's first work: K1 without lse at the serving
+    prefill shape and K2 at the dense engine's decode shape, each once,
+    counted under ``operator_ha``, against its plain version."""
+    from tpu_composer_torch.ops.attention import (
+        flash_fwd_cuda, flash_fwd_plain)
+    from tpu_composer_torch.ops.paged_attention import (
+        paged_decode_cuda, paged_decode_plain)
+
+    dtype = torch.bfloat16
+    q = torch.randn(1, 256, 8, 64, generator=gen).to("cuda", dtype)
+    k = torch.randn(1, 256, 2, 64, generator=gen).to("cuda", dtype)
+    v = torch.randn(1, 256, 2, 64, generator=gen).to("cuda", dtype)
+    got, _ = flash_fwd_cuda(q, k, v, True)
+    want, _ = flash_fwd_plain(q, k, v, True)
+    args = _paged_inputs(gen, dtype, False)
+    got2 = paged_decode_cuda(*args)
+    want2 = paged_decode_plain(*args)
+    torch.cuda.synchronize()
+    e1, e2 = max_err(got, want), max_err(got2, want2)
+    check(e1 <= TOL[dtype], f"operator_ha: K1 error {e1}")
+    check(e2 <= TOL[dtype], f"operator_ha: K2 error {e2}")
+    return {"flash_fwd": {"shape": [1, 256, 8, 2, 64], "dtype": "bfloat16",
+                          "causal": True, "max_abs_err": e1},
+            "paged_decode": {"shape": [8, 8, 2, 64, 16, 32], "dtype":
+                             "bfloat16", "lengths": args[4].tolist(),
+                             "max_abs_err": e2},
+            "tol": TOL[dtype]}
+
+
+def _ha_spec(agent, slice_name: str, child, req) -> dict:
+    """The child's CDI spec, held to ``slice_env`` and the hand
+    composition, its GPU node to the card CUDA holds."""
+    from tpu_composer_torch.admission import slice_env
+    from tpu_composer_torch.agent.cdi import spec_path
+
+    hand = _compose_one_gpu(slice_name)
+    path = spec_path(agent.cdi_dir, hand)
+    check(os.path.exists(path), f"operator_ha: no CDI spec at {path}")
+    with open(path) as f:
+        doc = json.load(f)
+    edits = doc["devices"][0]["containerEdits"]
+    spec_env = dict(e.split("=", 1) for e in edits["env"])
+    want_env = slice_env(req.status.slice, child.spec.worker_id, H100_MODEL)
+    check(spec_env == want_env == hand.env,
+          f"operator_ha: the child's spec env {spec_env} != slice_env"
+          f" {want_env} or the hand composition's {hand.env}")
+    nodes = [n["path"] for n in edits["deviceNodes"]]
+    gpu_nodes = [n for n in nodes if _gpu_node_minor(n) is not None]
+    cuda_nodes = _cuda_nodes()
+    check(len(gpu_nodes) == 1 and gpu_nodes == cuda_nodes,
+          f"operator_ha: the spec's GPU node {gpu_nodes} is not the card"
+          f" CUDA holds open {cuda_nodes}")
+    return {"env": spec_env, "device_nodes": nodes, "cuda_nodes": cuda_nodes,
+            "spec": doc["devices"][0]["name"]}
+
+
+def phase_operator_ha(workdir: str, card: dict, gen: torch.Generator) -> dict:
+    """The HA operator composes this card through a crash, a planned
+    handoff and a store outage (docstring, phase 26). Returns the
+    surviving replicas, still running, and the composed group;
+    ``operator_ha_busy`` stops them."""
+    from tpu_composer_torch.agent.nodeagent import LocalNodeAgent
+    from tpu_composer_torch.api import (
+        ComposabilityRequest, ComposabilityRequestSpec, ComposableResource,
+        Node, ObjectMeta, ResourceDetails)
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+    from tpu_composer_torch.runtime import Store
+    from tpu_composer_torch.runtime.cache import CachedClient
+    from tpu_composer_torch.runtime.chaosstore import ChaosStore
+    from tpu_composer_torch.runtime.metrics import (
+        cached_reads_total, dispatcher_drains_total, store_requests_total)
+    from tpu_composer_torch.runtime.shards import ShardFencedError, shard_for
+
+    root = os.path.join(workdir, "operator_ha")
+    # One node agent for the node: the replicas share its CDI and state
+    # directories, as replicas on one host share the node's.
+    agent = LocalNodeAgent(cdi_dir=os.path.join(root, "cdi"),
+                           state_dir=os.path.join(root, "state"))
+    agent.ensure_driver("localhost")
+    gpus = agent.gpus()
+    check(gpus, "the node agent lists no GPU on this host")
+    store = Store()
+    node = Node(metadata=ObjectMeta(name="localhost"))
+    node.status.tpu_slots = len(gpus)
+    store.create(node)
+    chaos = ChaosStore(store)
+    pool = _recording_pool()
+    # The phase watches through a cache of its own, so its polling adds
+    # no store round trips to the operator's.
+    obs = CachedClient(store)
+    reports = []
+    replicas = []
+
+    def rtts():
+        return {f"{ls['verb']} {ls['kind']}": store_requests_total.value(**ls)
+                for ls in store_requests_total.label_sets()
+                if ls["kind"] != "Lease"}
+
+    try:
+        for ident in HA_REPLICAS:
+            r = _ha_replica(ident, store, chaos, pool, agent, reports)
+            replicas.append(r)
+            r["manager"].start(workers_per_controller=2)
+        owned = lambda r: set(r["elector"].owned_shards())  # noqa: E731
+        check(_wait(lambda: sorted(len(owned(r)) for r in replicas)
+                    == [2, 2, 2], 10.0),
+              "operator_ha: the shards never balanced:"
+              f" {[sorted(owned(r)) for r in replicas]}")
+        bootstrap = {r["ident"]: sorted(owned(r)) for r in replicas}
+
+        def owner_of(key, among):
+            shard = shard_for(key, HA_SHARDS)
+            return next((r for r in among if shard in owned(r)), None)
+
+        def submit(name):
+            store.create(ComposabilityRequest(
+                metadata=ObjectMeta(name=name),
+                spec=ComposabilityRequestSpec(resource=ResourceDetails(
+                    type="gpu", model=H100_MODEL, size=1))))
+
+        name, slice_name = "chip-smoke-ha", "chip-smoke-ha-slice"
+        victim = owner_of(name, replicas)
+        obs.list(ComposabilityRequest)
+        obs.list(ComposableResource)
+        rtt0, cached0 = rtts(), cached_reads_total.total()
+        phase_reads = [0]
+        submit(name)
+
+        def mid_attach():
+            # As the victim sees it: the crash freezes its cache there.
+            phase_reads[0] += 1
+            kids = victim["client"].list(
+                ComposableResource, label_selector={LABEL_MANAGED_BY: name})
+            return [k for k in kids if k.status.pending_op is not None
+                    and k.status.state != "Online"]
+
+        check(_wait(lambda: mid_attach(), 30.0, 0.0005),
+              "operator_ha: no child ever carried an attach intent")
+        victim["fuse"].die()
+        victim["dispatcher"].kill()
+        t_crash = time.perf_counter()
+        (caught,) = mid_attach() or [None]
+        check(caught is not None, "operator_ha: the child went Online before"
+              " the crash")
+        crash_state = {"child": caught.metadata.name,
+                       "state": caught.status.state,
+                       "pending_op": caught.status.pending_op.verb,
+                       "device_ids": list(caught.status.device_ids),
+                       "child_owner": (owner_of(caught.metadata.name,
+                                                replicas) or {}).get("ident"),
+                       "request_owner": victim["ident"]}
+        emit("operator_ha", check="crash", **crash_state)
+        lost = sorted(owned(victim))
+        survivors = [r for r in replicas if r is not victim]
+
+        # The crashed replica's renew loop cannot list its leases: it
+        # fences its shards at the renew deadline. Its own reconcile of
+        # the child is then refused at the fabric boundary.
+        check(_wait(lambda: not owned(victim), HA_LEASE_S + 5.0),
+              f"operator_ha: the crashed replica never fenced {lost}")
+        fenced_ms = (time.perf_counter() - t_crash) * 1e3
+        calls0 = len(victim["fabric"].calls)
+        try:
+            victim["res_rec"].reconcile(caught.metadata.name)
+            fence = "returned"
+        except ShardFencedError as e:
+            fence = f"ShardFencedError: {e}"
+        except Exception as e:  # noqa: BLE001 - named in the failure
+            fence = f"{type(e).__name__}: {e}"
+        hand_calls = len(victim["fabric"].calls) - calls0
+        check(fence.startswith("ShardFencedError") and hand_calls == 0,
+              f"operator_ha: the crashed replica's reconcile gave {fence}"
+              f" with {hand_calls} fabric calls")
+
+        check(_wait(lambda: owner_of(name, survivors) is not None,
+                    HA_LEASE_S + 30.0),
+              "operator_ha: no survivor took the request's shard")
+        acquired_ms = (time.perf_counter() - t_crash) * 1e3
+
+        def running():
+            phase_reads[0] += 2
+            req = obs.get(ComposabilityRequest, name)
+            kids = obs.list(ComposableResource,
+                            label_selector={LABEL_MANAGED_BY: name})
+            return (req.status.state == "Running" and len(kids) == 1
+                    and kids[0].status.state == "Online")
+
+        check(_wait(running, HA_LEASE_S + 30.0),
+              "operator_ha: the request never reached Running through a"
+              " survivor")
+        running_ms = (time.perf_counter() - t_crash) * 1e3
+        rtt1 = rtts()
+        round_trips = {k: v - rtt0.get(k, 0.0) for k, v in rtt1.items()
+                       if v != rtt0.get(k, 0.0)}
+        cached = cached_reads_total.total() - cached0 - phase_reads[0]
+        check(set(lost) <= set().union(*(owned(r) for r in survivors)),
+              f"operator_ha: the survivors never took all of {lost}")
+        req = obs.get(ComposabilityRequest, name)
+        (child,) = obs.list(ComposableResource,
+                            label_selector={LABEL_MANAGED_BY: name})
+        check(child.spec.slice_name == slice_name
+              and child.spec.chip_count == 1,
+              f"operator_ha: the child is not one GPU of {slice_name}:"
+              f" {child.spec.to_dict()}")
+        group = f"{slice_name}-worker{child.spec.worker_id}"
+        check(agent.check_visible("localhost", child.status.device_ids,
+                                  group=group),
+              "operator_ha: the request's GPU does not enumerate on the host")
+        spec = _ha_spec(agent, slice_name, child, req)
+        check(sorted(pool._slices) == [slice_name],
+              f"operator_ha: the pool holds {sorted(pool._slices)}, not one"
+              f" reservation {slice_name}")
+        attaches = [ev for ev in pool.events if ev[0] == "attach"]
+        check([ev[1] for ev in attaches] == [child.metadata.name]
+              and not [ev for ev in pool.events if ev[0] == "release"],
+              f"operator_ha: the pool's attach log {pool.events} is not one"
+              " attach of the child")
+        adopted = [(ident, sorted(wins.items()), rep.total)
+                   for ident, wins, rep in reports
+                   if ident != victim["ident"] and "failover" in wins.values()]
+        worker = _ha_worker_kernels(gen)
+
+        # A planned stop of the survivor that owns the request's shard,
+        # once the survivors have rebalanced (a shed in flight would hand
+        # the shard over before the stop).
+        check(_wait(lambda: sorted(len(owned(r)) for r in survivors)
+                    == [3, 3], HA_LEASE_S + 5.0),
+              "operator_ha: the survivors never rebalanced:"
+              f" {[sorted(owned(r)) for r in survivors]}")
+        rebalanced = {r["ident"]: sorted(owned(r)) for r in survivors}
+        owner = owner_of(name, survivors)
+        third = next(r for r in survivors if r is not owner)
+        shard = shard_for(name, HA_SHARDS)
+        stamps = {}
+        release = owner["elector"].release
+
+        def timed_release():
+            stamps["released"] = time.perf_counter()
+            release()
+
+        owner["elector"].release = timed_release
+        third["elector"].on_acquire.append(
+            lambda wins: shard in wins
+            and stamps.setdefault("acquired", time.perf_counter()))
+        drains0 = dispatcher_drains_total.value(outcome="clean")
+        owner["manager"].stop()
+        drains = dispatcher_drains_total.value(outcome="clean") - drains0
+        check(drains == 1, f"operator_ha: the planned stop drained {drains}"
+              " dispatchers, not 1")
+        check(_wait(lambda: "acquired" in stamps, 5.0),
+              "operator_ha: the third replica never took the shard")
+        handoff_ms = (stamps["acquired"] - stamps["released"]) * 1e3
+        check(handoff_ms <= HA_RENEW_S * 1e3 + 50.0,
+              f"operator_ha: the handoff took {handoff_ms:.1f} ms, more than"
+              f" one renew period ({HA_RENEW_S * 1e3:.0f} ms)")
+        check(running(), "operator_ha: the request left Running in the"
+              " handoff")
+
+        # The third replica serves every shard before the outage.
+        check(_wait(lambda: len(owned(third)) == HA_SHARDS, HA_LEASE_S + 5.0),
+              f"operator_ha: the third replica holds {sorted(owned(third))},"
+              " not every shard")
+        # One store outage, as a second request arrives: its first
+        # reconciles' writes fail against the dark store and trip the
+        # breaker, and it is queued once the store is back.
+        second = "chip-smoke-ha-2"
+        port = third["manager"].health_port
+
+        def held_back():
+            doc = _get_json(port, f"/debug/scheduler/explain/{second}")
+            latest = doc.get("latest", {})
+            verdicts = {c["node"]: c["verdict"]
+                        for c in latest.get("candidates", ())}
+            return (latest.get("outcome") == "held-back"
+                    and verdicts.get("localhost")
+                    == "no-tpu-ports free=0 need=1")
+
+        trips0 = third["breaker"].snapshot()["trips"]
+        chaos.blackout_for(HA_BLACKOUT_S)
+        t_dark = time.perf_counter()
+        submit(second)
+        check(_wait(lambda: _get_json(port, "/debug/storebreaker")["trips"]
+                    > trips0, HA_BLACKOUT_S + 5.0, 0.01),
+              "operator_ha: the store breaker never tripped in the outage")
+        tripped = _get_json(port, "/debug/storebreaker")
+        check(_wait(lambda: _get_json(port, "/debug/storebreaker")["state"]
+                    == "closed", 30.0, 0.01),
+              "operator_ha: the store breaker never closed after the outage")
+        closed_ms = (time.perf_counter() - t_dark) * 1e3
+        healed = _get_json(port, "/debug/storebreaker")
+        overload = _get_json(port, "/debug/overload")
+        watchdog = _get_json(port, "/debug/watchdog")
+        check(running(), "operator_ha: the request left Running in the"
+              " outage")
+        check(_wait(lambda: _try(held_back), 30.0, 0.01),
+              "operator_ha: the second request never got its AllocationError"
+              " hold-back record")
+        queued_ms = (time.perf_counter() - t_dark) * 1e3
+        held = _get_json(port, f"/debug/scheduler/explain/{second}")["latest"]
+        second_req = obs.get(ComposabilityRequest, second)
+        check(second_req.status.state in ("", "NodeAllocating")
+              and second_req.status.error,
+              f"operator_ha: the second request's status"
+              f" {second_req.status.to_dict()}")
+        check(not obs.list(ComposableResource,
+                           label_selector={LABEL_MANAGED_BY: second}),
+              "operator_ha: the second request got a child")
+    except BaseException:
+        for r in replicas:
+            r["manager"].stop()
+        raise
+    finally:
+        obs.stop_informers()
+    rec = {"card": card["nvidia_smi"], "replicas": len(HA_REPLICAS),
+           "shards": HA_SHARDS, "lease_duration_s": HA_LEASE_S,
+           "renew_period_s": HA_RENEW_S,
+           "renew_deadline_s": HA_RENEW_DEADLINE_S,
+           "bootstrap": bootstrap, "crash": crash_state, "lost": lost,
+           "crash_to_fenced_ms": fenced_ms,
+           "crash_to_shard_acquired_ms": acquired_ms,
+           "crash_to_running_ms": running_ms,
+           "rebalanced": rebalanced,
+           "graceful_handoff_ms": handoff_ms, "drains_clean": drains,
+           "fence": fence, "fence_fabric_calls": hand_calls,
+           "failover_adoptions": adopted,
+           "store_round_trips_request_to_running": sum(round_trips.values()),
+           "store_round_trips_by_verb": round_trips,
+           "cached_reads_request_to_running": cached,
+           "pool_events": pool.events, "slice": slice_name,
+           "cdi": child.status.cdi_device_id, **spec,
+           "worker_kernels": worker,
+           "outage": {"blackout_s": HA_BLACKOUT_S, "tripped": tripped,
+                      "closed_after_ms": closed_ms, "healed": healed,
+                      "overload_state": overload["state_name"],
+                      "watchdog_subsystems": sorted(watchdog["subsystems"]),
+                      "second_queued_after_ms": queued_ms,
+                      "second": {"error": second_req.status.error,
+                                 "outcome": held["outcome"],
+                                 "binding": held.get("binding")}}}
+    emit("operator_ha", **{k: v for k, v in rec.items() if k != "env"},
+         env=spec["env"])
+    live = [r for r in replicas if r is not owner]
+    return {"manager": _Managers(live), "agent": agent, "group": group,
+            "device_ids": list(child.status.device_ids), **rec}
+
+
+def _try(pred) -> bool:
+    """``pred()``, False while the route it reads is not answering."""
+    try:
+        return pred()
+    except OSError:
+        return False
+
+
+def phase_operator_ha_busy(operator: dict) -> dict:
+    """The busy guard on the survivor's child group, then the surviving
+    replicas stop (docstring, phase 27)."""
+    return phase_operator_busy(operator, "operator_ha_busy")
+
+
 def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
     """The composed H100 worker: the kernels at the probe's new shapes in
     this process (uncounted), then the worker's side of the operator's
@@ -3690,7 +4338,12 @@ def main() -> int:
                   ("operator_request_busy", lambda: phase_operator_busy(
                       done["operator_request"], "operator_request_busy")),
                   ("operator_remote_busy", lambda: phase_operator_remote_busy(
-                      done["operator_remote"]))))):
+                      done["operator_remote"])))),
+                ("operator_ha", ("flash_fwd", "paged_decode"),
+                 (("operator_ha", lambda: phase_operator_ha(
+                     workdir, card, gen)),
+                  ("operator_ha_busy", lambda: phase_operator_ha_busy(
+                      done["operator_ha"]))))):
             _reset_counts()
             for phase_name, fn in phases:
                 done[phase_name] = timed_phase(phase_name, fn)
@@ -3707,7 +4360,7 @@ def main() -> int:
         for w in worlds.values():
             w.close()
         for phase_name in ("operator_attach", "operator_request",
-                           "operator_remote"):
+                           "operator_remote", "operator_ha"):
             if phase_name in done:
                 done[phase_name]["manager"].stop()
         if "operator_remote" in done:

@@ -130,8 +130,18 @@ def _maintenance(tw):
     return nm
 
 
+def _lease(tw):
+    return tw.lease.Lease(
+        metadata=_meta(tw, "shard-3.c5744f42.tpu.composer.dev"),
+        spec=tw.lease.LeaseSpec(holder_identity="replica-1",
+                                lease_duration_seconds=4, acquire_time=TS,
+                                renew_time=TS, lease_transitions=2),
+    )
+
+
 KINDS = {
     "ComposabilityRequest": (_request, "types"),
+    "Lease": (_lease, "lease"),
     "NodeMaintenance": (_maintenance, "maintenance"),
     "ComposableResource": (_resource, "types"),
     "Node": (_node, "types"),
@@ -159,10 +169,10 @@ def test_scheme_registers_the_ported_kinds():
     jax_kinds = set(JAX.scheme.default_scheme().kinds())
     port_kinds = set(PORT.scheme.default_scheme().kinds())
     assert port_kinds == set(KINDS)
-    assert jax_kinds - port_kinds == {"Lease", "FleetTelemetry"}
+    assert jax_kinds - port_kinds == {"FleetTelemetry"}
     s = PORT.scheme.default_scheme()
     with pytest.raises(PORT.scheme.SchemeError):
-        s.decode({"kind": "Lease"})
+        s.decode({"kind": "FleetTelemetry"})
     raw = s.encode_json(_request(PORT))
     assert JAX.scheme.default_scheme().decode_json(raw).to_dict() == \
         s.decode_json(raw).to_dict()

@@ -407,3 +407,21 @@ def test_paged_kernel_is_deterministic(card, pool):
     second = tpa.paged_decode_cuda(*args)
     torch.cuda.synchronize()
     assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
+def test_flash_serving_prefill_shape_matches_plain(card):
+    """K1 without lse at the serving prefill shape that the HA operator's
+    composed worker runs first (one prompt padded to its 256 bucket,
+    8 query heads over 2 KV heads, head_dim 64, bf16, causal), with the
+    CTA height ``_fwd_rows`` picks there; one launch, counted."""
+    rng = np.random.default_rng(13)
+    q = _rand(rng, (1, 256, 8, 64), card, torch.bfloat16)
+    k = _rand(rng, (1, 256, 2, 64), card, torch.bfloat16)
+    v = _rand(rng, (1, 256, 2, 64), card, torch.bfloat16)
+    before = tattn.flash_fwd_cuda.launches
+    got, lse = tattn.flash_fwd_cuda(q, k, v, True)
+    want, _ = tattn.flash_fwd_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    assert lse is None and tattn.flash_fwd_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])

@@ -56,6 +56,11 @@ _MODULES = dict(
     defrag="scheduler.defrag",
     req="controllers.request_controller", syncer="controllers.syncer",
     adoption="controllers.adoption", mc="controllers.maintenance",
+    lease="api.lease", leases="runtime.leases", shards="runtime.shards",
+    cache="runtime.cache", chaosstore="runtime.chaosstore",
+    storebreaker="runtime.storebreaker", overload="runtime.overload",
+    profiler="runtime.profiler", watchdog="runtime.watchdog",
+    contention="runtime.contention",
 )
 
 

@@ -2,8 +2,9 @@
 metadata, the scheme registry and validation.
 
 The kinds the port has are ComposabilityRequest, ComposableResource, Node,
-NodeMaintenance and the DRA pair ResourceSlice and DeviceTaintRule; Lease
-and FleetTelemetry come with the sub-slice that uses them."""
+NodeMaintenance, the DRA pair ResourceSlice and DeviceTaintRule, and the
+coordination Lease (``api/lease.py``); FleetTelemetry comes with the fleet
+plane."""
 
 from tpu_composer_torch.api.meta import ObjectMeta, OwnerReference, now_iso
 from tpu_composer_torch.api.scheme import Scheme, default_scheme

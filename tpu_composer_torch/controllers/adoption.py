@@ -44,9 +44,11 @@ only floor-persisted.
 
 With a fabric dispatcher (``dispatcher=``) an add or remove still in
 progress is handed to its shared per-node re-poll pass; without one it is
-left to the reconcile's own poll timers. The pass is unscoped; the
-shard-scoped variant (``shards=``) comes with the sharded control plane. Adoption is the one designated raw-mutation path: it runs
-post-leader-acquire and pre-controller-start, and its verbs are idempotent
+left to the reconcile's own poll timers. With ``shards=`` and
+``num_shards=`` the pass is scoped to the keys of those shards: the
+shard-acquisition handoff of a sharded control plane. Adoption is the one
+designated raw-mutation path: it runs post-leader-acquire (or
+post-shard-acquire) and pre-controller-start, and its verbs are idempotent
 completion re-reads keyed by the durable intent nonce.
 """
 
@@ -120,13 +122,23 @@ def _devices_for(
     return []
 
 
-def adopt_pending_ops(store, fabric, dispatcher=None) -> AdoptionReport:
+def adopt_pending_ops(
+    store, fabric, dispatcher=None, shards=None, num_shards: int = 1
+) -> AdoptionReport:
     """One cold-start pass over every durable ``pending_op`` record.
 
     Runs post-leader-acquire, pre-controller-start (Manager wiring): by the
     time the first reconcile fires, every surviving intent is either
     resolved into status, cleared for clean re-submission, or already
     re-polling inside the dispatcher (when one is wired).
+
+    With ``shards`` (a set of shard indices) and ``num_shards``, the pass
+    is SCOPED: only intents whose resource key hashes into one of the
+    given shards are classified. This is the shard-acquisition handoff —
+    a shard migration is a cold-start adoption scoped to the moved keys,
+    so failover and rebalancing reuse exactly the machinery the
+    kill–restart scenarios prove. The default (``shards=None``) scans
+    everything, identical to the single-leader pass.
     """
     report = AdoptionReport()
     try:
@@ -136,6 +148,13 @@ def adopt_pending_ops(store, fabric, dispatcher=None) -> AdoptionReport:
         report.errors.append(f"list: {e}")
         return report
     pending = [r for r in resources if r.status.pending_op is not None]
+    if shards is not None:
+        from tpu_composer_torch.runtime.shards import shard_for
+
+        pending = [
+            r for r in pending
+            if shard_for(r.metadata.name, num_shards) in shards
+        ]
     if not pending:
         return report
 

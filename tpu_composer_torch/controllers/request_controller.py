@@ -49,9 +49,10 @@ object's own type and model, which is that test plus the H100; other gpu
 models (TPU model names under ``type="gpu"`` among them) keep the
 reference's independent-device path.
 
-Writes and reads go to ``self.store`` (the port's Store). Shard ownership
-and the fence at the fabric boundary (``ShardFencedError``) arrive with the
-sub-slice that ports the sharded control plane.
+Writes and reads go to ``self.store`` (the port's Store). With a shard
+ownership view (``ownership=``) the workers take only requests of owned
+shards, and the slice verbs fence at call time (``_slice_fabric`` raises
+``ShardFencedError`` for a request whose shard was lost mid-reconcile).
 """
 
 from __future__ import annotations
@@ -104,6 +105,7 @@ from tpu_composer_torch.fabric.provider import (
 )
 from tpu_composer_torch.runtime.controller import Controller, Result
 from tpu_composer_torch.runtime.events import WARNING, EventRecorder
+from tpu_composer_torch.runtime.shards import ShardFencedError
 from tpu_composer_torch.runtime import tracing
 from tpu_composer_torch.runtime.metrics import (
     attach_to_ready_seconds,
@@ -212,7 +214,7 @@ def evacuate_trigger(child: ComposableResource) -> str:
 
 class ComposabilityRequestReconciler(Controller):
     primary_kind = "ComposabilityRequest"
-    quiet_exceptions = (FabricError, TopologyError)
+    quiet_exceptions = (FabricError, TopologyError, ShardFencedError)
 
     def __init__(
         self,
@@ -223,8 +225,17 @@ class ComposabilityRequestReconciler(Controller):
         scheduler: Optional[ClusterScheduler] = None,
         repair: Optional[RepairConfig] = None,
         migrate: Optional[MigrateConfig] = None,
+        ownership=None,  # runtime.shards.ShardOwnership; None = unsharded
     ) -> None:
-        super().__init__(store)
+        # Sharded mode: this replica reconciles only requests whose key
+        # hashes into an owned shard. Children hash independently — their
+        # attach/detach runs on whichever replica owns each child's shard.
+        # This controller's remaining writes are child create/delete
+        # (CAS-protected, shard-safe) and the SLICE fabric verbs
+        # (reserve/resize/release/repair), which are fenced at call time
+        # via _slice_fabric — a replica fenced mid-reconcile must never
+        # mutate a slice a successor already owns.
+        super().__init__(store, ownership=ownership)
         self.fabric = fabric
         self.timing = timing or RequestTiming()
         self.recorder = recorder or EventRecorder()
@@ -436,9 +447,20 @@ class ComposabilityRequestReconciler(Controller):
 
     def _slice_fabric(self, req: ComposabilityRequest):
         """Fabric handle for SLICE mutations (reserve/resize/release/
-        repair). The JAX package fence-checks shard ownership here; the
-        port's operator is unsharded until the sharded control plane is
-        ported, so every request is this replica's."""
+        repair), fence-checked at call time: the worker-side ownership
+        filter stops new reconciles for unowned request keys, but a shard
+        can be fenced mid-reconcile — this is the last point the
+        split-brain invariant can be enforced before a deposed replica
+        destroys or re-shapes a slice its successor already owns. The
+        quiet ShardFencedError requeues; the successor's reconcile (after
+        scoped adoption) re-derives the slice state idempotently."""
+        if self.ownership is not None and not self.ownership.owns_key(
+            req.metadata.name
+        ):
+            raise ShardFencedError(
+                f"{req.metadata.name}: shard no longer owned by this"
+                " replica; slice mutation fenced"
+            )
         return self.fabric
 
     def _quarantined_nodes(self) -> set:

@@ -40,9 +40,11 @@ Without a dispatcher, fabric verbs run inline on the worker thread. With
 the scheduler's decision ledger wired (``decision_ledger=``), attach
 intents join the placement decision that planned them. A breaker's
 endpoint-wide rejection (``BreakerOpenError`` without a scope) never burns
-a node's attach budget. Shard ownership and the fence at the fabric write
-boundary are the JAX package's only collaborators the port leaves out:
-they come with the sharded control plane.
+a node's attach budget. With a shard ownership view (``ownership=``, a
+``runtime.shards.ShardOwnership``), the workers drop keys of shards this
+replica does not own, and both fabric write sites fence: a key whose
+shard was lost mid-reconcile raises ``ShardFencedError`` before the
+fabric sees the verb.
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ from tpu_composer_torch.runtime import tracing
 from tpu_composer_torch.runtime.contention import ObservedLock
 from tpu_composer_torch.runtime.controller import Controller, Result
 from tpu_composer_torch.runtime.events import WARNING, EventRecorder
+from tpu_composer_torch.runtime.shards import ShardFencedError
 from tpu_composer_torch.runtime.metrics import (
     composed_chips,
     fabric_requests_total,
@@ -179,7 +182,7 @@ def degrade_member(
 
 class ComposableResourceReconciler(Controller):
     primary_kind = "ComposableResource"
-    quiet_exceptions = (FabricError, AgentError)
+    quiet_exceptions = (FabricError, AgentError, ShardFencedError)
 
     def __init__(
         self,
@@ -191,8 +194,9 @@ class ComposableResourceReconciler(Controller):
         publisher=None,  # DevicePublisher; default built on the store
         decision_ledger=None,  # scheduler.DecisionLedger; None = no joins
         dispatcher=None,  # fabric.dispatcher.FabricDispatcher; None = direct
+        ownership=None,  # runtime.shards.ShardOwnership; None = unsharded
     ) -> None:
-        super().__init__(store)
+        super().__init__(store, ownership=ownership)
         # The scheduler's decision ledger (the same instance the request
         # controller's ClusterScheduler records into): attach intents join
         # the placement decision that planned them at mint time. Explicit
@@ -802,9 +806,26 @@ class ComposableResourceReconciler(Controller):
         res.status.pending_op = self._new_intent(verb, res)
         return self.store.update_status(res)
 
+    def _fence_check(self, res: ComposableResource) -> None:
+        """End-to-end shard fencing at the fabric write boundary: the
+        worker-side ownership filter stops NEW reconciles for unowned
+        keys, but ownership can flip mid-reconcile (a shard lease fenced
+        between dequeue and the fabric call) — the mutation itself is the
+        last point the invariant can be enforced. The durable intent
+        already written stays put; the shard's new owner resolves it via
+        scoped adoption."""
+        if self.ownership is not None and not self.ownership.owns_key(
+            res.metadata.name
+        ):
+            raise ShardFencedError(
+                f"{res.metadata.name}: shard no longer owned by this"
+                " replica; mutation fenced"
+            )
+
     def _fabric_add(self, res: ComposableResource):
         """Attach via the dispatcher (submit-and-return + completion latch)
         or inline when batching is disabled."""
+        self._fence_check(res)
         if self.dispatcher is None:
             return self.fabric.add_resource(res)
         name = res.metadata.name
@@ -823,6 +844,7 @@ class ComposableResourceReconciler(Controller):
         )
 
     def _fabric_remove(self, res: ComposableResource) -> None:
+        self._fence_check(res)
         if self.dispatcher is None:
             return self.fabric.remove_resource(res)
         name = res.metadata.name

@@ -382,10 +382,11 @@ _crash_dumped = False
 
 
 def dump_crash(reason: str) -> None:
-    """Best-effort black-box write: flight ledger + trace ring, env-gated
-    ($TPUC_FLIGHT_FILE / $TPUC_TRACE_FILE). The profile ring, SLO
-    snapshot, fleet view, lockdep report and decision ring of the JAX
-    package arrive with the modules that keep them. Never raises."""
+    """Best-effort black-box write: flight ledger + trace ring + the
+    continuous-profile ring, env-gated ($TPUC_FLIGHT_FILE /
+    $TPUC_TRACE_FILE / $TPUC_PROFILE_FILE). The SLO snapshot, fleet view,
+    lockdep report and decision ring of the JAX package arrive with the
+    modules that keep them. Never raises."""
     global _crash_dumped
     if reason != "atexit":
         _crash_dumped = True
@@ -395,6 +396,14 @@ def dump_crash(reason: str) -> None:
         pass
     try:
         tracing.write_file()
+    except Exception:
+        pass
+    # Late import: the crash path should survive a partially-imported
+    # interpreter at exit.
+    try:
+        from tpu_composer_torch.runtime import profiler as _profiler
+
+        _profiler.dump_file()
     except Exception:
         pass
 

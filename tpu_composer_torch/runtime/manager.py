@@ -6,17 +6,26 @@ controllers are registered, optional leader election gates startup, healthz/
 readyz endpoints back the Deployment probes (config/manager/manager.yaml:73-85),
 and a metrics endpoint serves Prometheus text.
 
-The port keeps the controllers, the runnables, leader election on a lock
-file, the health server (``/healthz``, ``/readyz``, ``/metrics``, the
-trace and lifecycle routes, and the scheduler's observatory:
-``/debug/defrag``, ``/debug/scheduler/explain/<name>``,
-``/debug/scheduler/capacity`` and ``/debug/goodput``), the startup hooks,
-the lifecycle recorder and the graceful stop, which drains the fabric
-dispatcher's lanes first (``dispatcher=``). The JAX manager's other
-optional collaborators (the sampling profiler, the SLO engine, the fleet plane, the overload governor, the
-watchdog, the store breaker, lease electors, replica identity and the TLS
-metrics port) and their ``/debug/*`` routes arrive with the modules they
-need.
+The port keeps the controllers, the runnables, leader election (on a
+lock file, or any elector passed as ``leader_elector=``: a
+``runtime.leases.LeaseElector`` or a ``runtime.shards.ShardLeaseElector``),
+the health server (``/healthz``, ``/readyz``, ``/metrics``, the trace and
+lifecycle routes, the scheduler's observatory: ``/debug/defrag``,
+``/debug/scheduler/explain/<name>``, ``/debug/scheduler/capacity`` and
+``/debug/goodput``, and the survival layer's ``/debug/overload``,
+``/debug/watchdog``, ``/debug/storebreaker`` and ``/debug/profile*``), the
+startup hooks, ``resync`` (the shard-acquisition hook), the replica
+identity (``replica_id=``) that tags the dispatcher's, the controllers'
+and the runnables' trace events, the always-on sampling profiler, the
+overload governor, the subsystem watchdog (whose restarter is
+``_respawn_runnable``), the store breaker, the lifecycle recorder and the
+graceful stop, which drains the fabric dispatcher's lanes first
+(``dispatcher=``) and stops a ``CachedClient`` store's informers last.
+Three collaborators of the JAX manager are not ported yet: the SLO engine
+(``slo_engine=``, ``/debug/slo``), the fleet plane (``fleet=``,
+``/debug/fleet``) and the TLS metrics port (``metrics_addr=`` with its
+bearer token), together with the lockdep witness route
+(``/debug/lockdep``).
 """
 
 from __future__ import annotations
@@ -26,12 +35,12 @@ import json
 import logging
 import threading
 import urllib.parse
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from tpu_composer_torch.runtime.controller import Controller
 from tpu_composer_torch.runtime.events import EventRecorder
 from tpu_composer_torch.runtime.leader import LeaderElector
-from tpu_composer_torch.runtime import lifecycle, tracing
+from tpu_composer_torch.runtime import lifecycle, profiler as profiler_mod, tracing
 from tpu_composer_torch.runtime.metrics import global_registry
 from tpu_composer_torch.runtime.store import Store
 
@@ -51,6 +60,11 @@ DEBUG_ENDPOINTS = {
     "/debug/requests": "names with recorded lifecycle timelines",
     "/debug/requests/<name>": "one CR's timeline: phase transitions,"
                               " events, span summaries",
+    "/debug/profile": "on-demand stack profile burst"
+                      " (?seconds=&format=top|collapsed|json)",
+    "/debug/profile/continuous": "the always-on profiler's window ring:"
+                                 " per-subsystem wall/CPU/GIL estimates +"
+                                 " top frames",
     "/debug/defrag": "defragmentation report: a fresh dry-run plan (never"
                      " executed) with per-candidate skip reasons, plus the"
                      " last periodic pass's record and breaker state",
@@ -64,6 +78,15 @@ DEBUG_ENDPOINTS = {
     "/debug/goodput": "per-request goodput accounting: Ready-serving vs"
                       " queued/degraded/repairing/migrating wall seconds"
                       " and the fleet-local ratio",
+    "/debug/overload": "overload governor state: Ok/Warn/Shed with the"
+                       " signals behind the verdict, stretched cadences"
+                       " and shed counts (503 under TPUC_OVERLOAD=0)",
+    "/debug/watchdog": "subsystem heartbeat registry: last-beat age,"
+                       " stall/restart counts per subsystem and the last"
+                       " stall's profiler burst (503 under TPUC_WATCHDOG=0)",
+    "/debug/storebreaker": "store circuit breaker: state, trips, outage"
+                           " seconds and resync-pacing status (503 under"
+                           " TPUC_STORE_BREAKER=0)",
 }
 
 # A runnable is the analog of manager.Add(RunnableFunc) used by the
@@ -73,7 +96,8 @@ Runnable = Callable[[threading.Event], None]
 
 def _runnable_name(r) -> str:
     """Stable thread name for a runnable: the owning class for bound
-    methods and callable instances, the function name otherwise."""
+    methods (FabricDispatcher.run -> 'FabricDispatcher') and callable
+    instances (UpstreamSyncer), the function name otherwise."""
     owner = getattr(r, "__self__", None)
     if owner is not None:
         return type(owner).__name__
@@ -192,8 +216,76 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
                 self._respond_json(
                     200, json.dumps(gp.snapshot(), indent=1).encode()
                 )
+        elif path == "/debug/overload":
+            gov = self.manager.overload
+            if gov is None:
+                self._respond(
+                    503, "overload governor disabled (TPUC_OVERLOAD=0)"
+                )
+            else:
+                self._respond_json(
+                    200, json.dumps(gov.snapshot(), indent=1).encode()
+                )
+        elif path == "/debug/watchdog":
+            wd = self.manager.watchdog
+            if wd is None:
+                self._respond(503, "watchdog disabled (TPUC_WATCHDOG=0)")
+            else:
+                self._respond_json(
+                    200, json.dumps(wd.snapshot(), indent=1).encode()
+                )
+        elif path == "/debug/storebreaker":
+            brk = self.manager.storebreaker
+            if brk is None:
+                self._respond(
+                    503, "store breaker disabled (TPUC_STORE_BREAKER=0)"
+                )
+            else:
+                self._respond_json(
+                    200, json.dumps(brk.snapshot(), indent=1).encode()
+                )
+        elif path == "/debug/profile/continuous":
+            prof = self.manager.profiler
+            if prof is None:
+                self._respond(503, "profiler disabled (TPUC_PROFILE=0)")
+            else:
+                self._respond_json(200, json.dumps({
+                    "interval_s": prof.interval,
+                    "window_s": prof.window_s,
+                    "windows": prof.windows(),
+                    "summary": prof.thread_summary(),
+                }, indent=1).encode())
+        elif path == "/debug/profile":
+            # On-demand burst profile on this handler thread (explicitly
+            # requested, so it runs even under TPUC_PROFILE=0).
+            self._profile_burst(query)
         else:
             self._respond(404, "not found")
+
+    def _profile_burst(self, query) -> None:
+        try:
+            seconds = float((query.get("seconds") or ["2"])[0])
+        except ValueError:
+            seconds = 2.0
+        seconds = max(0.1, min(30.0, seconds))
+        fmt = (query.get("format") or ["top"])[0]
+        prof = profiler_mod.profile_burst(seconds=seconds)
+        if fmt == "collapsed":
+            # Flamegraph-folded text: pipe into flamegraph.pl / speedscope.
+            self._respond(200, prof.collapsed())
+        elif fmt == "json":
+            self._respond_json(200, json.dumps({
+                "seconds": seconds,
+                "threads": prof.thread_summary(),
+                "top": prof.top(25),
+                "collapsed": prof.collapsed().splitlines(),
+            }, indent=1).encode())
+        else:  # top (default)
+            self._respond_json(200, json.dumps({
+                "seconds": seconds,
+                "threads": prof.thread_summary(),
+                "top": prof.top(25),
+            }, indent=1).encode())
 
     @staticmethod
     def _trace_body(query) -> bytes:
@@ -229,18 +321,27 @@ class Manager:
         store: Optional[Store] = None,
         leader_elect: bool = False,
         leader_lock_path: Optional[str] = None,
+        leader_elector=None,  # custom elector (e.g. runtime.leases.LeaseElector)
         health_addr: Optional[str] = None,  # "host:port" or None to disable
         dispatcher=None,  # FabricDispatcher to drain at shutdown/handoff
         drain_timeout: float = 8.0,  # seconds; <= 0 disables graceful drain
+        profiler=None,  # SamplingProfiler override (None = default when enabled)
+        replica_id: Optional[str] = None,  # fleet identity for trace pids
         defrag=None,  # scheduler.DefragLoop serving /debug/defrag
         decisions=None,  # scheduler.DecisionLedger serving explain routes
         capacity=None,  # runtime.capacity.CapacityObservatory
         goodput=None,  # runtime.goodput.GoodputTracker
+        overload=None,  # runtime.overload.OverloadGovernor
+        watchdog=None,  # runtime.watchdog.Watchdog
+        storebreaker=None,  # runtime.storebreaker.BreakingStore
     ) -> None:
         # `is not None`, not `or`: an EMPTY store is falsy (Store.__len__),
         # and silently swapping in a fresh one would orphan the caller's
         # admission hooks and persistence settings.
         self.store = store if store is not None else Store()
+        # The handle may be a runtime.cache.CachedClient (the watch-fed
+        # informer facade): the manager owns its lifecycle and stops the
+        # informer threads on shutdown.
         self.recorder = EventRecorder()
         self.log = logging.getLogger("manager")
         self._controllers: List[Controller] = []
@@ -248,13 +349,23 @@ class Manager:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._started = False
-        #: set when a running leader loses its lock (the caller exits non-zero)
+        #: set when a running leader loses its lease (the caller exits non-zero)
         self.lost_leadership = False
-        self._elector = LeaderElector(leader_lock_path) if leader_elect else None
+        self._elector = leader_elector or (
+            LeaderElector(leader_lock_path) if leader_elect else None
+        )
         self._health_addr = health_addr
         self._health_server: Optional[http.server.ThreadingHTTPServer] = None
         self._dispatcher = dispatcher
         self._drain_timeout = drain_timeout
+        # Fleet observatory plumbing: the replica identity tags every
+        # trace event recorded by this manager's threads (controller
+        # workers, dispatcher lanes, runnables) with a stable pseudo-pid,
+        # so N in-proc replicas sharing one trace ring still render — and
+        # merge — as N distinct Perfetto processes, exactly like real OS
+        # replicas do via their real pids. None (the default) changes
+        # nothing: events keep plain os.getpid().
+        self.replica_id = replica_id
         # Defrag loop handle for /debug/defrag (dry-run plan + skip
         # reasons); None = loop not wired.
         self.defrag = defrag
@@ -266,15 +377,55 @@ class Manager:
         self.decisions = decisions
         self.capacity = capacity
         self.goodput = goodput
-        # Post-leader-acquire / pre-controller-start hooks: they run only
-        # once leadership is held — a standby must not probe the fabric —
-        # and strictly before the first reconcile fires.
+        # Survival-layer handles (all None under their TPUC_*=0 hatches):
+        # the overload governor (/debug/overload), the subsystem watchdog
+        # (/debug/watchdog) and the store circuit breaker
+        # (/debug/storebreaker).
+        self.overload = overload
+        self.watchdog = watchdog
+        self.storebreaker = storebreaker
+        if watchdog is not None:
+            # A stalled RESTARTABLE runnable is respawned through this
+            # hook: the old thread is abandoned (daemon, unjoinable while
+            # wedged) and a fresh one takes over its name. Unknown names
+            # (nothing started yet) just return False.
+            watchdog.restarter = self._respawn_runnable
+        #: runnable-name -> runnable, built by start(); the watchdog's
+        #: respawn hook resolves restart targets through it.
+        self._runnable_by_name: Dict[str, Runnable] = {}
+        # Post-leader-acquire / pre-controller-start hooks (cold-start
+        # adoption of durable fabric intents, controllers/adoption.py):
+        # they run only once leadership is held — a standby must not probe
+        # the fabric — and strictly before the first reconcile fires.
         self._startup_hooks: List[Callable[[], None]] = []
         # Observability plumbing: span sink + crash hooks (atexit /
         # unhandled thread exception -> flight-recorder + trace dump) are
         # registered once per process; the lifecycle watch runnable below
         # feeds per-CR phase timelines from this manager's store.
         lifecycle.install()
+        # Control-plane observatory (always-on by default, TPUC_PROFILE=0
+        # escape hatch): the sampling profiler runs as a manager-owned
+        # thread; /debug/profile* on the health port reads it.
+        if profiler is not None:
+            self.profiler = profiler
+        else:
+            self.profiler = (
+                profiler_mod.SamplingProfiler()
+                if profiler_mod.enabled() else None
+            )
+
+    def _bound(self, target):
+        """Wrap a thread target so the thread tags its trace events with
+        this manager's replica identity before running (no-op unbound)."""
+        if not self.replica_id:
+            return target
+        rid = self.replica_id
+
+        def run(*args, **kwargs):
+            tracing.bind_thread(rid)
+            return target(*args, **kwargs)
+
+        return run
 
     def add_controller(self, controller: Controller) -> None:
         self._controllers.append(controller)
@@ -284,10 +435,30 @@ class Manager:
 
     def add_startup_hook(self, hook: Callable[[], None]) -> None:
         """Run ``hook`` after leader acquisition and before any controller
-        starts. Hook failures are logged, not fatal: the reconcile-path
-        safety nets (idempotent verbs, poll timers) still converge, just
-        slower."""
+        starts (the cold-start adoption slot). Hook failures are logged,
+        not fatal: the reconcile-path safety nets (idempotent verbs, poll
+        timers, the syncer) still converge, just slower."""
         self._startup_hooks.append(hook)
+
+    def resync(self, match: Callable[[str], bool]) -> None:
+        """Re-enqueue every primary object whose key ``match`` accepts into
+        its controller's work queue. The shard-acquisition hook: a shard
+        picked up AFTER startup has no watch events pending for its
+        objects, so the new owner must level-trigger a reconcile wave over
+        the moved keys (the in-process analog of a cache resync)."""
+        for c in self._controllers:
+            if not c.primary_kind:
+                continue
+            try:
+                cls = self.store.scheme.lookup(c.primary_kind)
+                for obj in self.store.list(cls):
+                    if match(obj.metadata.name):
+                        c.queue.add(obj.metadata.name)
+            except Exception:
+                self.log.exception(
+                    "resync of %s failed; poll timers will converge",
+                    c.primary_kind,
+                )
 
     def ready(self) -> bool:
         return self._started
@@ -316,10 +487,12 @@ class Manager:
             if not self._elector.acquire(stop_event=self._stop):
                 return
             self.log.info("became leader")
-            # Fencing enforcement: a deposed leader must stop driving the
-            # fabric before the successor starts — client-go's analog exits
-            # the process; we stop the manager and set lost_leadership so
-            # the caller can exit non-zero (restart → rejoin as standby).
+            # Fencing enforcement: leadership can be LOST after start (a
+            # LeaseElector that fails to renew through a partition stands
+            # down). A deposed leader must stop driving the fabric before
+            # the successor starts — client-go's analog exits the process;
+            # we stop the manager and set lost_leadership so the caller
+            # can exit non-zero (restart → rejoin as standby).
             t = threading.Thread(
                 target=self._leadership_watchdog, name="leader-watchdog",
                 daemon=True,
@@ -327,6 +500,10 @@ class Manager:
             t.start()
             self._threads.append(t)
 
+        # Cold-start adoption window: leadership (if any) is held, no
+        # controller worker is running yet — in-flight fabric intents from
+        # the previous incarnation are classified and resolved here so the
+        # first reconcile wave starts from reconstructed state.
         for hook in self._startup_hooks:
             try:
                 hook()
@@ -339,25 +516,66 @@ class Manager:
         # transition (phase durations -> tpuc_phase_duration_seconds, the
         # /debug/requests timelines, and the flight recorder's ledger).
         t = threading.Thread(
-            target=lifecycle.watch_runnable(self.store),
+            target=self._bound(lifecycle.watch_runnable(self.store)),
             args=(self._stop,),
             name="lifecycle-watch", daemon=True,
         )
         t.start()
         self._threads.append(t)
 
+        # Observatory: the always-on stack sampler (absent under
+        # TPUC_PROFILE=0).
+        if self.profiler is not None:
+            t = threading.Thread(
+                target=self.profiler.run, args=(self._stop,),
+                name="profiler", daemon=True,
+            )
+            t.start()
+            self._threads.append(t)
+
+        # Tag the dispatcher BEFORE any controller starts: a controller
+        # worker's first submission lazily spawns the lane threads, and a
+        # lane that spawns before the tag lands would record untagged pids
+        # for the rest of the process.
+        if self.replica_id and self._dispatcher is not None:
+            if getattr(self._dispatcher, "replica_id", None) is None:
+                self._dispatcher.replica_id = self.replica_id
         for c in self._controllers:
+            # Controller worker/dispatch threads bind the replica identity
+            # themselves (runtime/controller.py) — the attribute survives
+            # stop/start cycles the way a wrapped target would not.
+            if self.replica_id and getattr(c, "replica_id", None) is None:
+                c.replica_id = self.replica_id
             c.start(workers=workers_per_controller)
         for r in self._runnables:
-            # Named after the runnable: an anonymous Thread-N says nothing
-            # in a stack dump.
+            # Named after the runnable (UpstreamSyncer, FabricDispatcher,
+            # FabricSession, ...): the profiler attributes samples by
+            # thread name, and an anonymous Thread-N would land every
+            # runnable in its 'other' bucket.
+            name = _runnable_name(r)
+            self._runnable_by_name[name] = r
             t = threading.Thread(
-                target=r, args=(self._stop,), daemon=True,
-                name=_runnable_name(r),
+                target=self._bound(r), args=(self._stop,), daemon=True,
+                name=name,
             )
             t.start()
             self._threads.append(t)
         self._started = True
+
+    def _respawn_runnable(self, name: str) -> bool:
+        """Watchdog respawn hook: start a fresh thread for the runnable
+        registered under ``name``. The wedged thread is left behind — it
+        is a daemon, and joining it would wedge the watchdog too."""
+        r = self._runnable_by_name.get(name)
+        if r is None or self._stop.is_set():
+            return False
+        t = threading.Thread(
+            target=self._bound(r), args=(self._stop,), daemon=True, name=name
+        )
+        t.start()
+        self._threads.append(t)
+        self.log.warning("respawned runnable %s after watchdog stall", name)
+        return True
 
     def _leadership_watchdog(self) -> None:
         while not self._stop.wait(1.0):
@@ -369,6 +587,9 @@ class Manager:
                 self.log.error("leadership lost — stopping controllers")
                 lease_transitions_total.inc(event="deposed")
                 self.lost_leadership = True
+                # Exactly once per deposition: the watchdog fires a single
+                # time and returns (a ShardLeaseElector never trips it —
+                # shard losses fence per-shard, not per-process).
                 # stop() joins threads including this one; run it from a
                 # helper thread to avoid self-join.
                 threading.Thread(
@@ -380,8 +601,9 @@ class Manager:
         """Graceful stop: the dispatcher's drain, then the controllers
         (their queues drain and their workers join), the health server,
         the runnables and the lifecycle watch, the goodput tracker's sink,
-        then the leader lock; the span ring is persisted when
-        ``$TPUC_TRACE_FILE`` is set."""
+        a ``CachedClient`` store's informers, then the leader lock or
+        lease; the span ring is persisted when ``$TPUC_TRACE_FILE`` is
+        set."""
         # Graceful drain BEFORE anything is torn down: the controllers
         # must stay live while lanes flush, because completions re-enqueue
         # CR keys and those reconciles are what persist outcomes. Skipped
@@ -395,8 +617,11 @@ class Manager:
             and self._started
             and not self.lost_leadership
             # Live leadership check, not just the watchdog flag: the
-            # watchdog polls on a period, so a lock lost moments ago may
-            # not have set lost_leadership yet.
+            # watchdog polls on a period, so a lease that expired
+            # moments ago may not have set lost_leadership yet — and a
+            # deposed leader draining for up to drain_timeout while the
+            # successor adopts is exactly the double-driving window
+            # fencing must close.
             and (self._elector is None or self._elector.is_leader)
             and not self._stop.is_set()
         ):
@@ -433,6 +658,12 @@ class Manager:
         # accumulate dead trackers behind every later transition.
         if self.goodput is not None:
             lifecycle.remove_transition_sink(self.goodput.observe)
+        # Informer shutdown AFTER the controllers: their stop() paths may
+        # still read through the cache, and the store watches the informers
+        # hold must unsubscribe before the process exits.
+        stop_informers = getattr(self.store, "stop_informers", None)
+        if callable(stop_informers):
+            stop_informers()
         if self._elector is not None:
             self._elector.release()
         self._started = False
