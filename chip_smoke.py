@@ -7,8 +7,10 @@ user's request for it and composing it, in process and over each remote
 fabric backend, then coordinates from the REST_CM request's CDI spec,
 bootstrap, staged probe), and the high-availability operator (three
 replicas over six shard leases composing the card through a crash, a
-planned handoff and a store outage), on one NVIDIA GPU and hold
-every CUDA kernel of those paths against its plain PyTorch version.
+planned handoff and a store outage, then over the fake apiserver's
+``tpuc-mux/1`` wire with the fleet view, the SLO engine and the
+lock-order witness on), on one NVIDIA GPU and hold every CUDA kernel of
+those paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--nccl-world]
 
@@ -276,16 +278,56 @@ nonzero. Phases, in order:
     cached reads, with the card's name and power limit.
 27. ``operator_ha_busy``: phase 20's busy guard on the survivor's child
     group; then the remaining replicas stop (the card runs no detach).
-28. ``timing`` (the whole run's seconds, builds included, and each
+28. ``operator_fleet``: the operator over the apiserver's wire. The
+    port's ``FakeApiServer`` on 127.0.0.1 (the ``tpuc-mux/1`` transport
+    on), seeded with the operator's routes and the core Node
+    ``localhost`` advertising its GPUs under ``tpu.composer.dev/chips``;
+    3 replicas over K = 6 shard leases (the timings of phase 26), each
+    with its own ``KubeStore`` (mux, pinged every 0.25 s) behind a crash
+    fuse, a ``CachedClient``, a ``ShardLeaseElector``, a dispatcher with
+    ``owns=``, both reconcilers with ``ownership=``, an ``SloEngine`` on
+    the default objectives (evaluated every 0.25 s) and a ``FleetPlane``
+    (publish every 0.25 s, stale after 1 s), and phase 26's shard hooks;
+    ``replica-c`` dials through the port's ``ChaosProxy``. The port's
+    lock-order witness runs strict from the phase's start to phase 29's
+    end. The request (gpu, ``nvidia-h100-sxm``, size 1, named so that
+    its owner is not the proxied replica) is submitted and its owner
+    crashes mid-attach, as in phase 26; within the staleness window plus
+    two publish periods (and 0.5 s) both survivors' ``/debug/fleet``
+    show the victim ``stale: true`` and 2 live replicas; the victim's
+    hand reconcile raises ``ShardFencedError`` with no fabric call; a
+    survivor takes the request to Running with one reservation and one
+    attach, held to phase 21's checks (status.slice, the reservation,
+    one Online child, the spec env against ``slice_env`` and the hand
+    composition, the GPU node CUDA holds). The fleet-merged
+    attach-to-ready count equals the process registry's own (three
+    replicas, one process token: counted once); ``/debug/slo`` lists
+    the four default objectives with finite burn rates. K1 and K2 run
+    once each as in phase 26. Then the proxied replica's wire goes dark
+    for 1 s (its connections reset, new ones silent until the heal): its
+    ``KubeStore`` reconnects, its watches resume or relist, and it reads
+    the request Running, keeping its shards. No ``KubeStore`` fell back
+    to plain HTTP, and ``/debug/lockdep`` reports no violation. It prints
+    request-to-Running and crash-to-Running ms (both over the wire, the
+    first including the failover), crash-to-stale ms, wire requests by
+    verb per replica, mux frames (both sides, this process) and
+    reconnects, the drop's relists and watch resumes, each replica's
+    fleet publish and aggregate ms, the local and fleet burn rates and
+    the witness's edge count, with the card's name and power limit.
+29. ``operator_fleet_busy``: a second size-1 H100 request over the
+    wire, on the full host: held back with its explain record
+    (``no-tpu-ports free=0 need=1``) and no child, the witness still
+    clean; then the replicas, the proxy and the apiserver stop.
+30. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
     mesh_training 15-16, pipeline_training 17, reshard_training 18,
-    composed_worker 19-25, operator_ha 26-27, the ranks' and the probe
-    child's counts summed in); then the kernels line
+    composed_worker 19-25, operator_ha 26-27, operator_fleet 28-29, the
+    ranks' and the probe child's counts summed in); then the kernels line
     ``{"kernels": [...]}``: per kernel its launches summed over every
     path and by path, max error, kernel / plain / library ms (device
     time), the kernel's issue ms, and the bound.
-29. the last line: ``{"ok": true, "device": {...}}``.
+31. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -312,8 +354,8 @@ losses 1e-3 relative; the pipelined forward's logits 1e-4; the
 resharded and restored runs' losses 2e-4 relative to the never-resized
 run's (``tests/test_reshard.py``'s bound), their states equal to the
 source's exactly. K2 mid-flight against the
-gather path: 5e-2 (bf16 pool), 1e-1 (int8). ``operator_ha``'s K1 and
-K2: bf16 2e-2. Token streams
+gather path: 5e-2 (bf16 pool), 1e-1 (int8). ``operator_ha``'s and
+``operator_fleet``'s K1 and K2: bf16 2e-2. Token streams
 (``serve_exact``, ``moe_serve_exact``, ``speculative``): equal; on a
 mismatch the target's top-2 logit gap at the first diverging token is
 printed (under 1e-4 names float drift).
@@ -325,11 +367,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3653,10 +3697,12 @@ def _wait(pred, timeout: float, interval: float = 0.002) -> bool:
     return True
 
 
-def _ha_worker_kernels(gen: torch.Generator) -> dict:
+def _ha_worker_kernels(gen: torch.Generator,
+                       phase: str = "operator_ha") -> dict:
     """The composed worker's first work: K1 without lse at the serving
     prefill shape and K2 at the dense engine's decode shape, each once,
-    counted under ``operator_ha``, against its plain version."""
+    counted under ``phase`` (``operator_ha`` or ``operator_fleet``),
+    against its plain version."""
     from tpu_composer_torch.ops.attention import (
         flash_fwd_cuda, flash_fwd_plain)
     from tpu_composer_torch.ops.paged_attention import (
@@ -3673,8 +3719,8 @@ def _ha_worker_kernels(gen: torch.Generator) -> dict:
     want2 = paged_decode_plain(*args)
     torch.cuda.synchronize()
     e1, e2 = max_err(got, want), max_err(got2, want2)
-    check(e1 <= TOL[dtype], f"operator_ha: K1 error {e1}")
-    check(e2 <= TOL[dtype], f"operator_ha: K2 error {e2}")
+    check(e1 <= TOL[dtype], f"{phase}: K1 error {e1}")
+    check(e2 <= TOL[dtype], f"{phase}: K2 error {e2}")
     return {"flash_fwd": {"shape": [1, 256, 8, 2, 64], "dtype": "bfloat16",
                           "causal": True, "max_abs_err": e1},
             "paged_decode": {"shape": [8, 8, 2, 64, 16, 32], "dtype":
@@ -3683,7 +3729,8 @@ def _ha_worker_kernels(gen: torch.Generator) -> dict:
             "tol": TOL[dtype]}
 
 
-def _ha_spec(agent, slice_name: str, child, req) -> dict:
+def _ha_spec(agent, slice_name: str, child, req,
+             phase: str = "operator_ha") -> dict:
     """The child's CDI spec, held to ``slice_env`` and the hand
     composition, its GPU node to the card CUDA holds."""
     from tpu_composer_torch.admission import slice_env
@@ -3691,20 +3738,20 @@ def _ha_spec(agent, slice_name: str, child, req) -> dict:
 
     hand = _compose_one_gpu(slice_name)
     path = spec_path(agent.cdi_dir, hand)
-    check(os.path.exists(path), f"operator_ha: no CDI spec at {path}")
+    check(os.path.exists(path), f"{phase}: no CDI spec at {path}")
     with open(path) as f:
         doc = json.load(f)
     edits = doc["devices"][0]["containerEdits"]
     spec_env = dict(e.split("=", 1) for e in edits["env"])
     want_env = slice_env(req.status.slice, child.spec.worker_id, H100_MODEL)
     check(spec_env == want_env == hand.env,
-          f"operator_ha: the child's spec env {spec_env} != slice_env"
+          f"{phase}: the child's spec env {spec_env} != slice_env"
           f" {want_env} or the hand composition's {hand.env}")
     nodes = [n["path"] for n in edits["deviceNodes"]]
     gpu_nodes = [n for n in nodes if _gpu_node_minor(n) is not None]
     cuda_nodes = _cuda_nodes()
     check(len(gpu_nodes) == 1 and gpu_nodes == cuda_nodes,
-          f"operator_ha: the spec's GPU node {gpu_nodes} is not the card"
+          f"{phase}: the spec's GPU node {gpu_nodes} is not the card"
           f" CUDA holds open {cuda_nodes}")
     return {"env": spec_env, "device_nodes": nodes, "cuda_nodes": cuda_nodes,
             "spec": doc["devices"][0]["name"]}
@@ -4012,6 +4059,568 @@ def phase_operator_ha_busy(operator: dict) -> dict:
     """The busy guard on the survivor's child group, then the surviving
     replicas stop (docstring, phase 27)."""
     return phase_operator_busy(operator, "operator_ha_busy")
+
+
+FLEET_PUBLISH_S = 0.25
+FLEET_STALE_S = 1.0
+FLEET_SLO_EVAL_S = 0.25
+FLEET_PING_S = 0.25
+FLEET_DROP_S = 1.0
+FLEET_PROXIED = "replica-c"
+
+
+class _WireLog:
+    """Counts one ``KubeStore``'s wire calls by verb (a watch open, and a
+    watch resumed from a resourceVersion, apart from a plain GET)."""
+
+    def __init__(self, store):
+        self.calls = []
+        real = store._request
+
+        def logged(method, path, body=None, timeout=30.0, stream=False):
+            self.calls.append((method, path, stream))
+            return real(method, path, body, timeout, stream)
+
+        store._request = logged
+
+    @staticmethod
+    def verb(method, path, stream) -> str:
+        if not stream:
+            return method
+        return "WATCH resume" if "resourceVersion=" in path else "WATCH"
+
+    def by_verb(self, since: int = 0) -> dict:
+        out: dict = {}
+        for call in self.calls[since:]:
+            v = self.verb(*call)
+            out[v] = out.get(v, 0) + 1
+        return out
+
+
+class _FrameCount:
+    """Counts the ``tpuc-mux/1`` frames this process encodes, both sides
+    (the replicas' clients and the apiserver's mux sessions), by wrapping
+    the codec's ``encode_frame`` for the phase."""
+
+    def __init__(self, wiremux):
+        self._mod, self._real = wiremux, wiremux.encode_frame
+        self._lock = threading.Lock()
+        self.frames = {"client": 0, "server": 0}
+
+    def _counted(self, obj):
+        side = ("client" if "method" in obj or "ping" in obj
+                or "cancel" in obj else "server")
+        with self._lock:
+            self.frames[side] += 1
+        return self._real(obj)
+
+    def start(self):
+        self._mod.encode_frame = self._counted
+
+    def stop(self):
+        self._mod.encode_frame = self._real
+
+
+class _Timed:
+    """Wall ms of each call of one bound method, recorded in place."""
+
+    def __init__(self, obj, name: str):
+        self.ms = []
+        real = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(obj, name, timed)
+
+    def summary(self) -> dict:
+        ms = sorted(self.ms)
+        if not ms:
+            return {"calls": 0}
+        return {"calls": len(ms), "p50_ms": ms[len(ms) // 2],
+                "max_ms": ms[-1], "mean_ms": sum(ms) / len(ms)}
+
+
+def _fleet_replica(ident: str, url: str, pool, agent, reports: list) -> dict:
+    """One operator replica over the apiserver's wire: its own
+    ``KubeStore`` (the ``tpuc-mux/1`` transport, pinged every 0.25 s)
+    behind a crash fuse, a ``CachedClient`` over the fuse, a
+    ``ShardLeaseElector`` on the fuse, a ``FabricDispatcher`` with
+    ``owns=``, both reconcilers with ``ownership=``, an ``SloEngine`` on
+    the default objectives and a ``FleetPlane`` publishing through the
+    fuse, all on one ``Manager`` with ``replica_id``, and the shard hooks
+    of ``operator_ha`` (scoped adoption on acquire, a resync on ready,
+    lane fencing on lose). The scheduler's
+    native scan follows the ``KubeStore``'s own watch (the snapshot needs
+    a lossless source; a fuse is none)."""
+    from tpu_composer_torch.controllers import (
+        ComposabilityRequestReconciler, ComposableResourceReconciler,
+        RequestTiming, ResourceTiming)
+    from tpu_composer_torch.controllers.adoption import adopt_pending_ops
+    from tpu_composer_torch.fabric import FabricDispatcher
+    from tpu_composer_torch.runtime import Manager
+    from tpu_composer_torch.runtime.cache import CachedClient
+    from tpu_composer_torch.runtime.fleet import FleetPlane
+    from tpu_composer_torch.runtime.kubestore import KubeConfig, KubeStore
+    from tpu_composer_torch.runtime.shards import ShardLeaseElector, shard_for
+    from tpu_composer_torch.runtime.slo import SloEngine, default_objectives
+    from tpu_composer_torch.scheduler import ClusterScheduler
+
+    # Built in code: KubeConfig.from_kubeconfig needs PyYAML.
+    wire = KubeStore(KubeConfig(host=url), cache_reads=False, wire_mux=True,
+                     wire_ping_period=FLEET_PING_S, wire_ping_misses=2,
+                     wire_connect_timeout=5.0)
+    wire_log = _WireLog(wire)
+    fuse = _CrashFuse(wire)
+    client = CachedClient(fuse)
+    elector = ShardLeaseElector(
+        fuse, HA_SHARDS, identity=ident, lease_duration_s=HA_LEASE_S,
+        renew_period_s=HA_RENEW_S, renew_deadline_s=HA_RENEW_DEADLINE_S,
+        expected_replicas=len(HA_REPLICAS))
+    own = elector.ownership
+    fabric = _CountingFabric(pool)
+    disp = FabricDispatcher(fabric, batch_window=0.005, poll_interval=0.05,
+                            owns=own.owns_key)
+    sched = ClusterScheduler(wire, native_sched=True)
+    check(sched.engine.kernel_kind == "native",
+          f"operator_fleet: {ident}'s scheduler runs"
+          f" {sched.engine.kernel_kind}")
+    slo = SloEngine(objectives=default_objectives(),
+                    eval_period=FLEET_SLO_EVAL_S)
+    plane = FleetPlane(fuse, ident, num_shards=HA_SHARDS, ownership=own,
+                       publish_period=FLEET_PUBLISH_S,
+                       stale_after_s=FLEET_STALE_S, slo_engine=slo)
+    publish_t, aggregate_t = _Timed(plane, "publish"), _Timed(plane,
+                                                              "aggregate")
+    mgr = Manager(store=client, leader_elector=elector,
+                  health_addr="127.0.0.1:0", dispatcher=disp,
+                  decisions=sched.ledger, replica_id=ident,
+                  slo_engine=slo, fleet=plane)
+    slo.recorder = plane.slo.recorder = mgr.recorder
+    mgr.add_controller(ComposabilityRequestReconciler(
+        client, fabric, scheduler=sched, ownership=own,
+        timing=RequestTiming(updating_poll=0.05, cleaning_poll=0.05)))
+    res_rec = ComposableResourceReconciler(
+        client, fabric, agent, decision_ledger=sched.ledger, dispatcher=disp,
+        ownership=own,
+        timing=ResourceTiming(attach_poll=0.05, visibility_poll=0.05))
+    mgr.add_controller(res_rec)
+    mgr.add_runnable(disp.run)
+    mgr.add_runnable(plane.run)
+    elector.on_acquire.append(lambda wins: reports.append(
+        (ident, dict(wins), adopt_pending_ops(
+            client, fabric, disp, shards=set(wins), num_shards=HA_SHARDS))))
+    elector.on_ready.append(lambda shards: mgr.resync(
+        lambda key, _s=frozenset(shards): shard_for(key, HA_SHARDS) in _s))
+    elector.on_lose.append(lambda shard, reason: disp.abandon_unowned())
+    return {"ident": ident, "wire": wire, "wire_log": wire_log,
+            "fuse": fuse, "client": client, "elector": elector,
+            "fabric": fabric, "dispatcher": disp, "sched": sched,
+            "manager": mgr, "res_rec": res_rec, "slo": slo, "fleet": plane,
+            "publish_t": publish_t, "aggregate_t": aggregate_t}
+
+
+class _FleetWorld:
+    """Stops the fleet phase's replicas, then its proxy and apiserver, and
+    lets the lock-order witness go."""
+
+    def __init__(self, replicas, proxy, server, frames, lockdep):
+        self.replicas, self.proxy, self.server = replicas, proxy, server
+        self.frames, self.lockdep = frames, lockdep
+        self.stopped = False
+
+    def stop(self):
+        if self.stopped:
+            return
+        self.stopped = True
+        for r in self.replicas:
+            r["manager"].stop()
+        for r in self.replicas:
+            r["wire"].close()
+        self.proxy.stop()
+        self.server.stop()
+        self.frames.stop()
+        self.lockdep.disable()
+
+
+def phase_operator_fleet(workdir: str, card: dict, gen: torch.Generator) -> dict:
+    """The operator composes this card over the apiserver's wire, its
+    fleet view, SLO engine and lock-order witness on (docstring, phase
+    28). Returns the surviving replicas, still running;
+    ``operator_fleet_busy`` stops them."""
+    from tpu_composer_torch import GROUP, VERSION
+    from tpu_composer_torch.agent.nodeagent import LocalNodeAgent
+    from tpu_composer_torch.analysis import lockdep
+    from tpu_composer_torch.api import (
+        ComposabilityRequest, ComposabilityRequestSpec, ComposableResource,
+        ObjectMeta, ResourceDetails)
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+    from tpu_composer_torch.runtime import metrics, wiremux
+    from tpu_composer_torch.runtime.shards import ShardFencedError, shard_for
+    from tpu_composer_torch.sim.apiserver import (
+        FakeApiServer, core_node_doc, operator_resources)
+    from tpu_composer_torch.sim.netchaos import BOTH, ChaosProxy
+
+    root = os.path.join(workdir, "operator_fleet")
+    agent = LocalNodeAgent(cdi_dir=os.path.join(root, "cdi"),
+                           state_dir=os.path.join(root, "state"))
+    agent.ensure_driver("localhost")
+    gpus = agent.gpus()
+    check(len(gpus) == 1, f"operator_fleet: the node agent lists {gpus}")
+    witness = lockdep.enable(strict=True)
+    check(witness.strict and not witness.reports,
+          "operator_fleet: the lock-order witness is not fresh and strict")
+    frames = _FrameCount(wiremux)
+    frames.start()
+    server = FakeApiServer(operator_resources(GROUP, VERSION))
+    server.start("127.0.0.1", 0)
+    # The one H100 under the chip resource, as kubelet would publish it.
+    server.put_object("/api/v1/nodes",
+                      core_node_doc("localhost", chips=len(gpus)))
+    host, port = server.url.rsplit("//", 1)[1].split(":")
+    proxy = ChaosProxy(host, int(port))
+    pool = _recording_pool()
+    replicas, reports = [], []
+    world = _FleetWorld(replicas, proxy, server, frames, lockdep)
+    reconnects0 = metrics.wire_mux_reconnects_total.total()
+    degraded0 = metrics.wire_mux_degraded_total.total()
+    try:
+        for ident in HA_REPLICAS:
+            url = proxy.url if ident == FLEET_PROXIED else server.url
+            r = _fleet_replica(ident, url, pool, agent, reports)
+            replicas.append(r)
+            r["manager"].start(workers_per_controller=2)
+        by_ident = {r["ident"]: r for r in replicas}
+        owned = lambda r: set(r["elector"].owned_shards())  # noqa: E731
+        check(_wait(lambda: sorted(len(owned(r)) for r in replicas)
+                    == [2, 2, 2], 15.0),
+              "operator_fleet: the shards never balanced:"
+              f" {[sorted(owned(r)) for r in replicas]}")
+        bootstrap = {r["ident"]: sorted(owned(r)) for r in replicas}
+
+        def owner_of(key, among):
+            shard = shard_for(key, HA_SHARDS)
+            return next((r for r in among if shard in owned(r)), None)
+
+        # The request's owner crashes; the proxied replica must survive it.
+        name = next(n for n in (f"chip-smoke-fleet-{i}" for i in range(64))
+                    if owner_of(n, replicas) is not by_ident[FLEET_PROXIED])
+        slice_name = f"{name}-slice"
+        victim = owner_of(name, replicas)
+        survivors = [r for r in replicas if r is not victim]
+        proxied = by_ident[FLEET_PROXIED]
+        obs = survivors[0]["client"]
+
+        def mid_attach():
+            kids = victim["client"].list(
+                ComposableResource, label_selector={LABEL_MANAGED_BY: name})
+            return [k for k in kids if k.status.pending_op is not None
+                    and k.status.state != "Online"]
+
+        wire0 = {r["ident"]: len(r["wire_log"].calls) for r in replicas}
+        t_submit = time.perf_counter()
+        survivors[0]["client"].create(ComposabilityRequest(
+            metadata=ObjectMeta(name=name),
+            spec=ComposabilityRequestSpec(resource=ResourceDetails(
+                type="gpu", model=H100_MODEL, size=1))))
+        check(_wait(lambda: mid_attach(), 30.0, 0.0005),
+              "operator_fleet: no child ever carried an attach intent")
+        victim["fuse"].die()
+        victim["dispatcher"].kill()
+        t_crash = time.perf_counter()
+        (caught,) = mid_attach() or [None]
+        check(caught is not None, "operator_fleet: the child went Online"
+              " before the crash")
+        crash_state = {"child": caught.metadata.name,
+                       "state": caught.status.state,
+                       "pending_op": caught.status.pending_op.verb,
+                       "request_owner": victim["ident"],
+                       "submit_to_crash_ms": (t_crash - t_submit) * 1e3}
+        emit("operator_fleet", check="crash", **crash_state)
+        lost = sorted(owned(victim))
+
+        def fleet_view(r):
+            return _get_json(r["manager"].health_port, "/debug/fleet")
+
+        def victim_stale(r):
+            view = fleet_view(r)
+            reps = view.get("replicas", {})
+            live = [i for i, v in reps.items() if not v["stale"]]
+            return (reps.get(victim["ident"], {}).get("stale") is True
+                    and sorted(live) == sorted(s["ident"] for s in survivors))
+
+        stale_bound = FLEET_STALE_S + 2 * FLEET_PUBLISH_S + 0.5
+        check(_wait(lambda: all(_try(lambda r=r: victim_stale(r))
+                                for r in survivors), stale_bound, 0.01),
+              f"operator_fleet: the survivors' fleet views did not show"
+              f" {victim['ident']} stale with 2 live replicas within"
+              f" {stale_bound} s: {[fleet_view(r)['replicas'] for r in survivors]}")
+        stale_ms = (time.perf_counter() - t_crash) * 1e3
+
+        check(_wait(lambda: not owned(victim), HA_LEASE_S + 5.0),
+              f"operator_fleet: the crashed replica never fenced {lost}")
+        calls0 = len(victim["fabric"].calls)
+        try:
+            victim["res_rec"].reconcile(caught.metadata.name)
+            fence = "returned"
+        except ShardFencedError as e:
+            fence = f"ShardFencedError: {e}"
+        except Exception as e:  # noqa: BLE001 - named in the failure
+            fence = f"{type(e).__name__}: {e}"
+        hand_calls = len(victim["fabric"].calls) - calls0
+        check(fence.startswith("ShardFencedError") and hand_calls == 0,
+              f"operator_fleet: the crashed replica's reconcile gave {fence}"
+              f" with {hand_calls} fabric calls")
+
+        def running():
+            req = obs.get(ComposabilityRequest, name)
+            kids = obs.list(ComposableResource,
+                            label_selector={LABEL_MANAGED_BY: name})
+            return (req.status.state == "Running" and len(kids) == 1
+                    and kids[0].status.state == "Online")
+
+        check(_wait(running, HA_LEASE_S + 30.0),
+              "operator_fleet: the request never reached Running through a"
+              " survivor over the wire")
+        t_running = time.perf_counter()
+        wire_running = {r["ident"]: r["wire_log"].by_verb(wire0[r["ident"]])
+                        for r in replicas}
+        req = obs.get(ComposabilityRequest, name)
+        want_slice = dict(name=slice_name, topology="1x1", num_hosts=1,
+                          chips_per_host=1, worker_hostnames=["localhost"])
+        check(req.status.slice.to_dict() == want_slice,
+              f"operator_fleet: status.slice {req.status.slice.to_dict()}"
+              f" != {want_slice}")
+        reserved = pool._slices.get(slice_name)
+        check(sorted(pool._slices) == [slice_name]
+              and reserved.nodes == ["localhost"]
+              and reserved.model == H100_MODEL
+              and reserved.topology == "1x1",
+              f"operator_fleet: the pool holds {sorted(pool._slices)}, not"
+              f" one reservation {slice_name} on localhost")
+        (child,) = obs.list(ComposableResource,
+                            label_selector={LABEL_MANAGED_BY: name})
+        check(child.spec.slice_name == slice_name
+              and child.spec.chip_count == 1,
+              f"operator_fleet: the child is not one GPU of {slice_name}:"
+              f" {child.spec.to_dict()}")
+        attaches = [ev for ev in pool.events if ev[0] == "attach"]
+        check([ev[1] for ev in attaches] == [child.metadata.name]
+              and not [ev for ev in pool.events if ev[0] == "release"],
+              f"operator_fleet: the pool's attach log {pool.events} is not"
+              " one attach of the child")
+        group = f"{slice_name}-worker{child.spec.worker_id}"
+        check(agent.check_visible("localhost", child.status.device_ids,
+                                  group=group),
+              "operator_fleet: the request's GPU does not enumerate")
+        spec = _ha_spec(agent, slice_name, child, req, "operator_fleet")
+        scans = {r["ident"]: r["sched"].engine.last_scan_kind
+                 for r in replicas}
+
+        # Process-token dedup: three replicas share this process's registry,
+        # so the fleet merge counts its attach histogram once.
+        registry = metrics.attach_to_ready_seconds.total_count()
+
+        def merged_count(r):
+            view = fleet_view(r)
+            return view["merged"].get("tpuc_attach_to_ready_seconds",
+                                      {}).get("count")
+
+        check(_wait(lambda: all(merged_count(r) == registry
+                                for r in survivors), 10.0, 0.01),
+              f"operator_fleet: the fleet-merged attach count"
+              f" {[merged_count(r) for r in survivors]} != the registry's"
+              f" {registry}")
+        views = {r["ident"]: fleet_view(r) for r in survivors}
+        slo_docs = {r["ident"]: _get_json(r["manager"].health_port,
+                                          "/debug/slo") for r in survivors}
+        want_objectives = {"attach_p99", "completion_p50", "queue_wait_p99",
+                           "repair_p99"}
+        burn = {}
+        for ident, doc in slo_docs.items():
+            objs = doc["objectives"]
+            check(set(objs) == want_objectives,
+                  f"operator_fleet: {ident}'s /debug/slo lists {sorted(objs)}")
+            for o, st in objs.items():
+                check(math.isfinite(st["fast_burn"])
+                      and math.isfinite(st["slow_burn"]),
+                      f"operator_fleet: {ident}'s {o} burn rates {st}")
+            burn[ident] = {o: [st["fast_burn"], st["slow_burn"]]
+                           for o, st in sorted(objs.items())}
+        fleet_burn = {ident: {o: [st["fast_burn"], st["slow_burn"]]
+                              for o, st in v["slo"]["objectives"].items()}
+                      for ident, v in views.items()}
+        worker = _ha_worker_kernels(gen, "operator_fleet")
+
+        # The proxied replica's wire goes dark for 1 s: live connections
+        # reset, new ones accepted but silent until the heal.
+        check(proxy.connections() >= 1,
+              "operator_fleet: the proxied replica holds no connection")
+        reconnects1 = metrics.wire_mux_reconnects_total.total()
+        calls1 = len(proxied["wire_log"].calls)
+        proxy.partition(BOTH)
+        proxy.cut()
+        t_drop = time.perf_counter()
+        time.sleep(FLEET_DROP_S)
+        proxy.heal()
+
+        def back():
+            fresh = proxied["wire"].get(ComposabilityRequest, name)
+            seen = proxied["client"].get(ComposabilityRequest, name)
+            watches = [c for c in proxied["wire_log"].calls[calls1:]
+                       if c[2]]
+            return (fresh.status.state == "Running"
+                    and seen.status.state == "Running" and watches
+                    and metrics.wire_mux_reconnects_total.total()
+                    > reconnects1)
+
+        check(_wait(lambda: _try(back), 30.0, 0.01),
+              "operator_fleet: the proxied replica's KubeStore never came"
+              " back after the drop")
+        back_ms = (time.perf_counter() - t_drop) * 1e3
+        after_drop = proxied["wire_log"].by_verb(calls1)
+        prefixes = {rt.path_prefix for rt in proxied["wire"]._routes.values()}
+        relists = sum(1 for m, p, stream in proxied["wire_log"].calls[calls1:]
+                      if m == "GET" and not stream
+                      and p.split("?")[0] in prefixes)
+        check(owned(proxied), "operator_fleet: the proxied replica lost its"
+              " shards in a 1 s drop")
+        check(running(), "operator_fleet: the request left Running")
+
+        degraded = metrics.wire_mux_degraded_total.total() - degraded0
+        fell_back = [r["ident"] for r in replicas if r["wire"]._mux_failed]
+        check(not degraded and not fell_back,
+              f"operator_fleet: {fell_back} fell back to plain HTTP"
+              f" ({degraded} demotions)")
+        check(metrics.wire_mux_active.value() == 1.0,
+              "operator_fleet: tpuc_wire_mux_active is not 1")
+        lock_doc = _get_json(survivors[0]["manager"].health_port,
+                             "/debug/lockdep")
+        check(lock_doc["reports"] == [] and not witness.reports,
+              f"operator_fleet: lock-order violations {lock_doc['reports']}")
+    except BaseException:
+        world.stop()
+        raise
+    wire_total = {}
+    for r in replicas:
+        for v, n in r["wire_log"].by_verb().items():
+            wire_total[v] = wire_total.get(v, 0) + n
+    rec = {"card": card["nvidia_smi"], "replicas": len(HA_REPLICAS),
+           "shards": HA_SHARDS, "lease_duration_s": HA_LEASE_S,
+           "renew_period_s": HA_RENEW_S, "publish_period_s": FLEET_PUBLISH_S,
+           "stale_after_s": FLEET_STALE_S, "slo_eval_s": FLEET_SLO_EVAL_S,
+           "slo_windows_s": [survivors[0]["slo"].fast_window,
+                             survivors[0]["slo"].slow_window],
+           "ping_period_s": FLEET_PING_S, "bootstrap": bootstrap,
+           "proxied": FLEET_PROXIED, "request": name, "crash": crash_state,
+           "lost": lost,
+           "request_to_running_host_ms": (t_running - t_submit) * 1e3,
+           "crash_to_running_ms": (t_running - t_crash) * 1e3,
+           "crash_to_victim_stale_ms": stale_ms,
+           "fence": fence, "fence_fabric_calls": hand_calls,
+           "last_scan_kind": scans,
+           "failover_adoptions": [
+               (ident, sorted(wins.items()), rep.total)
+               for ident, wins, rep in reports
+               if ident != victim["ident"] and "failover" in wins.values()],
+           "wire_requests_submit_to_running": wire_running,
+           "wire_requests_by_verb": wire_total,
+           "mux_frames": dict(frames.frames),
+           "mux_reconnects": metrics.wire_mux_reconnects_total.total()
+           - reconnects0,
+           "drop": {"seconds": FLEET_DROP_S, "back_after_ms": back_ms,
+                    "wire_after_drop": after_drop,
+                    "relists": relists,
+                    "watch_resumes": after_drop.get("WATCH resume", 0)},
+           "attach_count": {"registry": registry,
+                            "fleet_merged": merged_count(survivors[0]),
+                            "live_replicas": len(survivors)},
+           "fleet_publish": {r["ident"]: r["publish_t"].summary()
+                             for r in replicas},
+           "fleet_aggregate": {r["ident"]: r["aggregate_t"].summary()
+                               for r in replicas},
+           "slo_burn": burn, "fleet_slo_burn": fleet_burn,
+           "lockdep": {"edges": len(lock_doc["edges"]),
+                       "classes": len(lock_doc["classes"]),
+                       "reports": len(lock_doc["reports"])},
+           "pool_events": pool.events, "slice": slice_name,
+           "cdi": child.status.cdi_device_id, **spec,
+           "worker_kernels": worker}
+    emit("operator_fleet", **{k: v for k, v in rec.items() if k != "env"},
+         env=spec["env"])
+    return {"manager": world, "survivors": survivors, "agent": agent,
+            "group": group, "device_ids": list(child.status.device_ids),
+            "witness": witness, **rec}
+
+
+def phase_operator_fleet_busy(operator: dict) -> dict:
+    """A second H100 request over the wire on the full host, held back;
+    then the replicas, the proxy and the apiserver stop (docstring, phase
+    29)."""
+    from tpu_composer_torch.api import (
+        ComposabilityRequest, ComposabilityRequestSpec, ComposableResource,
+        ObjectMeta, ResourceDetails)
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+
+    try:
+        r = operator["survivors"][0]
+        second = "chip-smoke-fleet-busy"
+        port = r["manager"].health_port
+        t0 = time.perf_counter()
+        r["client"].create(ComposabilityRequest(
+            metadata=ObjectMeta(name=second),
+            spec=ComposabilityRequestSpec(resource=ResourceDetails(
+                type="gpu", model=H100_MODEL, size=1))))
+
+        def held_back():
+            # The survivor that owns the request's shard holds its record;
+            # the other answers 404.
+            for s in operator["survivors"]:
+                try:
+                    doc = _get_json(s["manager"].health_port,
+                                    f"/debug/scheduler/explain/{second}")
+                except OSError:
+                    continue
+                latest = doc.get("latest", {})
+                verdicts = {c["node"]: c["verdict"]
+                            for c in latest.get("candidates", ())}
+                if (latest.get("outcome") == "held-back"
+                        and verdicts.get("localhost")
+                        == "no-tpu-ports free=0 need=1"):
+                    return latest
+            return None
+
+        check(_wait(lambda: _try(held_back), 30.0, 0.01),
+              "operator_fleet_busy: the second request never got its"
+              " no-tpu-ports hold-back record")
+        held = held_back()
+        held_ms = (time.perf_counter() - t0) * 1e3
+        second_req = r["client"].get(ComposabilityRequest, second)
+        check(second_req.status.state in ("", "NodeAllocating")
+              and second_req.status.error,
+              f"operator_fleet_busy: the second request's status"
+              f" {second_req.status.to_dict()}")
+        check(not r["client"].list(ComposableResource,
+                                   label_selector={LABEL_MANAGED_BY: second}),
+              "operator_fleet_busy: the second request got a child")
+        lock_doc = _get_json(port, "/debug/lockdep")
+        check(not lock_doc["reports"] and not operator["witness"].reports,
+              f"operator_fleet_busy: lock-order violations"
+              f" {lock_doc['reports']}")
+    finally:
+        operator["manager"].stop()
+    out = {"second": {"error": second_req.status.error,
+                      "outcome": held["outcome"],
+                      "binding": held.get("binding")},
+           "held_back_after_ms": held_ms,
+           "lockdep_edges": len(lock_doc["edges"]),
+           "card": operator["card"]}
+    emit("operator_fleet_busy", **out)
+    return out
 
 
 def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
@@ -4343,7 +4952,12 @@ def main() -> int:
                  (("operator_ha", lambda: phase_operator_ha(
                      workdir, card, gen)),
                   ("operator_ha_busy", lambda: phase_operator_ha_busy(
-                      done["operator_ha"]))))):
+                      done["operator_ha"])))),
+                ("operator_fleet", ("flash_fwd", "paged_decode"),
+                 (("operator_fleet", lambda: phase_operator_fleet(
+                     workdir, card, gen)),
+                  ("operator_fleet_busy", lambda: phase_operator_fleet_busy(
+                      done["operator_fleet"]))))):
             _reset_counts()
             for phase_name, fn in phases:
                 done[phase_name] = timed_phase(phase_name, fn)
@@ -4360,7 +4974,8 @@ def main() -> int:
         for w in worlds.values():
             w.close()
         for phase_name in ("operator_attach", "operator_request",
-                           "operator_remote", "operator_ha"):
+                           "operator_remote", "operator_ha",
+                           "operator_fleet"):
             if phase_name in done:
                 done[phase_name]["manager"].stop()
         if "operator_remote" in done:

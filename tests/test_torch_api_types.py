@@ -139,8 +139,18 @@ def _lease(tw):
     )
 
 
+def _fleet_telemetry(tw):
+    return tw.fleet_api.FleetTelemetry(
+        metadata=_meta(tw, "replica-1"),
+        spec=tw.fleet_api.FleetTelemetrySpec(
+            identity="replica-1", seq=7, process_token="1234-abcd",
+            payload={"shards": [0, 3], "slo": {"attach": {"fast": 0.5}}}),
+    )
+
+
 KINDS = {
     "ComposabilityRequest": (_request, "types"),
+    "FleetTelemetry": (_fleet_telemetry, "fleet_api"),
     "Lease": (_lease, "lease"),
     "NodeMaintenance": (_maintenance, "maintenance"),
     "ComposableResource": (_resource, "types"),
@@ -169,10 +179,10 @@ def test_scheme_registers_the_ported_kinds():
     jax_kinds = set(JAX.scheme.default_scheme().kinds())
     port_kinds = set(PORT.scheme.default_scheme().kinds())
     assert port_kinds == set(KINDS)
-    assert jax_kinds - port_kinds == {"FleetTelemetry"}
+    assert jax_kinds == port_kinds
     s = PORT.scheme.default_scheme()
     with pytest.raises(PORT.scheme.SchemeError):
-        s.decode({"kind": "FleetTelemetry"})
+        s.decode({"kind": "NoSuchKind"})
     raw = s.encode_json(_request(PORT))
     assert JAX.scheme.default_scheme().decode_json(raw).to_dict() == \
         s.decode_json(raw).to_dict()

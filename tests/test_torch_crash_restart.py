@@ -17,9 +17,14 @@ Clocks: the drain scenarios' ``LeaseElector`` runs on a stepped
 no renewal can age out under a loaded run: the lease is lost only where
 a scenario deposes it on purpose.
 
-Left out: the reference's fleet plane in its ``Incarnation``
-(diagnostic only; it comes with the fleet slice) and the slow soaks
-(``TestKillRestartSoak``, ``TestMigrationCrashSoak``).
+Each ``Incarnation`` runs the reference's fleet plane as a runnable,
+publishing through the same crash fuse as everything else (so a crash
+exercises the publisher's store-failure path); the migration scenario
+checks that each incarnation's snapshot landed and that the crashed
+one's stopped advancing.
+
+Left out: the slow soaks (``TestKillRestartSoak``,
+``TestMigrationCrashSoak``).
 """
 
 from __future__ import annotations
@@ -183,16 +188,18 @@ def draining_dispatcher_rejects_new_submissions(tw):
 # -- crash and restart ---------------------------------------------------------
 
 class Incarnation:
-    """One operator process lifetime against a shared store and fabric
-    (the reference's, without its diagnostic fleet plane)."""
+    """One operator process lifetime against a shared store and fabric,
+    with the reference's fleet plane publishing through its crash fuse."""
 
     def __init__(self, tw, raw_store, pool, fuse=None):
         self.fuse = CrashFuse(tw, raw_store, fuse)
         self.dispatcher = tw.dispatcher.FabricDispatcher(
             pool, batch_window=0.01, concurrency=4, poll_interval=0.02)
+        self.fleet = tw.fleet.FleetPlane(self.fuse, identity="crash-operator",
+                                         publish_period=0.25)
         self.mgr = tw.manager.Manager(store=self.fuse,
                                       dispatcher=self.dispatcher,
-                                      drain_timeout=0.0)
+                                      drain_timeout=0.0, fleet=self.fleet)
         self.mgr.add_startup_hook(lambda: tw.adoption.adopt_pending_ops(
             self.fuse, pool, self.dispatcher))
         self.mgr.add_controller(tw.req.ComposabilityRequestReconciler(
@@ -208,6 +215,7 @@ class Incarnation:
             self.fuse, timing=tw.mc.MaintenanceTiming(drain_poll=0.05)))
         self.mgr.add_runnable(tw.syncer.UpstreamSyncer(self.fuse, pool,
                                                        period=0.1, grace=5.0))
+        self.mgr.add_runnable(self.fleet.run)
         self.mgr.add_runnable(self.dispatcher.run)
         self.mgr.start(workers_per_controller=2)
 
@@ -297,7 +305,15 @@ def midpoint_crash_converges(tw):
     _submit_drain(tw, store, node)
     rec = [wait_for(lambda: _drain_converged(tw, store, node), timeout=30)]
     w_migrate = inc.fuse.mutations
+    telemetry = "telemetry.crash-operator"
+    published = lambda: store.try_get(  # noqa: E731
+        tw.fleet_api.FleetTelemetry, telemetry)
+    rec.append(wait_for(lambda: published() is not None, timeout=10))
     inc.kill()
+    # The crashed incarnation's snapshot stops advancing.
+    seq_at_kill = published().spec.seq
+    time.sleep(0.6)
+    rec.append(published().spec.seq == seq_at_kill)
     rec.append(_drain_invariants(tw, store, pool, node, sources))
     rec.append(w_migrate > 3)
 
@@ -314,7 +330,7 @@ def midpoint_crash_converges(tw):
         rec.append(_drain_invariants(tw, store, pool, node, sources))
     finally:
         inc.kill()
-    assert rec == [True, [12, 52], True, True, [12, 52]]
+    assert rec == [True, True, True, [12, 52], True, True, [12, 52]]
     return rec
 
 

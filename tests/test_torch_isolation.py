@@ -6,7 +6,8 @@
   string the probe runs with ``python -c``) import nothing of JAX and
   nothing of the JAX package: no ``jax``, ``jaxlib``, ``ml_dtypes`` or
   ``tpu_composer`` import, by an AST scan and, for the port's fabric with
-  that server, by what a fresh interpreter has loaded.
+  that server, and for the port's wire store, fleet plane and lock-order
+  witness, by what a fresh interpreter has loaded.
 - The port calls no finished attention kernel and no compiler
   (``scaled_dot_product_attention``, ``torch.compile``); ``chip_smoke.py``
   may time SDPA as a yardstick, the package may not.
@@ -75,6 +76,26 @@ def test_the_fake_fabric_server_and_the_remote_port_load_no_jax_package():
         "import tests.torch_fake_fabric\n"
         "from tpu_composer_torch.fabric import adapter, breaker, chaos, "
         "dispatcher, events, layout, redfish, rest, token\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n" % (FORBIDDEN_IMPORTS,))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
+def test_the_wire_store_fleet_and_witness_load_no_jax_package():
+    """A fresh interpreter that imports the port's fake apiserver, its
+    ``KubeStore``, its fleet plane and its lock-order witness (what
+    chip_smoke.py's ``operator_fleet`` phase loads) has no module of JAX
+    or of the JAX package."""
+    code = (
+        "import sys\n"
+        "import tpu_composer_torch.sim.apiserver\n"
+        "import tpu_composer_torch.runtime.kubestore\n"
+        "import tpu_composer_torch.runtime.fleet\n"
+        "import tpu_composer_torch.analysis.lockdep\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n" % (FORBIDDEN_IMPORTS,))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

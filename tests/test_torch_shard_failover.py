@@ -14,7 +14,9 @@ lane fencing on lose), and runs three scenarios through both packages:
   Online (no drain, no lease release); a survivor steals the shard,
   adopts the intent and the request reaches Running with one attach per
   child; the crashed replica's own reconcile of the child then raises
-  ``ShardFencedError`` with no fabric call.
+  ``ShardFencedError`` with no fabric call; and the survivors' fleet
+  views age the crashed replica out (its snapshot's seq frozen past the
+  staleness window on the survivor's own clock) with two live replicas.
 - ``graceful_handoff_drains_once``: a planned stop of the shard's owner
   drains its dispatcher once, releases its leases, and the third
   replica takes the shard on its next tick.
@@ -22,17 +24,17 @@ lane fencing on lose), and runs three scenarios through both packages:
   shards: a newcomer joining mid-wave is handed shards and the wave
   converges with no double attach.
 
-Clocks: every elector runs on one ``ElectorClock`` (tests/torch_crash.py)
-patched into both packages, with a renew period far longer than the
-scenario, so the electors tick only when the scenario calls ``tick()``.
+Clocks: every elector and fleet plane runs on one ``ElectorClock``
+(tests/torch_crash.py) patched into both packages, with a renew period
+far longer than the scenario, so the electors tick and the fleet planes
+publish and aggregate only when the scenario calls ``tick()``.
 Shard ownership, steals and handoffs are then a function of the ticks
 and clock steps alone, and are compared exactly, with step counts in
 place of elapsed times. The controllers and dispatchers run on real
 threads; their outcomes are compared after waiting for a condition.
 
-Left out: the reference's fleet plane and its fleet-view assertion
-(``:390-405``), which wait for ``runtime/fleet.py``, and the trace
-stitching across a merged fleet trace.
+Left out: the trace stitching across a merged fleet trace (the fleet
+twin, tests/test_torch_fleet.py, holds the merge itself).
 """
 
 from __future__ import annotations
@@ -99,9 +101,15 @@ class ShardedReplica:
         self.dispatcher = tw.dispatcher.FabricDispatcher(
             self.tagged, batch_window=0.01, concurrency=4, poll_interval=0.05,
             owns=own.owns_key)
+        # The reference's fleet plane, publishing through the fuse; the
+        # scenario ticks it by hand on the stepped clock.
+        self.fleet = tw.fleet.FleetPlane(
+            self.fuse, identity=ident, num_shards=k, ownership=own,
+            publish_period=0.25, stale_after_s=2.0)
         self.mgr = tw.manager.Manager(
             store=self.client, leader_elector=self.elector,
-            dispatcher=self.dispatcher, drain_timeout=5.0, replica_id=ident)
+            dispatcher=self.dispatcher, drain_timeout=5.0, replica_id=ident,
+            fleet=self.fleet)
         self.elector.on_acquire.append(lambda wins: reports.append(
             (ident, dict(wins), tw.adoption.adopt_pending_ops(
                 self.client, self.tagged, self.dispatcher, shards=set(wins),
@@ -230,6 +238,8 @@ def crashed_attach_owner_fails_over(tw):
         try:
             rec = [_bootstrap(w, ["replica-a", "replica-b", "replica-c"])]
             rec.append([r.owned() for r in w.replicas])
+            for r in w.replicas:
+                r.fleet.tick()
             w.submit("wave", 8)
             caught = wait_for(lambda: any(
                 c.status.pending_op is not None
@@ -274,6 +284,24 @@ def crashed_attach_owner_fails_over(tw):
                 return set(lost) <= held()
 
             rec.append(steps_until(clock, stolen, step=0.0, limit=40))
+
+            # The survivors' fleet views age the corpse out: its seq has
+            # not moved since the bootstrap publish, past the staleness
+            # window on each survivor's own clock.
+            def aged_out():
+                clock.step(0.25)
+                for s in survivors:
+                    s.elector.tick()
+                    s.fleet.tick()
+                views = [s.fleet.snapshot()["replicas"] for s in survivors]
+                return all(v.get(victim.ident, {}).get("stale") is True
+                           and sorted(i for i, x in v.items()
+                                      if not x["stale"])
+                           == sorted(s.ident for s in survivors)
+                           for v in views)
+
+            rec.append(steps_until(clock, aged_out, step=0.0, limit=40))
+            rec.append(sorted(survivors[0].fleet.snapshot()["replicas"]))
             rec.append(sorted((ident, sorted(wins.items()))
                               for ident, wins, _ in w.reports
                               if ident != victim.ident
@@ -288,10 +316,11 @@ def crashed_attach_owner_fails_over(tw):
             rec.append(w.clean_accounting())
         finally:
             w.close()
-    (_, _, caught, _, lost, fence_steps, early, fence, steal_steps, wins,
-     running, victim_calls, attaches, _) = rec
+    (_, _, caught, _, lost, fence_steps, early, fence, steal_steps,
+     aged_steps, view, wins, running, victim_calls, attaches, _) = rec
     assert caught and lost and fence_steps is not None and early == []
     assert fence == "ShardFencedError" and steal_steps is not None
+    assert aged_steps is not None and len(view) == 3
     assert wins and running and victim_calls == 0 and attaches == [1, 1]
     return rec
 

@@ -148,12 +148,14 @@ class ElectorClock:
 
 @contextlib.contextmanager
 def elector_clock(tw):
-    """Both electors' clocks in package ``tw`` replaced by a fresh
-    ``ElectorClock`` for the duration."""
+    """Both electors' clocks and the fleet plane's observation clock in
+    package ``tw`` replaced by a fresh ``ElectorClock`` for the
+    duration."""
     clock = ElectorClock()
     fake_time = SimpleNamespace(monotonic=clock.monotonic, sleep=time.sleep)
     patches = [(tw.leases, "time", fake_time), (tw.leases, "now_iso", clock.now_iso),
                (tw.shards, "time", fake_time), (tw.shards, "now_iso", clock.now_iso),
+               (tw.fleet, "time", fake_time), (tw.fleet, "now_iso", clock.now_iso),
                (tw.leases.LeaseElector, "_now", lambda self: clock.now_dt())]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
     for obj, attr, value in patches:

@@ -17,9 +17,19 @@ import time
 import uuid
 from types import SimpleNamespace
 
+from tpu_composer_torch.analysis import lockdep as _port_lockdep
+
 JAX_ROOT = "tpu_composer"
 PORT_ROOT = "tpu_composer_torch"
 ROOTS = (JAX_ROOT, PORT_ROOT)
+
+# The port's operator twins run under the port's lock-order witness,
+# strict, as the JAX package's suite runs under its own (the acquire that
+# closes an order cycle raises LockOrderViolation there, with both
+# stacks). Each package's ObservedLocks feed only that package's witness.
+# TPUC_LOCKDEP=0 turns both off.
+if os.environ.get("TPUC_LOCKDEP", "1") != "0":
+    _port_lockdep.enable(strict=True)
 
 #: Fields that differ between two runs of one script whatever the package:
 #: identities and clocks (uid, timestamps, intent nonces and the trace ids
@@ -61,6 +71,10 @@ _MODULES = dict(
     storebreaker="runtime.storebreaker", overload="runtime.overload",
     profiler="runtime.profiler", watchdog="runtime.watchdog",
     contention="runtime.contention",
+    fleet_api="api.fleet", lockdep="analysis.lockdep", slo="runtime.slo",
+    fleet="runtime.fleet", wiremux="runtime.wiremux",
+    kubestore="runtime.kubestore", apiserver="sim.apiserver",
+    netchaos="sim.netchaos", churn="sim.churn",
 )
 
 

@@ -3,8 +3,8 @@ metadata, the scheme registry and validation.
 
 The kinds the port has are ComposabilityRequest, ComposableResource, Node,
 NodeMaintenance, the DRA pair ResourceSlice and DeviceTaintRule, and the
-coordination Lease (``api/lease.py``); FleetTelemetry comes with the fleet
-plane."""
+coordination Lease (``api/lease.py``) and the fleet plane's
+FleetTelemetry (``api/fleet.py``)."""
 
 from tpu_composer_torch.api.meta import ObjectMeta, OwnerReference, now_iso
 from tpu_composer_torch.api.scheme import Scheme, default_scheme

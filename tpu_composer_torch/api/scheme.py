@@ -1,8 +1,8 @@
 """Kind registry + serde entry point (port of ``tpu_composer/api/scheme.py``).
 
 Registers the kinds the port has: ComposabilityRequest,
-ComposableResource, Node, NodeMaintenance, ResourceSlice, DeviceTaintRule
-and Lease (FleetTelemetry joins with the fleet plane).
+ComposableResource, Node, NodeMaintenance, ResourceSlice, DeviceTaintRule,
+Lease and FleetTelemetry.
 
 Reference analog: api/v1alpha1/groupversion_info.go:25-36 (SchemeBuilder /
 AddToScheme) — maps kind strings to Go types so clients can decode. Ours maps
@@ -16,6 +16,7 @@ import json
 from typing import Any, Dict, Type
 
 from tpu_composer_torch.api.dra import DeviceTaintRule, ResourceSlice
+from tpu_composer_torch.api.fleet import FleetTelemetry
 from tpu_composer_torch.api.lease import Lease
 from tpu_composer_torch.api.maintenance import NodeMaintenance
 from tpu_composer_torch.api.meta import ApiObject
@@ -66,6 +67,7 @@ def default_scheme() -> Scheme:
     s.register(ComposableResource)
     s.register(Node)
     s.register(Lease)
+    s.register(FleetTelemetry)
     s.register(NodeMaintenance)
     s.register(ResourceSlice)
     s.register(DeviceTaintRule)

@@ -1,6 +1,5 @@
 """Lock-contention telemetry: ObservedLock + worker busy-ratio tracking
-(port of ``tpu_composer/runtime/contention.py``, without the lockdep
-witness hooks, which arrive with ``analysis/``).
+(port of ``tpu_composer/runtime/contention.py``).
 
 This module says which *locks* threads queue on —
 ``ObservedLock`` wraps a hot lock and measures acquire-wait and hold time
@@ -28,6 +27,18 @@ Semantics kept exact:
   bookkeeping. The perf-smoke observatory gate holds the enabled path
   within 5% of this on the 32-chip wave.
 
+``ObservedLock`` also feeds the lockdep witness
+(tpu_composer_torch/analysis/lockdep.py) when one is enabled
+(``TPUC_LOCKDEP=1``, or the port's operator twins): every
+outermost acquire/release updates a per-thread held-lock stack and the
+global acquisition-order graph, so an ABBA-shaped ordering inconsistency
+anywhere in the suite surfaces as a lockdep cycle report even when the
+threads never actually collide. Cond-parks go through
+``_release_save``/``_acquire_restore`` and are excluded from ordering
+(the park releases the lock; the wakeup re-acquire is not a new ordering
+decision). Witness accounting is independent of ``TPUC_PROFILE`` — the
+deadlock detector must not vanish with the telemetry.
+
 ``BusyTracker`` is the saturation sibling: worker pools feed it their
 per-turn busy seconds and it level-sets ``tpuc_worker_busy_ratio{pool}``
 over a rolling window — visible before queue wait (and long before
@@ -41,6 +52,7 @@ import threading
 import time
 from typing import Optional
 
+from tpu_composer_torch.analysis import lockdep
 from tpu_composer_torch.runtime.metrics import (
     lock_hold_seconds,
     lock_wait_seconds,
@@ -76,16 +88,25 @@ class ObservedLock:
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
         depth = getattr(self._local, "depth", 0)
         if depth:
-            # Reentrant re-acquire: uncontended and not re-timed.
+            # Reentrant re-acquire: uncontended, not re-timed, and not an
+            # ordering event for lockdep (the outermost acquire was).
             ok = self._inner.acquire(blocking, timeout)
             if ok:
                 self._local.depth = depth + 1
             return ok
+        # Lockdep sees the ATTEMPT (before blocking): the ordering
+        # decision is made here, and recording uncontended acquires is
+        # what lets the witness flag a cycle no collision exercised.
+        witness = lockdep.current()
+        if witness is not None:
+            witness.note_acquire(self.name, id(self))
         if not _enabled:
             ok = self._inner.acquire(blocking, timeout)
             if ok:
                 self._local.depth = 1
                 self._local.held_at = None
+            elif witness is not None:
+                witness.note_acquire_failed(self.name)
             return ok
         t0 = time.perf_counter()
         ok = self._inner.acquire(blocking, timeout)
@@ -94,6 +115,8 @@ class ObservedLock:
             self._local.depth = 1
             self._local.held_at = t1
             lock_wait_seconds.observe(t1 - t0, lock=self.name)
+        elif witness is not None:
+            witness.note_acquire_failed(self.name)
         return ok
 
     def release(self) -> None:
@@ -106,6 +129,9 @@ class ObservedLock:
         self._local.depth = 0
         self._local.held_at = None
         self._inner.release()
+        witness = lockdep.current()
+        if witness is not None:
+            witness.note_release(self.name)
         if held_at is not None and _enabled:
             lock_hold_seconds.observe(
                 time.perf_counter() - held_at, lock=self.name
@@ -134,6 +160,9 @@ class ObservedLock:
         else:
             self._inner.release()
             inner_state = None
+        witness = lockdep.current()
+        if witness is not None:
+            witness.note_park(self.name)
         if held_at is not None and _enabled:
             lock_hold_seconds.observe(
                 time.perf_counter() - held_at, lock=self.name
@@ -149,6 +178,11 @@ class ObservedLock:
             self._inner._acquire_restore(inner_state)
         else:
             self._inner.acquire()
+        witness = lockdep.current()
+        if witness is not None:
+            # Deliberately NOT note_acquire: the wakeup re-acquire is not
+            # a new ordering decision (cond-park exclusion).
+            witness.note_unpark(self.name, id(self))
         self._local.depth = depth
         self._local.held_at = time.perf_counter() if _enabled else None
 

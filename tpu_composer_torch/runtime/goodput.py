@@ -37,8 +37,9 @@ not lost goodput. Ratios:
 :meth:`counts` exposes cumulative (total, lost) seconds INCLUDING the
 in-progress accrual — monotonic, which is exactly the shape the SLO
 engine diffs over its burn windows: its ``goodput`` objective treats
-lost seconds as bad events against a ``1 - target`` budget (the SLO
-engine and the fleet plane arrive with the port's HA sub-slice).
+lost seconds as bad events against a ``1 - target`` budget
+(``runtime/slo.GoodputObjective``), and the fleet plane publishes them
+(``runtime/fleet.py``).
 
 Constructed only when the decision observatory is on (the caller's
 ``--decisions`` / TPUC_DECISIONS); tests drive :meth:`observe` directly

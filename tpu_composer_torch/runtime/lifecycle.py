@@ -383,10 +383,11 @@ _crash_dumped = False
 
 def dump_crash(reason: str) -> None:
     """Best-effort black-box write: flight ledger + trace ring + the
-    continuous-profile ring, env-gated ($TPUC_FLIGHT_FILE /
-    $TPUC_TRACE_FILE / $TPUC_PROFILE_FILE). The SLO snapshot, fleet view,
-    lockdep report and decision ring of the JAX package arrive with the
-    modules that keep them. Never raises."""
+    continuous-profile ring, the SLO snapshot, the fleet view and the
+    lock-order witness's report, env-gated ($TPUC_FLIGHT_FILE /
+    $TPUC_TRACE_FILE / $TPUC_PROFILE_FILE / $TPUC_SLO_FILE /
+    $TPUC_FLEET_FILE / $TPUC_LOCKDEP_FILE). The JAX package's decision
+    ring dump arrives with the command line. Never raises."""
     global _crash_dumped
     if reason != "atexit":
         _crash_dumped = True
@@ -398,12 +399,30 @@ def dump_crash(reason: str) -> None:
         tracing.write_file()
     except Exception:
         pass
-    # Late import: the crash path should survive a partially-imported
+    # Late imports: the crash path should survive a partially-imported
     # interpreter at exit.
     try:
         from tpu_composer_torch.runtime import profiler as _profiler
 
         _profiler.dump_file()
+    except Exception:
+        pass
+    try:
+        from tpu_composer_torch.runtime import slo as _slo
+
+        _slo.dump_file()
+    except Exception:
+        pass
+    try:
+        from tpu_composer_torch.runtime import fleet as _fleet
+
+        _fleet.dump_file()
+    except Exception:
+        pass
+    try:
+        from tpu_composer_torch.analysis import lockdep as _lockdep
+
+        _lockdep.dump_file()
     except Exception:
         pass
 

@@ -12,20 +12,22 @@ lock file, or any elector passed as ``leader_elector=``: a
 the health server (``/healthz``, ``/readyz``, ``/metrics``, the trace and
 lifecycle routes, the scheduler's observatory: ``/debug/defrag``,
 ``/debug/scheduler/explain/<name>``, ``/debug/scheduler/capacity`` and
-``/debug/goodput``, and the survival layer's ``/debug/overload``,
-``/debug/watchdog``, ``/debug/storebreaker`` and ``/debug/profile*``), the
+``/debug/goodput``, the survival layer's ``/debug/overload``,
+``/debug/watchdog``, ``/debug/storebreaker`` and ``/debug/profile*``, the
+SLO engine's ``/debug/slo``, the fleet plane's ``/debug/fleet`` and the
+lock-order witness's ``/debug/lockdep``), the
 startup hooks, ``resync`` (the shard-acquisition hook), the replica
 identity (``replica_id=``) that tags the dispatcher's, the controllers'
 and the runnables' trace events, the always-on sampling profiler, the
+SLO burn-rate engine (``slo_engine=``, a default one whenever the
+profiler is on), the fleet plane (``fleet=``; its caller adds
+``fleet.run`` as a runnable, as the JAX command line does), the
 overload governor, the subsystem watchdog (whose restarter is
 ``_respawn_runnable``), the store breaker, the lifecycle recorder and the
 graceful stop, which drains the fabric dispatcher's lanes first
 (``dispatcher=``) and stops a ``CachedClient`` store's informers last.
-Three collaborators of the JAX manager are not ported yet: the SLO engine
-(``slo_engine=``, ``/debug/slo``), the fleet plane (``fleet=``,
-``/debug/fleet``) and the TLS metrics port (``metrics_addr=`` with its
-bearer token), together with the lockdep witness route
-(``/debug/lockdep``).
+One collaborator of the JAX manager is not ported yet: the TLS metrics
+port (``metrics_addr=`` with its bearer token).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from tpu_composer_torch.runtime.events import EventRecorder
 from tpu_composer_torch.runtime.leader import LeaderElector
 from tpu_composer_torch.runtime import lifecycle, profiler as profiler_mod, tracing
 from tpu_composer_torch.runtime.metrics import global_registry
+from tpu_composer_torch.runtime.slo import SloEngine
 from tpu_composer_torch.runtime.store import Store
 
 #: /debug/traces responses are capped: a 10k-event ring serializes to
@@ -60,11 +63,21 @@ DEBUG_ENDPOINTS = {
     "/debug/requests": "names with recorded lifecycle timelines",
     "/debug/requests/<name>": "one CR's timeline: phase transitions,"
                               " events, span summaries",
+    "/debug/slo": "SLO objectives with fast/slow burn rates and breach"
+                  " state",
+    "/debug/fleet": "cross-replica fleet view: live/stale replicas with"
+                    " owned shards, fleet-merged latency percentiles and"
+                    " fleet SLO burn rates (identical from whichever"
+                    " replica you ask)",
     "/debug/profile": "on-demand stack profile burst"
                       " (?seconds=&format=top|collapsed|json)",
     "/debug/profile/continuous": "the always-on profiler's window ring:"
                                  " per-subsystem wall/CPU/GIL estimates +"
                                  " top frames",
+    "/debug/lockdep": "lock-order witness state: acquisition-order graph"
+                      " edges with first-seen stacks, declared orders and"
+                      " any cycle (potential ABBA deadlock) reports"
+                      " (503 unless --lockdep/TPUC_LOCKDEP=1)",
     "/debug/defrag": "defragmentation report: a fresh dry-run plan (never"
                      " executed) with per-candidate skip reasons, plus the"
                      " last periodic pass's record and breaker state",
@@ -165,6 +178,22 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
         elif path in ("/debug", "/debug/"):
             self._respond_json(200, json.dumps(
                 {"endpoints": DEBUG_ENDPOINTS}, indent=1).encode())
+        elif path == "/debug/slo":
+            eng = self.manager.slo_engine
+            if eng is None:
+                self._respond(503, "slo engine disabled (TPUC_PROFILE=0)")
+            else:
+                self._respond_json(
+                    200, json.dumps(eng.snapshot(), indent=1).encode()
+                )
+        elif path == "/debug/fleet":
+            fleet = self.manager.fleet
+            if fleet is None:
+                self._respond(503, "fleet plane disabled (TPUC_FLEET=0)")
+            else:
+                self._respond_json(
+                    200, json.dumps(fleet.snapshot(), indent=1).encode()
+                )
         elif path == "/debug/defrag":
             loop = self.manager.defrag
             if loop is None:
@@ -259,6 +288,18 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
             # On-demand burst profile on this handler thread (explicitly
             # requested, so it runs even under TPUC_PROFILE=0).
             self._profile_burst(query)
+        elif path == "/debug/lockdep":
+            from tpu_composer_torch.analysis import lockdep
+
+            witness = lockdep.current()
+            if witness is None:
+                self._respond(
+                    503, "lockdep witness disabled (--lockdep/TPUC_LOCKDEP=1)"
+                )
+            else:
+                self._respond_json(
+                    200, json.dumps(witness.snapshot(), indent=1).encode()
+                )
         else:
             self._respond(404, "not found")
 
@@ -326,7 +367,9 @@ class Manager:
         dispatcher=None,  # FabricDispatcher to drain at shutdown/handoff
         drain_timeout: float = 8.0,  # seconds; <= 0 disables graceful drain
         profiler=None,  # SamplingProfiler override (None = default when enabled)
+        slo_engine=None,  # SloEngine override (None = defaults when enabled)
         replica_id: Optional[str] = None,  # fleet identity for trace pids
+        fleet=None,  # runtime.fleet.FleetPlane serving /debug/fleet
         defrag=None,  # scheduler.DefragLoop serving /debug/defrag
         decisions=None,  # scheduler.DecisionLedger serving explain routes
         capacity=None,  # runtime.capacity.CapacityObservatory
@@ -366,6 +409,7 @@ class Manager:
         # replicas do via their real pids. None (the default) changes
         # nothing: events keep plain os.getpid().
         self.replica_id = replica_id
+        self.fleet = fleet
         # Defrag loop handle for /debug/defrag (dry-run plan + skip
         # reasons); None = loop not wired.
         self.defrag = defrag
@@ -404,13 +448,21 @@ class Manager:
         # feeds per-CR phase timelines from this manager's store.
         lifecycle.install()
         # Control-plane observatory (always-on by default, TPUC_PROFILE=0
-        # escape hatch): the sampling profiler runs as a manager-owned
-        # thread; /debug/profile* on the health port reads it.
+        # escape hatch): the sampling profiler and the SLO burn-rate
+        # engine run as manager-owned threads; /debug/profile* and
+        # /debug/slo on the health port read them.
         if profiler is not None:
             self.profiler = profiler
         else:
             self.profiler = (
                 profiler_mod.SamplingProfiler()
+                if profiler_mod.enabled() else None
+            )
+        if slo_engine is not None:
+            self.slo_engine = slo_engine
+        else:
+            self.slo_engine = (
+                SloEngine(recorder=self.recorder)
                 if profiler_mod.enabled() else None
             )
 
@@ -523,12 +575,19 @@ class Manager:
         t.start()
         self._threads.append(t)
 
-        # Observatory: the always-on stack sampler (absent under
-        # TPUC_PROFILE=0).
+        # Observatory: the always-on stack sampler and the SLO burn-rate
+        # evaluator (both absent under TPUC_PROFILE=0).
         if self.profiler is not None:
             t = threading.Thread(
                 target=self.profiler.run, args=(self._stop,),
                 name="profiler", daemon=True,
+            )
+            t.start()
+            self._threads.append(t)
+        if self.slo_engine is not None:
+            t = threading.Thread(
+                target=self.slo_engine.run, args=(self._stop,),
+                name="slo-engine", daemon=True,
             )
             t.start()
             self._threads.append(t)
