@@ -9,7 +9,9 @@ bootstrap, staged probe), and the high-availability operator (three
 replicas over six shard leases composing the card through a crash, a
 planned handoff and a store outage, then over the fake apiserver's
 ``tpuc-mux/1`` wire with the fleet view, the SLO engine and the
-lock-order witness on), on one NVIDIA GPU and hold every CUDA kernel of
+lock-order witness on, then as the operator's own binary in separate
+processes beside its node-agent daemon, whose device plugin hands the
+card to a pod process), on one NVIDIA GPU and hold every CUDA kernel of
 those paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--nccl-world]
@@ -28,8 +30,9 @@ nonzero. Phases, in order:
 1. ``card``: the card, its power limit, torch and CUDA versions. The
    raw ``nvidia-smi --query-gpu=name,power.limit`` line follows it.
 2. ``build``: nvcc seconds per kernel source (all three compile at once,
-   with the host compiler's build of the scheduler's ``tpusched.cc``
-   beside them) and ptxas's report per kernel (registers, spills); a
+   with the host compiler's builds of the scheduler's ``tpusched.cc``
+   and the node agent's ``gpunode.cc`` beside them) and ptxas's report
+   per kernel (registers, spills); a
    spill in the tensor-core B3 or in K2 fails the phase.
 3. ``flash_fwd``: kernel K1 against its plain version over B in {1, 2},
    S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 (at both
@@ -318,16 +321,58 @@ nonzero. Phases, in order:
     wire, on the full host: held back with its explain record
     (``no-tpu-ports free=0 need=1``) and no child, the witness still
     clean; then the replicas, the proxy and the apiserver stop.
-30. ``timing`` (the whole run's seconds, builds included, and each
+30. ``operator_binary``: the card composed by the port's binary across
+    processes. It prints the seconds of phase 2's build of the node
+    agent's native library (``native/gpunode.cc``); starts the
+    node-agent daemon (``python -m tpu_composer_torch.agent.serve`` over
+    the real ``/dev`` and ``/proc``, its kubelet device plugin on a
+    unix socket), which must load that same library (its log and its
+    ``/proc/<pid>/maps``); then, through ``fleet.ProcFleet`` (the port's
+    fake apiserver and ``tests/torch_fake_fabric.py`` in this process, a
+    Node ``localhost`` of one H100, the pool's attach taking 1 s), three
+    ``python -m tpu_composer_torch`` replicas over K = 6 shards (lease
+    3 s, renew 0.25 s, ``NODE_AGENT=REMOTE`` at the daemon, a plain
+    webhook server on ``127.0.0.1:0``, ``operator_fleet``'s cuts
+    through the binary's variables). One size-1 H100 request is POSTed
+    to the apiserver; the replica whose shard holds its child is
+    killed -9 mid-attach (its ``/debug/traces`` snapshotted first), and
+    a survivor takes the request to Running within the lease + 30 s,
+    with one attach in the pool's event log. The daemon's CDI spec
+    holds ``slice_env`` and the card CUDA holds open; a live replica's
+    webhook patches a labelled pod with exactly ``inject_pod_env``, and
+    denies an invalid request with ``validate_request``'s message; the
+    plugin's first ``ListAndWatch`` lists the card and ``Allocate``
+    answers its node, the control nodes, its CDI name and
+    ``CUDA_VISIBLE_DEVICES``. A pod process started with the webhook's
+    and Allocate's env runs K1 and K2 once each against their plain
+    versions (bf16 2e-2) on the composed card (its PCI bus id and
+    device node), building nothing, and reports its launch counts;
+    ``python -m tpu_composer_torch explain`` renders the placement and
+    names ``localhost``. It prints kill-to-Running and
+    submission-to-Running ms, each replica's spawn-to-port-file s, the
+    webhook and Allocate round trips, and the apiserver's requests by
+    verb from submission to Running, with the card's name and power
+    limit.
+31. ``operator_binary_busy``: a second size-1 H100 request, held back:
+    ``explain`` shows ``no-tpu-ports free=0 need=1`` and it has no
+    child; the daemon's drain guard names this process as the card's
+    holder; every survivor is drained at once (``ProcFleet.drain``:
+    exit 0, every shard lease released) and the daemon stopped by
+    SIGTERM (exit 0); ``python -m tpu_composer_torch trace-merge`` over
+    the survivors' trace files and the victim's snapshot gives one pid
+    per replica and a flow from the victim's intent to a survivor's
+    adoption.
+32. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
     moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
     mesh_training 15-16, pipeline_training 17, reshard_training 18,
-    composed_worker 19-25, operator_ha 26-27, operator_fleet 28-29, the
-    ranks' and the probe child's counts summed in); then the kernels line
+    composed_worker 19-25, operator_ha 26-27, operator_fleet 28-29,
+    operator_binary 30-31, the ranks', the probe child's and the pod's
+    counts summed in); then the kernels line
     ``{"kernels": [...]}``: per kernel its launches summed over every
     path and by path, max error, kernel / plain / library ms (device
     time), the kernel's issue ms, and the bound.
-31. the last line: ``{"ok": true, "device": {...}}``.
+33. the last line: ``{"ok": true, "device": {...}}``.
 
 Times (``timed``): ``ms`` is device time, the calls queued behind a
 spin kernel that outlasts the host's issue of all of them, so the CUDA
@@ -355,7 +400,7 @@ resharded and restored runs' losses 2e-4 relative to the never-resized
 run's (``tests/test_reshard.py``'s bound), their states equal to the
 source's exactly. K2 mid-flight against the
 gather path: 5e-2 (bf16 pool), 1e-1 (int8). ``operator_ha``'s and
-``operator_fleet``'s K1 and K2: bf16 2e-2. Token streams
+``operator_fleet``'s and ``operator_binary``'s K1 and K2: bf16 2e-2. Token streams
 (``serve_exact``, ``moe_serve_exact``, ``speculative``): equal; on a
 mismatch the target's top-2 logit gap at the first diverging token is
 printed (under 1e-4 names float drift).
@@ -555,20 +600,23 @@ def _ptxas_report(log: str) -> list:
 def phase_build() -> None:
     import threading
 
+    from tpu_composer_torch.agent import native as agent_native
     from tpu_composer_torch.ops import _build
     from tpu_composer_torch.scheduler import native
 
     t0 = time.perf_counter()
-    # The scheduler's host library compiles beside the CUDA sources.
+    # The host libraries (the scheduler's scan, the node agent's) compile
+    # beside the CUDA sources.
     native_err = []
 
     def build_native():
         try:
             native.build_native()
+            agent_native.build_native()
         except BaseException as e:  # re-raised below, on this thread
             native_err.append(e)
 
-    host = threading.Thread(target=build_native, name="tpusched-build")
+    host = threading.Thread(target=build_native, name="host-libs-build")
     host.start()
     try:
         seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
@@ -581,7 +629,9 @@ def phase_build() -> None:
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0,
          ptxas=ptxas,
          tpusched_s=native.build_log.get("tpusched", (0.0,))[0],
-         tpusched_lib=os.path.relpath(native.library_path(), HERE))
+         tpusched_lib=os.path.relpath(native.library_path(), HERE),
+         gpunode_s=agent_native.build_log.get("gpunode", (0.0,))[0],
+         gpunode_lib=os.path.relpath(agent_native.library_path(), HERE))
     for name, rows in ptxas.items():
         for kernel, targs, regs, spill in rows:
             check(not (kernel in NO_SPILL and spill),
@@ -2979,9 +3029,7 @@ def _attach_and_check(store, agent, gpus, driver, card) -> dict:
     check(len(gpu_nodes) == 1 and gpu_nodes == cuda_nodes,
           f"the spec's GPU node {gpu_nodes} is not the card CUDA holds open"
           f" {cuda_nodes}")
-    props = torch.cuda.get_device_properties(0)
-    cuda_bus = (f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:"
-                f"{props.pci_device_id:02x}.0")
+    cuda_bus = _card_bus()
     minor = _gpu_node_minor(gpu_nodes[0])
     agent_bus = dict((m, b) for b, m in gpus).get(minor)
     check(agent_bus is not None, f"minor {minor} is not one of {gpus}")
@@ -4623,6 +4671,647 @@ def phase_operator_fleet_busy(operator: dict) -> dict:
     return out
 
 
+BINARY_ATTACH_S = 1.0  # the fake fabric's attach takes this long: the crash window
+BINARY_DRAIN_S = 30.0  # ProcFleet.drain's wait for a replica's exit
+BINARY_POLL_SCALE = "0.05"  # reconciler re-polls 1 s -> 50 ms, as operator_fleet's
+# The replicas' env: the REMOTE node agent, and operator_fleet's cuts
+# (PERF.md section 4) through the binary's own variables.
+BINARY_ENV = {"NODE_AGENT": "REMOTE", "TPUC_POLL_SCALE": BINARY_POLL_SCALE,
+              "TPUC_FLEET_PUBLISH_PERIOD": str(FLEET_PUBLISH_S),
+              "TPUC_FLEET_STALE_AFTER": str(FLEET_STALE_S),
+              "TPUC_WIRE_PING_PERIOD": str(FLEET_PING_S),
+              "TPUC_FABRIC_POLL_FALLBACK_MULT": "1"}
+
+# The pod: a process started with the webhook's env and the plugin's
+# Allocate env, as a container runtime would start the worker. It runs K1
+# and K2 once each through ``_ha_worker_kernels`` and prints what it saw.
+_POD_CHILD = r"""
+import json, os, sys
+import torch
+import chip_smoke as cs
+from tpu_composer_torch.ops import _build
+cs.check(torch.cuda.is_available(), "pod: no CUDA device")
+torch.backends.cuda.matmul.allow_tf32 = False
+cs._reset_counts()
+bus = cs._card_bus()
+kernels = cs._ha_worker_kernels(torch.Generator().manual_seed(int(sys.argv[1])),
+                                "operator_binary")
+torch.cuda.synchronize()
+print("POD " + json.dumps({
+    "bus": bus, "device": torch.cuda.get_device_name(0),
+    "cuda_nodes": cs._cuda_nodes(), "launches": cs._counts(),
+    "kernels": kernels, "built": sorted(_build.build_log),
+    "env": {k: os.environ.get(k) for k in json.loads(sys.argv[2])}}),
+    flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _post_json(url: str, doc: dict, timeout: float = 10.0) -> tuple:
+    """POST ``doc``; (status, parsed body, ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, body = resp.status, json.load(resp)
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read() or b"{}")
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def _run_cli(args: list, timeout: float = 60.0) -> subprocess.CompletedProcess:
+    """``python -m tpu_composer_torch <args>``, as a user runs it."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    return subprocess.run([sys.executable, "-m", "tpu_composer_torch", *args],
+                          cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def _wire_by_verb(log, since: int = 0) -> dict:
+    """The fake apiserver's request log by verb (a watch apart)."""
+    out: dict = {}
+    for method, path in list(log)[since:]:
+        verb = "WATCH" if method == "GET" and "watch=" in path else method
+        out[verb] = out.get(verb, 0) + 1
+    return out
+
+
+class _BinaryWorld:
+    """Stops the binary phase's processes: the replicas and the servers
+    (``ProcFleet.close``) and the node-agent daemon."""
+
+    def __init__(self, fleet, agent_proc, agent_log):
+        self.fleet, self.agent_proc, self.agent_log = fleet, agent_proc, agent_log
+        self.obs = None  # the phase's own KubeStore reader
+        self.stopped = False
+
+    def stop(self):
+        if self.stopped:
+            return
+        self.stopped = True
+        try:
+            for rep in self.fleet.live():
+                os.kill(rep.proc.pid, 9)
+                rep.proc.wait(timeout=10)
+            self.fleet.close()
+        finally:
+            if self.agent_proc.poll() is None:
+                self.agent_proc.kill()
+                self.agent_proc.wait(timeout=10)
+            self.agent_log.close()
+            if self.obs is not None:
+                self.obs.close()
+
+
+def phase_operator_binary(workdir: str, card: dict, gen: torch.Generator,
+                          seed: int) -> dict:
+    """The H100 composed by the port's binary across processes (docstring,
+    phase 30). Returns the running world; ``operator_binary_busy`` stops
+    it."""
+    import collections
+    import urllib.request
+    from types import SimpleNamespace
+
+    from tpu_composer_torch import API_VERSION
+    from tpu_composer_torch.admission import inject_pod_env, slice_env
+    from tpu_composer_torch.admission.coordinates import (
+        LABEL_INJECT, LABEL_WORKER_ID)
+    from tpu_composer_torch.admission.server import MUTATE_PATH, VALIDATE_PATH
+    from tpu_composer_torch.admission.validating import (
+        AdmissionDenied, validate_request)
+    from tpu_composer_torch.agent import native as agent_native
+    from tpu_composer_torch.agent.nodeagent import LocalNodeAgent
+    from tpu_composer_torch.api import ComposabilityRequest, ComposableResource
+    from tpu_composer_torch.api.scheme import default_scheme
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+    from tpu_composer_torch.fleet.proc import ProcFleet
+    from tpu_composer_torch.runtime.kubestore import (
+        CHIP_RESOURCE, KubeConfig, KubeStore)
+    from tpu_composer_torch.runtime.shards import shard_for
+    from tpu_composer_torch.runtime.store import Store
+    from tpu_composer_torch.sim.apiserver import core_node_doc
+
+    root = os.path.join(workdir, "operator_binary")
+    os.makedirs(root)
+    # The node agent's native library, built by this process (phase 2)
+    # before the daemon starts: the daemon loads this same file.
+    lib_path = str(agent_native.build_native())
+    compiled = agent_native.build_log.get("gpunode")
+    native_build = {"compile_s": compiled[0] if compiled else None,
+                    "library": os.path.relpath(lib_path, HERE)}
+    emit("operator_binary", check="native_build", **native_build)
+    gpus = LocalNodeAgent(cdi_dir=os.path.join(root, "probe-cdi"),
+                          state_dir=os.path.join(root, "probe-state")).gpus()
+    check(len(gpus) == 1, f"operator_binary: the node agent lists {gpus}")
+    cuda_nodes = _cuda_nodes()
+
+    # The node-agent daemon over the real /dev and /proc, with its kubelet
+    # device plugin (which needs grpc).
+    import importlib.util
+
+    check(importlib.util.find_spec("grpc") is not None,
+          "operator_binary: no grpc on this host for the device plugin")
+    agent_dirs = {k: os.path.join(root, "agent", k)
+                  for k in ("cdi", "state", "plugins")}
+    agent_addr = f"127.0.0.1:{_free_port()}"
+    argv = _agent_argv(agent_addr, agent_dirs)
+    agent_log_path = os.path.join(root, "agent.log")
+    agent_log = open(agent_log_path, "wb")
+    t_agent = time.perf_counter()
+    agent_proc = subprocess.Popen(
+        argv, stdout=agent_log, stderr=subprocess.STDOUT, cwd=root,
+        env=dict(os.environ, PYTHONPATH=HERE, NODE_NAME="localhost"))
+    fleet = ProcFleet(
+        os.path.join(root, "fleet"), nodes=0, shards=HA_SHARDS,
+        expected_replicas=len(HA_REPLICAS), lease_duration_s=HA_LEASE_S,
+        lease_renew_s=HA_RENEW_S, workers=2,
+        pool_chips={H100_MODEL: len(gpus)},
+        extra_env=dict(BINARY_ENV, NODE_AGENT_ENDPOINT_TEMPLATE=agent_addr),
+        extra_flags=["--webhook-bind-address", "127.0.0.1:0"])
+    world = _BinaryWorld(fleet, agent_proc, agent_log)
+    try:
+        def agent_up():
+            try:
+                with urllib.request.urlopen(f"http://{agent_addr}/healthz",
+                                            timeout=1) as resp:
+                    return resp.status == 200
+            except OSError:
+                check(agent_proc.poll() is None,
+                      f"operator_binary: the node agent exited"
+                      f" {agent_proc.returncode}: {_tail(agent_log_path)}")
+                return False
+
+        check(_wait(agent_up, 60.0, 0.02),
+              "operator_binary: the node agent never answered /healthz")
+        agent_ready_s = time.perf_counter() - t_agent
+        logged = _tail(agent_log_path)
+        check(f"(native library {lib_path})" in logged,
+              f"operator_binary: the node agent did not load {lib_path}:"
+              f" {logged}")
+        with open(f"/proc/{agent_proc.pid}/maps") as f:
+            mapped = lib_path in f.read()
+        check(mapped, f"operator_binary: {lib_path} is not mapped in the"
+              " node agent")
+
+        # The fake fabric's attach takes BINARY_ATTACH_S on the pool's own
+        # timer (ProcFleet builds the pool; the phase sets its delay).
+        fleet.pool._async_delay = BINARY_ATTACH_S
+        fleet.apiserver.put_object("/api/v1/nodes", core_node_doc(
+            "localhost", chips=len(gpus), chip_resource=CHIP_RESOURCE))
+        t_spawn, spawn_s = {}, {}
+        for ident in HA_REPLICAS:
+            t_spawn[ident] = time.perf_counter()
+            fleet.spawn(ident, wait_ready_s=0)
+        for ident in HA_REPLICAS:
+            port_file = fleet.replicas[ident].artifacts["port"]
+            check(_wait(lambda: os.path.exists(port_file)
+                        or not fleet.replicas[ident].alive(), 60.0, 0.01),
+                  f"operator_binary: {ident} wrote no port file")
+            spawn_s[ident] = time.perf_counter() - t_spawn[ident]
+            fleet.wait_ready(ident, timeout=60.0)
+
+        def spread():
+            return sorted(collections.Counter(
+                fleet.shard_owners().values()).values())
+
+        check(_wait(lambda: spread() == [2, 2, 2]
+                    and len(fleet.shard_owners()) == HA_SHARDS, 30.0, 0.01),
+              f"operator_binary: the shards never balanced:"
+              f" {fleet.shard_owners()}")
+        bootstrap = dict(sorted(fleet.shard_owners().items()))
+        webhooks = {}
+        for ident in HA_REPLICAS:
+            line = [ln for ln in fleet.tail_log(ident, 400).splitlines()
+                    if "admission webhooks serving on" in ln]
+            check(line, f"operator_binary: {ident} serves no webhook")
+            webhooks[ident] = line[-1].split("serving on ")[1].split()[0]
+
+        url = fleet.apiserver.url
+        obs = world.obs = KubeStore(KubeConfig(host=url), cache_reads=False,
+                                    wire_mux=False)
+        name = "chip-smoke-binary"
+        slice_name = f"{name}-slice"
+
+        def kids():
+            return obs.list(ComposableResource,
+                            label_selector={LABEL_MANAGED_BY: name})
+
+        def kid_docs():
+            # Read in this process, off the wire: the wire counts below
+            # are the operator's own.
+            with fleet.apiserver.state.lock:
+                return [json.loads(json.dumps(o)) for (p, _), o
+                        in fleet.apiserver.state.objects.items()
+                        if p == fleet.res_prefix
+                        and (o["metadata"].get("labels") or {}).get(
+                            LABEL_MANAGED_BY) == name]
+
+        def cr_state(cr):
+            with fleet.apiserver.state.lock:
+                doc = fleet.apiserver.state.objects.get((fleet.cr_prefix, cr))
+                return ((doc or {}).get("status") or {}).get("state")
+
+        log0 = len(fleet.apiserver.request_log)
+        code, _, submit_ms = _post_json(url + fleet.cr_prefix, {
+            "apiVersion": API_VERSION,
+            "kind": "ComposabilityRequest", "metadata": {"name": name},
+            "spec": {"resource": {"type": "gpu", "model": H100_MODEL,
+                                  "size": 1}}})
+        t_submit = time.perf_counter()
+        check(code == 201, f"operator_binary: the apiserver answered {code}")
+
+        def mid_attach():
+            return [k for k in kid_docs()
+                    if (k.get("status") or {}).get("pending_op")
+                    and k["status"].get("state") != "Online"]
+
+        check(_wait(lambda: mid_attach(), 30.0, 0.001),
+              "operator_binary: no child ever carried an attach intent")
+        # The victim: the replica whose shard holds the child, which wrote
+        # its attach intent and waits on the fabric. The request's placer
+        # keeps the placement's decision ring; where the victim is also
+        # the placer, its ring is read before the kill (it dies with it).
+        owners0 = fleet.shard_owners()
+        victim = owners0.get(shard_for(mid_attach()[0]["metadata"]["name"],
+                                       HA_SHARDS))
+        placer = owners0.get(shard_for(name, HA_SHARDS))
+        check(victim is not None and placer is not None,
+              f"operator_binary: unowned shards {owners0}")
+        ring_file = None
+        if placer == victim:
+            ring_file = os.path.join(root, "decisions.json")
+            ring = fleet.debug(victim, f"/debug/scheduler/explain/{name}")
+            with open(ring_file, "w") as f:
+                json.dump({"requests": {name: ring["decisions"]}}, f)
+        fleet.kill(victim)
+        t_kill = time.perf_counter()
+        (caught,) = mid_attach() or [None]
+        check(caught is not None,
+              "operator_binary: the child went Online before the kill")
+        check("trace_prekill" in fleet.replicas[victim].artifacts,
+              f"operator_binary: no pre-kill trace snapshot of {victim}")
+        crash = {"victim": victim, "placer": placer,
+                 "child": caught["metadata"]["name"],
+                 "state": caught["status"].get("state"),
+                 "pending_op": caught["status"]["pending_op"]["verb"],
+                 "submit_to_kill_ms": (t_kill - t_submit) * 1e3}
+        emit("operator_binary", check="kill", **crash)
+        survivors = [i for i in HA_REPLICAS if i != victim]
+
+        def running():
+            ks = kid_docs()
+            return (cr_state(name) == "Running" and len(ks) == 1
+                    and ks[0]["status"].get("state") == "Online")
+
+        check(_wait(running, HA_LEASE_S + 30.0, 0.005),
+              "operator_binary: the request never reached Running through a"
+              " survivor")
+        t_running = time.perf_counter()
+        wire = _wire_by_verb(fleet.apiserver.request_log, log0)
+        owners = fleet.shard_owners()
+        check(len(owners) == HA_SHARDS and victim not in owners.values(),
+              f"operator_binary: the shards after the kill {owners}")
+        req = obs.get(ComposabilityRequest, name)
+        (child,) = kids()
+        want_slice = dict(name=slice_name, topology="1x1", num_hosts=1,
+                          chips_per_host=1, worker_hostnames=["localhost"])
+        check(req.status.slice.to_dict() == want_slice,
+              f"operator_binary: status.slice {req.status.slice.to_dict()}")
+        raw, _ = fleet.pool.poll_events(0, timeout=0)
+        fabric_ops = [(e.verb, e.resource, e.outcome) for e in raw
+                      if e.type == "op_completed"
+                      and e.verb in ("add", "remove")]
+        check(fabric_ops == [("add", child.metadata.name, "ok")],
+              f"operator_binary: the pool's event log {fabric_ops} is not"
+              " one attach of the child")
+        # The spec the daemon wrote: slice_env exactly, CUDA's card.
+        spec = _ha_spec(SimpleNamespace(cdi_dir=agent_dirs["cdi"]),
+                        slice_name, child, req, "operator_binary")
+        group = f"{slice_name}-worker{child.spec.worker_id}"
+
+        # The webhook of a live replica: the pod's patch is inject_pod_env.
+        pod = {"apiVersion": "v1", "kind": "Pod",
+               "metadata": {"name": "chip-smoke-pod", "labels": {
+                   LABEL_INJECT: name, LABEL_WORKER_ID: "0"}},
+               "spec": {"containers": [{"name": "worker", "image": "torch"}]}}
+        hook = webhooks[survivors[0]]
+        code, review, mutate_ms = _post_json(
+            f"http://{hook}{MUTATE_PATH}",
+            {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+             "request": {"uid": "pod-1", "object": pod}})
+        import base64
+
+        (op,) = json.loads(base64.b64decode(review["response"]["patch"]))
+        want_pod = inject_pod_env(json.loads(json.dumps(pod)),
+                                  req.status.slice, 0, H100_MODEL)
+        check(code == 200 and review["response"]["allowed"]
+              and op["path"] == "/spec" and op["value"] == want_pod["spec"],
+              f"operator_binary: the webhook's patch {op} is not"
+              f" inject_pod_env's {want_pod['spec']}")
+        pod_env = {e["name"]: e["value"]
+                   for e in op["value"]["containers"][0]["env"]}
+        check(pod_env == slice_env(req.status.slice, 0, H100_MODEL),
+              f"operator_binary: the pod env {pod_env}")
+        bad = {"apiVersion": API_VERSION,
+               "kind": "ComposabilityRequest", "metadata": {"name": "bad"},
+               "spec": {"resource": {"type": "gpu", "model": H100_MODEL,
+                                     "size": 1,
+                                     "allocation_policy": "differentnode",
+                                     "target_node": "worker-0"}}}
+        code, denied, validate_ms = _post_json(
+            f"http://{hook}{VALIDATE_PATH}",
+            {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+             "request": {"uid": "bad-1", "object": bad}})
+        try:
+            validate_request(Store(), default_scheme().decode(bad))
+            want_msg = None
+        except AdmissionDenied as e:
+            want_msg = str(e)
+        check(want_msg and denied["response"]["allowed"] is False
+              and denied["response"]["status"]["message"] == want_msg,
+              f"operator_binary: the invalid request's review {denied}"
+              f" (validate_request says {want_msg!r})")
+
+        # The device plugin: ListAndWatch lists the card, Allocate names it
+        # as the pod, which holds only its node, sees it: CUDA's device 0.
+        from tpu_composer_torch.agent.cdi import NVIDIA_CONTROL_NODES
+
+        plugin = _plugin_allocate(agent_dirs["plugins"], group)
+        check(plugin["listed"] == [[f"{group}/0", "Healthy"]],
+              f"operator_binary: ListAndWatch lists {plugin['listed']}")
+        check(plugin["devices"] == [cuda_nodes[0], *NVIDIA_CONTROL_NODES]
+              and plugin["cdi"] == [f"tpu.composer.dev/gpu={group}"]
+              and plugin["envs"] == {"CUDA_VISIBLE_DEVICES": "0",
+                                     "CUDA_DEVICE_ORDER": "PCI_BUS_ID"},
+              f"operator_binary: Allocate answered {plugin}")
+
+        # The pod process on the card, with the webhook's and Allocate's env.
+        pod_proc = subprocess.run(
+            [sys.executable, "-c", _POD_CHILD, str(seed),
+             json.dumps(sorted(pod_env) + sorted(plugin["envs"]))],
+            cwd=HERE, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=HERE, **pod_env,
+                     **plugin["envs"]))
+        lines = [ln for ln in pod_proc.stdout.splitlines()
+                 if ln.startswith("POD ")]
+        check(pod_proc.returncode == 0 and lines,
+              f"operator_binary: the pod exited {pod_proc.returncode}:"
+              f" {pod_proc.stderr[-3000:]}")
+        pod_out = json.loads(lines[-1][4:])
+        card_bus = _card_bus()
+        check(pod_out["bus"] == card_bus
+              and pod_out["cuda_nodes"] == cuda_nodes,
+              f"operator_binary: the pod ran on {pod_out['bus']}"
+              f" {pod_out['cuda_nodes']}, not the composed card {card_bus}"
+              f" {cuda_nodes}")
+        check(not pod_out["built"],
+              f"operator_binary: the pod compiled {pod_out['built']}")
+        check(pod_out["env"] == {**pod_env, **plugin["envs"]},
+              f"operator_binary: the pod's env {pod_out['env']}")
+        want_launches = {k: int(k in ("flash_fwd", "paged_decode"))
+                         for k in _counts()}
+        check(pod_out["launches"] == want_launches,
+              f"operator_binary: the pod launched {pod_out['launches']},"
+              f" not K1 and K2 once each ({want_launches})")
+
+        # explain, through the binary: the placer's live ring, or the ring
+        # read from it before the kill.
+        if ring_file is None:
+            res = _run_cli(["explain", name, "--addr", "127.0.0.1:"
+                            f"{fleet.replicas[placer].health_port}"])
+        else:
+            res = _run_cli(["explain", name, "--file", ring_file])
+        check(res.returncode == 0 and "localhost" in res.stdout,
+              f"operator_binary: explain exited {res.returncode}:"
+              f" {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    except BaseException:
+        world.stop()
+        raise
+    rec = {"card": card["nvidia_smi"], "replicas": len(HA_REPLICAS),
+           "shards": HA_SHARDS, "lease_duration_s": HA_LEASE_S,
+           "renew_period_s": HA_RENEW_S, "env": BINARY_ENV,
+           "attach_s": BINARY_ATTACH_S, "native_build": native_build,
+           "agent_ready_s": agent_ready_s, "spawn_to_port_file_s": spawn_s,
+           "bootstrap": bootstrap, "request": name, "crash": crash,
+           "submit_post_ms": submit_ms,
+           "kill_to_running_ms": (t_running - t_kill) * 1e3,
+           "submit_to_running_ms": (t_running - t_submit) * 1e3,
+           "wire_requests_by_verb": wire, "fabric_ops": fabric_ops,
+           "spec": {k: v for k, v in spec.items() if k != "env"},
+           "webhook_mutate_ms": mutate_ms, "webhook_validate_ms": validate_ms,
+           "denial": want_msg, "plugin": plugin,
+           "pod": {k: v for k, v in pod_out.items() if k != "env"},
+           "explain": "file" if ring_file else f"addr of {placer}",
+           "explain_lines": res.stdout.count("\n")}
+    emit("operator_binary", **rec)
+    return {"world": world, "fleet": fleet, "survivors": survivors,
+            "victim": victim, "agent_addr": agent_addr, "group": group,
+            "device_ids": list(child.status.device_ids), "obs": obs,
+            "launches": pod_out["launches"], **rec}
+
+
+def _explain(fleet, name: str) -> subprocess.CompletedProcess:
+    """``python -m tpu_composer_torch explain <name>`` against the replica
+    that owns the request's shard, whose scheduler records each retry of
+    a held-back request."""
+    from tpu_composer_torch.runtime.shards import shard_for
+
+    owner = fleet.shard_owners().get(shard_for(name, HA_SHARDS))
+    port = fleet.replicas[owner].health_port if owner else 0
+    return _run_cli(["explain", name, "--addr", f"127.0.0.1:{port}"])
+
+
+def _agent_argv(addr: str, dirs: dict) -> list:
+    """The node-agent daemon over this host's real /dev and /proc, with
+    its kubelet device plugin."""
+    return [sys.executable, "-m", "tpu_composer_torch.agent.serve",
+            "--bind", addr, "--dev-dir", "/dev", "--proc-dir", "/proc",
+            "--cdi-dir", dirs["cdi"], "--state-dir", dirs["state"],
+            "--device-plugin-dir", dirs["plugins"]]
+
+
+def _card_bus() -> str:
+    """The PCI bus id of this process's CUDA device 0, as CUDA reports it."""
+    props = torch.cuda.get_device_properties(0)
+    return (f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:"
+            f"{props.pci_device_id:02x}.0")
+
+
+def _tail(path: str, n: int = 4000) -> str:
+    with open(path, "rb") as f:
+        return f.read().decode(errors="replace")[-n:]
+
+
+def _plugin_allocate(plugin_dir: str, group: str) -> dict:
+    """The kubelet's side of the device plugin over its unix socket: the
+    first ListAndWatch answer, then Allocate of the group's device."""
+    import grpc
+
+    from tpu_composer_torch.agent import deviceplugin_pb2 as pb
+    from tpu_composer_torch.agent.plugin import API_VERSION, PLUGIN_SOCKET
+
+    sock = os.path.join(plugin_dir, PLUGIN_SOCKET)
+    check(_wait(lambda: os.path.exists(sock), 30.0, 0.01),
+          f"operator_binary: no plugin socket at {sock}")
+    with grpc.insecure_channel(f"unix:{sock}") as channel:
+        watch = channel.unary_stream(
+            f"/{API_VERSION}.DevicePlugin/ListAndWatch",
+            request_serializer=pb.Empty.SerializeToString,
+            response_deserializer=pb.ListAndWatchResponse.FromString)
+        stream = watch(pb.Empty(), timeout=30.0)
+        first = next(stream)
+        stream.cancel()
+        listed = [[d.ID, d.health] for d in first.devices]
+        allocate = channel.unary_unary(
+            f"/{API_VERSION}.DevicePlugin/Allocate",
+            request_serializer=pb.AllocateRequest.SerializeToString,
+            response_deserializer=pb.AllocateResponse.FromString)
+        t0 = time.perf_counter()
+        resp = allocate(pb.AllocateRequest(container_requests=[
+            pb.ContainerAllocateRequest(devices_ids=[f"{group}/0"])]),
+            timeout=10.0)
+        allocate_ms = (time.perf_counter() - t0) * 1e3
+    (c,) = resp.container_responses
+    return {"listed": listed, "allocate_ms": allocate_ms,
+            "envs": dict(c.envs), "devices": [d.host_path for d in c.devices],
+            "cdi": [d.name for d in c.cdi_devices]}
+
+
+def phase_operator_binary_busy(operator: dict) -> dict:
+    """A second H100 request held back, the busy guard across processes,
+    then every replica drained and the agent stopped; the traces merged
+    (docstring, phase 31)."""
+    import threading as _threading
+
+    from tpu_composer_torch import API_VERSION
+    from tpu_composer_torch.agent.nodeagent import DeviceBusyError
+    from tpu_composer_torch.agent.remote import RemoteNodeAgent
+    from tpu_composer_torch.api import ComposableResource
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+    from tpu_composer_torch.runtime import tracing
+    from tpu_composer_torch.runtime.shards import shard_for
+
+    world, fleet = operator["world"], operator["fleet"]
+    try:
+        second = "chip-smoke-binary-busy"
+        url = fleet.apiserver.url
+        t0 = time.perf_counter()
+        code, _, _ = _post_json(url + fleet.cr_prefix, {
+            "apiVersion": API_VERSION,
+            "kind": "ComposabilityRequest", "metadata": {"name": second},
+            "spec": {"resource": {"type": "gpu", "model": H100_MODEL,
+                                  "size": 1}}})
+        check(code == 201, f"operator_binary_busy: the apiserver answered {code}")
+        def held_back():
+            res = _explain(fleet, second)
+            return (res if res.returncode == 0 and "held-back" in res.stdout
+                    and "localhost: no-tpu-ports free=0 need=1" in res.stdout
+                    else None)
+
+        check(_wait(held_back, 30.0, 0.2),
+              "operator_binary_busy: explain never showed the second"
+              " request's no-tpu-ports hold-back")
+        held_ms = (time.perf_counter() - t0) * 1e3
+        explained = held_back().stdout
+        check(not operator["obs"].list(ComposableResource, label_selector={
+            LABEL_MANAGED_BY: second}),
+            "operator_binary_busy: the second request got a child")
+        # The drain guard, answered by the daemon from its /proc scan.
+        remote = RemoteNodeAgent(lambda node: operator["agent_addr"])
+        try:
+            remote.drain("localhost", operator["device_ids"],
+                         group=operator["group"])
+            busy = "drained"
+        except DeviceBusyError as e:
+            busy = str(e)
+        check(f"{os.getpid()}(" in busy,
+              f"operator_binary_busy: the drain gave {busy!r}, not this"
+              f" process {os.getpid()} holding the card")
+
+        # Drain every survivor at once; then the agent.
+        exits, stop_s = {}, {}
+
+        def drain(ident):
+            t = time.perf_counter()
+            rep = fleet.drain(ident, timeout=BINARY_DRAIN_S)
+            exits[ident] = rep.proc.returncode
+            stop_s[ident] = time.perf_counter() - t
+
+        threads = [_threading.Thread(target=drain, args=(i,))
+                   for i in operator["survivors"]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(all(rc == 0 for rc in exits.values())
+              and len(exits) == len(operator["survivors"]),
+              f"operator_binary_busy: the replicas exited {exits}")
+        released = fleet.shard_owners()
+        check(released == {},
+              f"operator_binary_busy: shard leases still held {released}")
+        agent_proc = world.agent_proc
+        t = time.perf_counter()
+        agent_proc.terminate()
+        agent_rc = agent_proc.wait(timeout=BINARY_DRAIN_S)
+        agent_stop_s = time.perf_counter() - t
+        check(agent_rc == 0, f"operator_binary_busy: the agent exited"
+              f" {agent_rc}")
+
+        # trace-merge over the survivors' files and the victim's snapshot.
+        files = fleet.trace_files()
+        merged_path = os.path.join(fleet.workdir, "merged.json")
+        res = _run_cli(["trace-merge", "--out", merged_path, *files])
+        check(res.returncode == 0, f"operator_binary_busy: trace-merge"
+              f" exited {res.returncode}: {res.stderr[-2000:]}")
+        with open(merged_path) as f:
+            merged = json.load(f)
+        names = {e["pid"]: e["args"]["name"] for e in merged["traceEvents"]
+                 if e.get("name") == "process_name"}
+        pids = {tracing.replica_pid(i): i for i in HA_REPLICAS}
+        check(all(names.get(p) == i for p, i in pids.items()),
+              f"operator_binary_busy: the merged trace names {names}")
+        victim_pid = tracing.replica_pid(operator["victim"])
+        spans: dict = {}
+        for e in merged["traceEvents"]:
+            tid = (e.get("args") or {}).get("trace_id")
+            if e.get("ph") == "X" and tid:
+                spans.setdefault(tid, []).append(e)
+        stitched = {f["args"]["trace_id"] for f in merged["traceEvents"]
+                    if f.get("ph") in ("s", "f")
+                    and f["args"].get("stitched")}
+        flows = [t for t, evs in spans.items() if t in stitched
+                 and victim_pid in {e["pid"] for e in evs}
+                 and any(e["name"] == "adopt" and e["pid"] != victim_pid
+                         for e in evs)]
+        check(flows, "operator_binary_busy: no flow from the victim's intent"
+              " to a survivor's adoption in the merged trace")
+    finally:
+        world.stop()
+    out = {"second": second, "held_back_after_ms": held_ms,
+           "explain": [ln for ln in explained.splitlines()
+                       if "no-tpu-ports" in ln or "held-back" in ln][:3],
+           "busy": busy, "replica_exits": exits, "replica_stop_s": stop_s,
+           "agent_exit": agent_rc, "agent_stop_s": agent_stop_s,
+           "trace_files": len(files),
+           "merged_events": len(merged["traceEvents"]),
+           "stitched_flows": merged.get("metadata", {}).get("stitched_flows"),
+           "failover_flows": len(flows), "card": operator["card"]}
+    emit("operator_binary_busy", **out)
+    return out
+
+
 def phase_composed_worker(gen: torch.Generator, operator: dict) -> dict:
     """The composed H100 worker: the kernels at the probe's new shapes in
     this process (uncounted), then the worker's side of the operator's
@@ -4957,13 +5646,19 @@ def main() -> int:
                  (("operator_fleet", lambda: phase_operator_fleet(
                      workdir, card, gen)),
                   ("operator_fleet_busy", lambda: phase_operator_fleet_busy(
-                      done["operator_fleet"]))))):
+                      done["operator_fleet"])))),
+                ("operator_binary", ("flash_fwd", "paged_decode"),
+                 (("operator_binary", lambda: phase_operator_binary(
+                     workdir, card, gen, seed)),
+                  ("operator_binary_busy", lambda: phase_operator_binary_busy(
+                      done["operator_binary"]))))):
             _reset_counts()
             for phase_name, fn in phases:
                 done[phase_name] = timed_phase(phase_name, fn)
             paths[name] = _counts()
             for phase_name in ("mesh_train", "pipeline_train",
-                               "reshard_train", "composed_worker"):
+                               "reshard_train", "composed_worker",
+                               "operator_binary"):
                 if phase_name in dict(phases):
                     for k, v in done[phase_name]["launches"].items():
                         paths[name][k] += v
@@ -4980,6 +5675,8 @@ def main() -> int:
                 done[phase_name]["manager"].stop()
         if "operator_remote" in done:
             done["operator_remote"]["server"].close()
+        if "operator_binary" in done:
+            done["operator_binary"]["world"].stop()
         shutil.rmtree(workdir, ignore_errors=True)
     emit("timing", wall_s=time.perf_counter() - t_start, phase_s=seconds)
     emit("launches", **paths)

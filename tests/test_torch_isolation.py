@@ -105,6 +105,43 @@ def test_the_wire_store_fleet_and_witness_load_no_jax_package():
     assert res.stdout.strip() == "[]", res.stdout
 
 
+#: The operator's binary, its node edges and its process fleet: each
+#: starts without torch, CUDA or JAX.
+TORCH_FREE = (
+    "tpu_composer_torch.__main__", "tpu_composer_torch.cmd.main",
+    "tpu_composer_torch.admission.server",
+    "tpu_composer_torch.admission.validating",
+    "tpu_composer_torch.agent.native", "tpu_composer_torch.agent.watcher",
+    "tpu_composer_torch.agent.serve", "tpu_composer_torch.agent.remote",
+    "tpu_composer_torch.agent.plugin",
+    "tpu_composer_torch.agent.deviceplugin_pb2",
+    "tpu_composer_torch.fleet.proc",
+)
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_the_binary_and_its_edges_load_no_torch_or_jax(module):
+    """A fresh interpreter that imports ``module`` (``__main__`` through
+    ``--help``, as ``python -m tpu_composer_torch --help`` runs it) has no
+    module of torch, JAX or the JAX package."""
+    if module.endswith("__main__"):
+        load = ("sys.argv = ['tpu-composer', '--help']\n"
+                "try:\n"
+                "    runpy.run_module('tpu_composer_torch', run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    assert e.code == 0, e.code\n")
+    else:
+        load = f"importlib.import_module({module!r})\n"
+    code = ("import importlib, runpy, sys\n" + load +
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+            "print('LOADED', bad)\n" % (FORBIDDEN_IMPORTS + ("torch",),))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("LOADED []"), res.stdout
+
+
 def test_probe_child_imports_nothing_of_jax_or_the_jax_package():
     from tpu_composer_torch.workload import probe
 

@@ -20,6 +20,9 @@ comes with the fleet plane).
 from __future__ import annotations
 
 import json
+import os
+import subprocess
+import sys
 import threading
 import time
 import urllib.request
@@ -30,6 +33,8 @@ import torch
 from tests.torch_operator import run_both, wait_for
 
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 THREAD_NAMES = [
     "fabric-dispatch-3", "ComposableResourceReconciler-worker-0",
@@ -158,28 +163,63 @@ def delayed_entries_time_from_promotion_not_add_after(tw):
 
 # -- the sampler ---------------------------------------------------------------
 
+#: Sampler ticks of the busy-thread burst; each lands after the spinner
+#: has finished another lap of its loop, however the host schedules it.
+BURST_TICKS = 50
+
+_BURST_CHILD = r"""
+import importlib, json, sys, threading, time
+profiler = importlib.import_module(sys.argv[1] + ".runtime.profiler")
+stop, running = threading.Event(), threading.Event()
+laps = [0]
+
+
+def spin():
+    while not stop.is_set():
+        sum(i * i for i in range(500))
+        laps[0] += 1
+        if laps[0] == 1:
+            running.set()
+
+
+t = threading.Thread(target=spin, name="CRR-worker-0")
+t.start()
+try:
+    assert running.wait(60.0), "the spinner never ran"
+    prof = profiler.SamplingProfiler(interval=0.005, window_s=3600.0)
+    prof._own_ident = threading.get_ident()
+    for _ in range(int(sys.argv[2])):
+        seen = laps[0]
+        while laps[0] == seen:
+            time.sleep(0.0005)
+        prof.sample_once()
+finally:
+    stop.set()
+    t.join()
+rw = prof.thread_summary()["reconcile-worker"]
+top = prof.top(5)
+stack, count = prof.collapsed().splitlines()[0].rsplit(" ", 1)
+print(json.dumps([
+    rw["samples"] > 0, rw["blocked_samples"] < rw["samples"],
+    any("spin" in f["frame"] or "genexpr" in f["frame"] for f in top),
+    int(count) > 0 and ";" in stack, sorted(rw), sorted(top[0])]))
+"""
+
+
 def burst_catches_a_busy_thread_with_cpu_split(tw):
-    stop = threading.Event()
-
-    def spin():
-        while not stop.is_set():
-            sum(i * i for i in range(500))
-
-    t = threading.Thread(target=spin, name="CRR-worker-0")
-    t.start()
-    try:
-        prof = tw.profiler.profile_burst(seconds=0.25, interval=0.005)
-    finally:
-        stop.set()
-        t.join()
-    summary = prof.thread_summary()
-    rw = summary["reconcile-worker"]
-    top = prof.top(5)
-    line = prof.collapsed().splitlines()[0]
-    stack, count = line.rsplit(" ", 1)
-    rec = [rw["samples"] > 0, rw["blocked_samples"] < rw["samples"],
-           any("spin" in f["frame"] or "genexpr" in f["frame"] for f in top),
-           int(count) > 0 and ";" in stack, sorted(rw), sorted(top[0])]
+    """A burst sampler (``profile_burst``'s: interval 5 ms, the calling
+    thread excluded) ticks BURST_TICKS times while a thread spins, in a
+    fresh interpreter. The ticks are paced by the spinner's laps, not by
+    the wall clock, so a loaded host cannot starve the spinner out of the
+    sample; and the process holds only the spinner and the sampler, so no
+    thread another test left behind crowds the spinner out of the top
+    frames."""
+    res = subprocess.run(
+        [sys.executable, "-c", _BURST_CHILD, tw.root, str(BURST_TICKS)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert res.returncode == 0, res.stderr
+    rec = json.loads(res.stdout.splitlines()[-1])
     assert rec[:4] == [True, True, True, True]
     return rec
 

@@ -75,6 +75,10 @@ _MODULES = dict(
     fleet="runtime.fleet", wiremux="runtime.wiremux",
     kubestore="runtime.kubestore", apiserver="sim.apiserver",
     netchaos="sim.netchaos", churn="sim.churn",
+    validating="admission.validating", admission_server="admission.server",
+    agent_native="agent.native", watcher="agent.watcher",
+    serve="agent.serve", remote="agent.remote", plugin="agent.plugin",
+    pb="agent.deviceplugin_pb2", cmd="cmd.main", proc="fleet.proc",
 )
 
 

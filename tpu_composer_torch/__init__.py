@@ -11,15 +11,25 @@ pipeline, ``workload/`` the training loop and slice qualification, and
 ``examples/`` a runnable training script.
 
 The operator composes the accelerator onto a node: ``api/`` (the API
-objects), ``runtime/`` (the object store, work queues, controllers, the
-manager and the scheduler's capacity and goodput observatory),
-``fabric/`` (the provider interface and the in-memory pool), ``agent/``
-(the node agent, ``/dev/accel*`` and ``/dev/nvidia*``, and the CDI spec),
-``scheduler/`` (placement, preemption, defragmentation and the decision
-ledger, with the native scan of ``native/tpusched.cc`` built by the host
-C++ compiler at first use) and ``controllers/`` (the ComposabilityRequest
-and ComposableResource reconcilers, the syncer, cold-start adoption and
-the NodeMaintenance drain). These import no torch.
+objects), ``runtime/`` (the object store and its wire, work queues,
+controllers, the manager with its health and TLS metrics ports, leases
+and shards, the fleet and SLO planes and the scheduler's capacity and
+goodput observatory), ``fabric/`` (the provider interface, the in-memory
+pool and the remote backends), ``agent/`` (the node agent over
+``/dev/accel*`` and ``/dev/nvidia*`` with its native scan of
+``native/gpunode.cc``, the CDI spec, the node-agent daemon and its
+client, the device event watchers and the kubelet device plugin),
+``admission/`` (the validating webhooks, coordinate injection and the
+AdmissionReview server), ``scheduler/`` (placement, preemption,
+defragmentation and the decision ledger, with the native scan of
+``native/tpusched.cc``; both native libraries are built by the host C++
+compiler at first use), ``controllers/`` (the ComposabilityRequest and
+ComposableResource reconcilers, the syncer, cold-start adoption and the
+NodeMaintenance drain), ``cmd/`` (the operator's command line:
+``python -m tpu_composer_torch``, with its ``trace-merge`` and
+``explain`` subcommands) and ``fleet/`` (a supervisor that runs the
+binary's replicas as processes over a served apiserver and fabric).
+These import no torch.
 
 Entry points that create tensors take a ``device`` (default ``"cuda"``)
 and raise when no card is present unless the caller asks for ``"cpu"``.

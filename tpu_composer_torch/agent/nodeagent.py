@@ -49,6 +49,7 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 from tpu_composer_torch.agent import cdi as cdimod
+from tpu_composer_torch.agent.native import native_lib
 
 
 class AgentError(Exception):
@@ -228,10 +229,15 @@ class NodeAgent:
 
 
 class LocalNodeAgent(NodeAgent):
-    """Operates on the local host's real device stack, in pure Python (the
-    native scan library arrives with ``agent/native.py``). Paths are
-    parameterized for tests and non-standard images: ``run_dir`` holds a
-    driver container's runtime (``libtpu/libtpu.so``, ``nvidia/driver``).
+    """Operates on the local host's real device stack.
+
+    Uses the native library (``native/gpunode.cc``, built at first use by
+    ``agent/native.py``) for device enumeration, ``/proc`` fd scanning,
+    process names and the inotify watch on ``dev_dir``; the pure-Python
+    paths run only where ``_native`` is None, which the tests set to hold
+    the two against each other on one host. Paths are parameterized for
+    tests and non-standard images: ``run_dir`` holds a driver container's
+    runtime (``libtpu/libtpu.so``, ``nvidia/driver``).
     """
 
     def __init__(
@@ -256,6 +262,7 @@ class LocalNodeAgent(NodeAgent):
         self.libcuda_paths = libcuda_paths or list(DEFAULT_LIBCUDA_PATHS)
         self.state_dir = state_dir
         self.run_dir = run_dir
+        self._native = native_lib()
 
     # ------------------------------------------------------------------
     def ensure_driver(self, node: str) -> str:
@@ -325,6 +332,8 @@ class LocalNodeAgent(NodeAgent):
 
     def _accel_nodes(self) -> List[str]:
         """Per-chip device nodes: ``accel*`` and the per-GPU ``nvidia<N>``."""
+        if self._native is not None:
+            return self._native.enum_accel(self.dev_dir)
         try:
             return sorted(
                 os.path.join(self.dev_dir, fn)
@@ -414,6 +423,8 @@ class LocalNodeAgent(NodeAgent):
         checks 4+ device nodes; per-path sweeps scale O(paths x processes))."""
         if not dev_paths:
             return {}
+        if self._native is not None:
+            return self._native.fd_holders_multi(dev_paths, self.proc_dir)
         wanted = set(dev_paths)
         out: Dict[str, List[int]] = {p: [] for p in dev_paths}
         try:
@@ -437,6 +448,8 @@ class LocalNodeAgent(NodeAgent):
         return out
 
     def _proc_name(self, pid: int) -> str:
+        if self._native is not None:
+            return self._native.proc_name(self.proc_dir, pid)
         try:
             with open(os.path.join(self.proc_dir, str(pid), "comm")) as f:
                 return f.read().strip()
@@ -492,16 +505,28 @@ class LocalNodeAgent(NodeAgent):
     def wait_device_event(self, node: str = "", timeout: float = 1.0) -> bool:
         """Block until a device node appears/vanishes under dev_dir, or
         timeout. True iff an event fired. ``node`` is ignored (a local agent
-        serves exactly one host). Directory snapshots are compared on a
-        50ms cadence (the native inotify watch arrives with
-        ``agent/native.py``); a cross-call snapshot diff reports any change
-        since the previous call as an immediate event."""
+        serves exactly one host). The native path is an inotify watch
+        (``tpun_watch_dev``); the Python path, and the native one when
+        inotify fails, compares directory snapshots on a 50ms cadence.
+
+        The inotify watch is armed per call, so an event landing between
+        two calls would be invisible to it; a cross-call snapshot diff
+        reports any change since the previous call as an immediate
+        event."""
         timeout = max(0.0, timeout)
         current = self._dev_snapshot()
         last = getattr(self, "_last_dev_snapshot", None)
         self._last_dev_snapshot = current
         if last is not None and current != last:
             return True
+        if self._native is not None:
+            rc = self._native.watch_dev(self.dev_dir, int(timeout * 1000))
+            if rc >= 0:
+                if rc == 1:
+                    self._last_dev_snapshot = self._dev_snapshot()
+                    return True
+                return False
+            # inotify failed: the polling loop below
         import time as _time
 
         deadline = _time.monotonic() + timeout

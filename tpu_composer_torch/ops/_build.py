@@ -99,6 +99,59 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     return seconds
 
 
+#: The host C++ compiler's flags for the port's native libraries
+#: (``native/*.cc``: the placement kernel, the node agent's scan).
+CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
+
+
+def find_cxx() -> str:
+    """The host C++ compiler: c++, else g++, on PATH."""
+    found = shutil.which("c++") or shutil.which("g++")
+    if not found:
+        raise RuntimeError(
+            "no C++ compiler (c++ or g++) on PATH; the port's native"
+            " libraries (the placement kernel, the node agent's scan)"
+            " cannot be built"
+        )
+    return found
+
+
+def cxx_library_path(source: Path, build_dir: Path, stem: str) -> Path:
+    """``build_dir/lib<stem>-<hash>.so``, the hash over the source and
+    the flags."""
+    digest = hashlib.sha256(
+        Path(source).read_bytes() + " ".join(CXX_FLAGS).encode()
+    ).hexdigest()[:16]
+    return Path(build_dir) / f"lib{stem}-{digest}.so"
+
+
+def build_cxx(source: Path, build_dir: Path, stem: str,
+              log: Dict[str, tuple]) -> Path:
+    """Compile ``source`` with the host C++ compiler into ``build_dir``
+    unless its library is current; returns the library's path and puts
+    (seconds, compiler output) under ``log[stem]`` when it compiled.
+    Raises RuntimeError with the compiler's output when the compile
+    fails."""
+    out = cxx_library_path(source, build_dir, stem)
+    if out.exists():
+        return out
+    Path(build_dir).mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_cxx(), *CXX_FLAGS, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    log[stem] = (time.perf_counter() - t0, proc.stdout)
+    if proc.returncode != 0:
+        if tmp.exists():
+            tmp.unlink()
+        raise RuntimeError(
+            f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stdout}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders never see half
+    return out
+
+
 def load(name: str, argtypes: Sequence, symbol: Optional[str] = None
          ) -> Callable:
     """The C entry point ``symbol`` (default ``name``) of

@@ -383,11 +383,12 @@ _crash_dumped = False
 
 def dump_crash(reason: str) -> None:
     """Best-effort black-box write: flight ledger + trace ring + the
-    continuous-profile ring, the SLO snapshot, the fleet view and the
-    lock-order witness's report, env-gated ($TPUC_FLIGHT_FILE /
+    continuous-profile ring, the SLO snapshot, the fleet view, the
+    lock-order witness's report and the scheduler's decision ring,
+    env-gated ($TPUC_FLIGHT_FILE /
     $TPUC_TRACE_FILE / $TPUC_PROFILE_FILE / $TPUC_SLO_FILE /
-    $TPUC_FLEET_FILE / $TPUC_LOCKDEP_FILE). The JAX package's decision
-    ring dump arrives with the command line. Never raises."""
+    $TPUC_FLEET_FILE / $TPUC_LOCKDEP_FILE / $TPUC_DECISIONS_FILE).
+    Never raises."""
     global _crash_dumped
     if reason != "atexit":
         _crash_dumped = True
@@ -423,6 +424,12 @@ def dump_crash(reason: str) -> None:
         from tpu_composer_torch.analysis import lockdep as _lockdep
 
         _lockdep.dump_file()
+    except Exception:
+        pass
+    try:
+        from tpu_composer_torch.scheduler import ledger as _ledger
+
+        _ledger.dump_file()
     except Exception:
         pass
 

@@ -25,16 +25,20 @@ profiler is on), the fleet plane (``fleet=``; its caller adds
 overload governor, the subsystem watchdog (whose restarter is
 ``_respawn_runnable``), the store breaker, the lifecycle recorder and the
 graceful stop, which drains the fabric dispatcher's lanes first
-(``dispatcher=``) and stops a ``CachedClient`` store's informers last.
-One collaborator of the JAX manager is not ported yet: the TLS metrics
-port (``metrics_addr=`` with its bearer token).
+(``dispatcher=``) and stops a ``CachedClient`` store's informers last,
+and the dedicated metrics port (``metrics_addr=``: TLS from
+``metrics_certfile=``/``metrics_keyfile=``, waiting for a cert that has
+not landed yet, and a bearer token read from ``metrics_token_file=`` on
+every scrape), with which the health port stops serving ``/metrics``.
 """
 
 from __future__ import annotations
 
+import hmac
 import http.server
 import json
 import logging
+import os
 import threading
 import urllib.parse
 from typing import Callable, Dict, List, Optional
@@ -120,8 +124,8 @@ def _runnable_name(r) -> str:
     return type(r).__name__
 
 
-class _HealthHandler(http.server.BaseHTTPRequestHandler):
-    manager: "Manager"
+class _PlainTextHandler(http.server.BaseHTTPRequestHandler):
+    """Shared response plumbing for the health and metrics handlers."""
 
     def _respond(self, code: int, body: str) -> None:
         data = body.encode()
@@ -141,6 +145,10 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
     def log_message(self, *args):  # quiet
         pass
 
+
+class _HealthHandler(_PlainTextHandler):
+    manager: "Manager"
+
     def do_GET(self):  # noqa: N802
         parts = urllib.parse.urlsplit(self.path)
         path = parts.path
@@ -151,7 +159,13 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
             ready = self.manager.ready()
             self._respond(200 if ready else 503, "ok" if ready else "not ready")
         elif path == "/metrics":
-            self._respond(200, global_registry.expose_text())
+            # With a dedicated (TLS/authenticated) metrics server
+            # configured — even one still waiting for its cert — the plain
+            # health port must not leak the same data.
+            if self.manager._metrics_addr is not None:
+                self._respond(404, "metrics served on the secure metrics port")
+            else:
+                self._respond(200, global_registry.expose_text())
         elif path == "/debug/traces":
             # Chrome trace-event JSON of recent control-plane spans
             # (chrome://tracing / Perfetto). Names and durations only — no
@@ -356,6 +370,39 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
         return data
 
 
+class _MetricsHandler(_PlainTextHandler):
+    """Dedicated metrics endpoint with bearer-token authorization.
+
+    The reference protects its metrics with controller-runtime's
+    authn/authz filter (TokenReview + SubjectAccessReview delegation,
+    cmd/main.go:120-127). The standalone analog: the scraper presents a
+    bearer token matched against a mounted secret (re-read per request so
+    rotation needs no restart); TLS comes from the per-connection-handshake
+    server wrapper shared with the admission webhook."""
+
+    manager: "Manager"
+    token_file: Optional[str] = None
+
+    def do_GET(self):  # noqa: N802
+        if self.path != "/metrics":
+            return self._respond(404, "not found")
+        if self.token_file:
+            try:
+                with open(self.token_file) as f:
+                    expected = f.read().strip()
+            except OSError:
+                return self._respond(500, "metrics token file unreadable")
+            presented = self.headers.get("Authorization", "")
+            # Constant-time comparison: anything reaching this port must
+            # not be able to recover the scrape secret through a timing
+            # side channel.
+            if not expected or not hmac.compare_digest(
+                presented, f"Bearer {expected}"
+            ):
+                return self._respond(401, "unauthorized")
+        self._respond(200, global_registry.expose_text())
+
+
 class Manager:
     def __init__(
         self,
@@ -364,6 +411,10 @@ class Manager:
         leader_lock_path: Optional[str] = None,
         leader_elector=None,  # custom elector (e.g. runtime.leases.LeaseElector)
         health_addr: Optional[str] = None,  # "host:port" or None to disable
+        metrics_addr: Optional[str] = None,  # dedicated secure metrics port
+        metrics_certfile: Optional[str] = None,
+        metrics_keyfile: Optional[str] = None,
+        metrics_token_file: Optional[str] = None,
         dispatcher=None,  # FabricDispatcher to drain at shutdown/handoff
         drain_timeout: float = 8.0,  # seconds; <= 0 disables graceful drain
         profiler=None,  # SamplingProfiler override (None = default when enabled)
@@ -399,6 +450,11 @@ class Manager:
         )
         self._health_addr = health_addr
         self._health_server: Optional[http.server.ThreadingHTTPServer] = None
+        self._metrics_addr = metrics_addr
+        self._metrics_certfile = metrics_certfile
+        self._metrics_keyfile = metrics_keyfile
+        self._metrics_token_file = metrics_token_file
+        self._metrics_server: Optional[http.server.ThreadingHTTPServer] = None
         self._dispatcher = dispatcher
         self._drain_timeout = drain_timeout
         # Fleet observatory plumbing: the replica identity tags every
@@ -521,6 +577,51 @@ class Manager:
             return None
         return self._health_server.server_address[1]
 
+    @property
+    def metrics_port(self) -> Optional[int]:
+        if self._metrics_server is None:
+            return None
+        return self._metrics_server.server_address[1]
+
+    def _start_metrics_server(self) -> None:
+        from tpu_composer_torch.admission.server import (
+            _TlsPerConnectionServer,
+            make_server_tls_context,
+        )
+
+        host, _, port = self._metrics_addr.rpartition(":")  # type: ignore[union-attr]
+        handler = type(
+            "BoundMetricsHandler",
+            (_MetricsHandler,),
+            {"manager": self, "token_file": self._metrics_token_file},
+        )
+        server = _TlsPerConnectionServer((host or "127.0.0.1", int(port)), handler)
+        if self._metrics_certfile:
+            server.ssl_context = make_server_tls_context(
+                self._metrics_certfile, self._metrics_keyfile
+            )
+        self._metrics_server = server
+        t = threading.Thread(target=server.serve_forever, name="metrics",
+                             daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _serve_metrics_when_cert_lands(self) -> None:
+        """cert-manager writes the serving cert AFTER the pod starts (the
+        secret mount is optional) — same dance as the webhook server in
+        cmd/main. Crashing on the missing file would crash-loop every
+        fresh install until the issuer caught up."""
+        warned = False
+        while not os.path.exists(self._metrics_certfile):  # type: ignore[arg-type]
+            if not warned:
+                self.log.warning(
+                    "waiting for metrics cert %s", self._metrics_certfile
+                )
+                warned = True
+            if self._stop.wait(2.0):
+                return
+        self._start_metrics_server()
+
     def start(self, workers_per_controller: int = 1) -> None:
         if self._health_addr is not None:
             host, _, port = self._health_addr.rpartition(":")
@@ -533,6 +634,16 @@ class Manager:
             )
             t.start()
             self._threads.append(t)
+        if self._metrics_addr is not None:
+            if self._metrics_certfile and not os.path.exists(self._metrics_certfile):
+                t = threading.Thread(
+                    target=self._serve_metrics_when_cert_lands,
+                    name="metrics-cert-wait", daemon=True,
+                )
+                t.start()
+                self._threads.append(t)
+            else:
+                self._start_metrics_server()
 
         if self._elector is not None:
             self.log.info("waiting for leader lock %s", self._elector.lock_path)
@@ -709,6 +820,10 @@ class Manager:
             self._health_server.shutdown()
             self._health_server.server_close()
             self._health_server = None
+        if self._metrics_server is not None:
+            self._metrics_server.shutdown()
+            self._metrics_server.server_close()
+            self._metrics_server = None
         for t in self._threads:
             t.join(timeout=5)
         self._threads.clear()

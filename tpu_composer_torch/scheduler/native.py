@@ -20,18 +20,13 @@ to the pure-Python ``snapshot.py_scan`` and ``preemption.py``'s search
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 from tpu_composer_torch.ops import _build
 
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "tpusched.cc"
-CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 
 _lib: Optional["_NativeLib"] = None
 #: Seconds and compiler output of the build this process ran, if any.
@@ -158,47 +153,15 @@ class _NativeLib:
         return [out_sel[i] for i in range(nv)], info
 
 
-def find_cxx() -> str:
-    """The host C++ compiler: c++, else g++, on PATH."""
-    found = shutil.which("c++") or shutil.which("g++")
-    if not found:
-        raise RuntimeError(
-            "no C++ compiler (c++ or g++) on PATH; the native placement"
-            " kernel cannot be built (TPUC_NATIVE_SCHED=0 selects the"
-            " Python path)"
-        )
-    return found
-
-
 def library_path(source: Path = SOURCE, build_dir: Path = _build.BUILD) -> Path:
-    digest = hashlib.sha256(
-        Path(source).read_bytes() + " ".join(CXX_FLAGS).encode()
-    ).hexdigest()[:16]
-    return Path(build_dir) / f"libtpusched-{digest}.so"
+    return _build.cxx_library_path(source, build_dir, "tpusched")
 
 
 def build_native(source: Path = SOURCE, build_dir: Path = _build.BUILD) -> Path:
     """Compile ``source`` into ``build_dir`` unless its library is current;
     returns the library's path. Raises RuntimeError with the compiler's
     output when the compile fails."""
-    out = library_path(source, build_dir)
-    if out.exists():
-        return out
-    Path(build_dir).mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_cxx(), *CXX_FLAGS, "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    build_log["tpusched"] = (time.perf_counter() - t0, proc.stdout)
-    if proc.returncode != 0:
-        if tmp.exists():
-            tmp.unlink()
-        raise RuntimeError(
-            f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stdout}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see half
-    return out
+    return _build.build_cxx(source, build_dir, "tpusched", build_log)
 
 
 def native_lib() -> "_NativeLib":
