@@ -34,6 +34,15 @@ nonzero. Phases, in order:
    and the node agent's ``gpunode.cc`` beside them) and ptxas's report
    per kernel (registers, spills); a
    spill in the tensor-core B3 or in K2 fails the phase.
+2a. ``devtools``: the port's tooling on the card's host, outside every
+   kernel path (it launches no kernel): the port's lint
+   (``tpu_composer_torch.analysis``, 7 passes) over its default scope
+   must find nothing; the port's ``crdgen.manifests()`` must equal
+   ``deploy/crds``; the port's installer, built from ``deploy/`` into a
+   temporary directory, and the H100 example must pass
+   ``validate_all`` with no error; the installer's Deployment and
+   DaemonSet must start ``python -m tpu_composer_torch`` and ``python -m
+   tpu_composer_torch.agent.serve``. It prints each step's seconds.
 3. ``flash_fwd``: kernel K1 against its plain version over B in {1, 2},
    S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 (at both
    CTA heights, 16 and 64 rows) and fp32, with and without lse; times at
@@ -636,6 +645,68 @@ def phase_build() -> None:
         for kernel, targs, regs, spill in rows:
             check(not (kernel in NO_SPILL and spill),
                   f"{name}: {kernel}{targs} spills {spill} bytes")
+
+
+#: The installer's container commands: the port's operator and node agent.
+PORT_COMMANDS = {"Deployment": [["python", "-m", "tpu_composer_torch"]],
+                 "DaemonSet": [["python", "-m",
+                                "tpu_composer_torch.agent.serve"]]}
+
+
+def phase_devtools(workdir: str) -> dict:
+    """The port's tooling on the card's host, no kernel: its lint over
+    its default scope, its CRDs against ``deploy/crds``, its installer
+    validated with the H100 example, and the installer's two commands."""
+    import yaml
+
+    from tpu_composer_torch.analysis import all_passes, run_passes
+    from tpu_composer_torch.analysis.core import discover_files
+    from tpu_composer_torch.api import crdgen, packaging, validate_manifests
+
+    steps = {}
+    t0 = time.perf_counter()
+    files = discover_files()
+    passes = all_passes()
+    violations = run_passes(passes, files=files)
+    steps["lint"] = time.perf_counter() - t0
+    check(len(passes) == 7 and not violations,
+          f"the port's lint over {len(files)} files:"
+          f" {[v.format() for v in violations]}")
+
+    t0 = time.perf_counter()
+    crds = os.path.join(HERE, "deploy", "crds")
+    generated = crdgen.manifests()
+    for name, doc in generated.items():
+        with open(os.path.join(crds, name)) as f:
+            check(yaml.safe_load(f) == doc,
+                  f"deploy/crds/{name} differs from the port's crdgen")
+    check(len(generated) == 4, f"crdgen made {sorted(generated)}")
+    steps["crdgen"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    install = packaging.build_installer(
+        os.path.join(HERE, "deploy"), os.path.join(workdir, "install.yaml"))
+    steps["installer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    errors = validate_manifests.validate_all(
+        crds, install,
+        examples_dir=os.path.join(HERE, "tpu_composer_torch", "examples"))
+    steps["validate"] = time.perf_counter() - t0
+    check(errors == [], f"validate_all: {errors}")
+
+    with open(install) as f:
+        docs = [d for d in yaml.safe_load_all(f) if d]
+    commands = {d["kind"]: [c.get("command") for c in
+                            d["spec"]["template"]["spec"]["containers"]]
+                for d in docs if d["kind"] in PORT_COMMANDS}
+    check(commands == PORT_COMMANDS,
+          f"the installer's commands: {commands}")
+    out = {"files_linted": len(files), "passes": len(passes),
+           "violations": len(violations), "crds": sorted(generated),
+           "installer_docs": len(docs), "validate_errors": len(errors),
+           "commands": commands, "step_s": steps}
+    emit("devtools", **out)
+    return out
 
 
 TRAIN_SHAPE = (8, 512, 8, 2, 64)  # B, S, H, KV, D of the training path
@@ -5577,6 +5648,8 @@ def main() -> int:
 
     card = timed_phase("card", phase_card)
     timed_phase("build", phase_build)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_devtools_") as d:
+        timed_phase("devtools", phase_devtools, d)
     flash = timed_phase("flash_fwd", phase_flash, gen)
     paged = timed_phase("paged_decode", phase_paged, gen)
     bwd = timed_phase("flash_bwd", phase_flash_bwd, gen)

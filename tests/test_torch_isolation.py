@@ -105,8 +105,9 @@ def test_the_wire_store_fleet_and_witness_load_no_jax_package():
     assert res.stdout.strip() == "[]", res.stdout
 
 
-#: The operator's binary, its node edges and its process fleet: each
-#: starts without torch, CUDA or JAX.
+#: The operator's binary, its node edges, its process fleet and its
+#: tooling (the lint, the CRD generator, packaging and the manifest
+#: checks): each starts without torch, CUDA or JAX.
 TORCH_FREE = (
     "tpu_composer_torch.__main__", "tpu_composer_torch.cmd.main",
     "tpu_composer_torch.admission.server",
@@ -116,6 +117,10 @@ TORCH_FREE = (
     "tpu_composer_torch.agent.plugin",
     "tpu_composer_torch.agent.deviceplugin_pb2",
     "tpu_composer_torch.fleet.proc",
+    "tpu_composer_torch.analysis.__main__",
+    "tpu_composer_torch.analysis.passes",
+    "tpu_composer_torch.api.crdgen", "tpu_composer_torch.api.packaging",
+    "tpu_composer_torch.api.validate_manifests",
 )
 
 
@@ -124,7 +129,7 @@ def test_the_binary_and_its_edges_load_no_torch_or_jax(module):
     """A fresh interpreter that imports ``module`` (``__main__`` through
     ``--help``, as ``python -m tpu_composer_torch --help`` runs it) has no
     module of torch, JAX or the JAX package."""
-    if module.endswith("__main__"):
+    if module == "tpu_composer_torch.__main__":
         load = ("sys.argv = ['tpu-composer', '--help']\n"
                 "try:\n"
                 "    runpy.run_module('tpu_composer_torch', run_name='__main__')\n"

@@ -27,9 +27,13 @@ compiler at first use), ``controllers/`` (the ComposabilityRequest and
 ComposableResource reconcilers, the syncer, cold-start adoption and the
 NodeMaintenance drain), ``cmd/`` (the operator's command line:
 ``python -m tpu_composer_torch``, with its ``trace-merge`` and
-``explain`` subcommands) and ``fleet/`` (a supervisor that runs the
-binary's replicas as processes over a served apiserver and fabric).
-These import no torch.
+``explain`` subcommands), ``fleet/`` (a supervisor that runs the
+binary's replicas as processes over a served apiserver and fabric) and
+the tooling: ``analysis/`` (the lint, ``python -m
+tpu_composer_torch.analysis``, and the lock-order witness) and
+``api/{crdgen,packaging,validate_manifests}.py`` (the CRDs, the
+installer and bundle from ``deploy/``, the manifest checks). These
+import no torch.
 
 Entry points that create tensors take a ``device`` (default ``"cuda"``)
 and raise when no card is present unless the caller asks for ``"cpu"``.

@@ -1,3 +1,8 @@
+# tpuc: ignore-file[fabric-mutation-path] — the adoption pass is the ONE
+# designated raw-mutation path: it runs post-leader-acquire and
+# pre-controller-start, before any shard lease exists to fence against,
+# and its verbs are idempotent completion re-reads keyed by the durable
+# intent nonce (double-issue is harmless by construction).
 """Cold-start adoption of in-flight fabric intents.
 (Port of ``tpu_composer/controllers/adoption.py``.)
 
