@@ -3,8 +3,10 @@
 
 PYTHON ?= python
 IMG ?= tpu-composer:latest
+# The PyTorch port's operator + node-agent image (Dockerfile.torch).
+IMG_TORCH ?= tpu-composer-torch:latest
 
-.PHONY: all test test-fast bench bench-round manifests native lint lint-syntax analyze typecheck run dryrun docker-build clean build-installer bundle crash-soak chaos-soak repair-soak shard-soak migrate-soak brownout-soak partition-soak proc-smoke churn-bench conformance
+.PHONY: all test test-fast bench bench-round manifests native lint lint-syntax analyze typecheck run dryrun docker-build docker-build-torch clean build-installer bundle crash-soak chaos-soak repair-soak shard-soak migrate-soak brownout-soak partition-soak proc-smoke churn-bench conformance
 
 all: native test
 
@@ -221,6 +223,10 @@ run:
 ## docker-build: build the operator/agent image
 docker-build:
 	docker build -t $(IMG) .
+
+## docker-build-torch: build the PyTorch port's operator/agent image
+docker-build-torch:
+	docker build -f Dockerfile.torch -t $(IMG_TORCH) .
 
 # Multi-arch image build (reference Makefile:162): cross-compiles the
 # native node library per platform inside the Dockerfile.

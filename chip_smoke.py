@@ -43,6 +43,23 @@ nonzero. Phases, in order:
    ``validate_all`` with no error; the installer's Deployment and
    DaemonSet must start ``python -m tpu_composer_torch`` and ``python -m
    tpu_composer_torch.agent.serve``. It prints each step's seconds.
+2b. ``operator_image``: the port's operator image without docker:
+   ``Dockerfile.torch`` replayed into a temporary directory
+   (``tpu_composer_torch.api.image``: its build stage compiles the two
+   native libraries with the port's builders on this host's compiler,
+   its runtime stage copies the package and those two files), the tree
+   made read-only; from that tree alone (PYTHONPATH the tree, a PATH
+   with ``python`` and no compiler, the image's ENV) the node-agent
+   daemon over the real ``/dev`` and ``/proc`` (``NODE_NAME`` as the
+   DaemonSet sets it, its device plugin on) and one operator replica
+   (``python -m tpu_composer_torch`` through ``ProcFleet``, the REMOTE
+   agent, the fake apiserver and fabric) compose the card once: the
+   request must be Running within 30 s with its child Online, the
+   child's CDI spec naming the per-GPU node this process's CUDA context
+   holds; ``libgpunode-*.so`` (in the agent) and ``libtpusched-*.so``
+   (in the replica) must be mapped from the tree, the tree unchanged,
+   and both processes must exit 0 on SIGTERM. No kernel; it prints the
+   host ms of each step beside the card's name and power limit.
 3. ``flash_fwd``: kernel K1 against its plain version over B in {1, 2},
    S in {8, 64, 256, 512}, H=8, KV=2, D=64, causal or not, bf16 (at both
    CTA heights, 16 and 64 rows) and fp32, with and without lse; times at
@@ -707,6 +724,170 @@ def phase_devtools(workdir: str) -> dict:
            "commands": commands, "step_s": steps}
     emit("devtools", **out)
     return out
+
+
+IMAGE_RUNNING_S = 30.0  # the image's request must be Running within this
+IMAGE_REPLICA = "image-replica"
+
+
+def _mapped_native(pid: int) -> list:
+    """The port's native libraries mapped in process ``pid``."""
+    with open(f"/proc/{pid}/maps") as f:
+        return sorted({ln.split()[-1] for ln in f
+                       if "/libgpunode-" in ln or "/libtpusched-" in ln})
+
+
+def phase_operator_image(workdir: str, card: dict) -> dict:
+    """The card composed by the port's operator image (docstring, phase
+    2b): ``Dockerfile.torch`` replayed into ``workdir`` and made
+    read-only, the node-agent daemon and one operator replica started
+    from that tree alone with no compiler on PATH, one H100 request
+    Running, both native libraries mapped from the tree."""
+    import signal
+    import urllib.request
+    from types import SimpleNamespace
+
+    from tpu_composer_torch import API_VERSION
+    from tpu_composer_torch.api import (
+        ComposabilityRequest, ComposableResource, image)
+    from tpu_composer_torch.api.types import LABEL_MANAGED_BY
+    from tpu_composer_torch.fleet.proc import ProcFleet
+    from tpu_composer_torch.runtime.kubestore import (
+        CHIP_RESOURCE, KubeConfig, KubeStore)
+    from tpu_composer_torch.sim.apiserver import core_node_doc
+
+    ms = {}
+    t0 = time.perf_counter()
+    lay = image.build_layout(os.path.join(HERE, "Dockerfile.torch"),
+                             os.path.join(workdir, "image"))
+    ms["layout"] = (time.perf_counter() - t0) * 1e3
+    image.freeze(lay.final.root)
+    before = image.listing(lay.final.root)
+    env = image.image_env(lay)
+    compilers = {c: shutil.which(c, path=env["PATH"])
+                 for c in ("c++", "g++", "cc", "nvcc")}
+    check(not any(compilers.values()),
+          f"operator_image: a compiler on the image's PATH {compilers}")
+    pkg = lay.final.path("tpu_composer_torch")
+    libs = sorted(os.listdir(os.path.join(pkg, "build")))
+    check([lib.split("-")[0] for lib in libs] == ["libgpunode", "libtpusched"],
+          f"operator_image: the image's build/ holds {libs}")
+    want = {lib.split("-")[0]: os.path.join(pkg, "build", lib) for lib in libs}
+
+    torch.ones(1, device=DEVICE)  # this process's context holds the card
+    cuda_nodes = _cuda_nodes()
+    check(len(cuda_nodes) == 1,
+          f"operator_image: this process holds {cuda_nodes}")
+    root = os.path.join(workdir, "run")
+    agent_dirs = {k: os.path.join(root, "agent", k)
+                  for k in ("cdi", "state", "plugins")}
+    agent_addr = f"127.0.0.1:{_free_port()}"
+    agent_log_path = os.path.join(workdir, "agent.log")
+    os.makedirs(root)
+    agent_log = open(agent_log_path, "wb")
+    t0 = time.perf_counter()
+    agent_proc = subprocess.Popen(
+        _agent_argv(agent_addr, agent_dirs), stdout=agent_log,
+        stderr=subprocess.STDOUT, cwd=root,
+        env=dict(image.runtime_env(lay), NODE_NAME="localhost"))
+    fleet = None
+    obs = None
+    try:
+        def agent_up():
+            try:
+                with urllib.request.urlopen(f"http://{agent_addr}/healthz",
+                                            timeout=1) as resp:
+                    return resp.status == 200
+            except OSError:
+                check(agent_proc.poll() is None,
+                      f"operator_image: the node agent exited"
+                      f" {agent_proc.returncode}: {_tail(agent_log_path)}")
+                return False
+
+        check(_wait(agent_up, 60.0, 0.02),
+              "operator_image: the node agent never answered /healthz")
+        ms["agent_ready"] = (time.perf_counter() - t0) * 1e3
+        check(f"(native library {want['libgpunode']})"
+              in _tail(agent_log_path),
+              f"operator_image: the node agent did not load"
+              f" {want['libgpunode']}: {_tail(agent_log_path)}")
+
+        fleet = ProcFleet(
+            os.path.join(root, "fleet"), nodes=0, shards=1,
+            expected_replicas=1, workers=2, pool_chips={H100_MODEL: 1},
+            extra_env=dict(env, **BINARY_ENV,
+                           NODE_AGENT_ENDPOINT_TEMPLATE=agent_addr))
+        fleet.apiserver.put_object("/api/v1/nodes", core_node_doc(
+            "localhost", chips=1, chip_resource=CHIP_RESOURCE))
+        t0 = time.perf_counter()
+        rep = fleet.spawn(IMAGE_REPLICA, wait_ready_s=60.0)
+        ms["replica_ready"] = (time.perf_counter() - t0) * 1e3
+
+        url = fleet.apiserver.url
+        obs = KubeStore(KubeConfig(host=url), cache_reads=False,
+                        wire_mux=False)
+        name = "chip-smoke-image"
+        code, _, ms["submit_post"] = _post_json(url + fleet.cr_prefix, {
+            "apiVersion": API_VERSION,
+            "kind": "ComposabilityRequest", "metadata": {"name": name},
+            "spec": {"resource": {"type": "gpu", "model": H100_MODEL,
+                                  "size": 1}}})
+        t_submit = time.perf_counter()
+        check(code == 201, f"operator_image: the apiserver answered {code}")
+
+        def running():
+            kids = obs.list(ComposableResource,
+                            label_selector={LABEL_MANAGED_BY: name})
+            return (obs.get(ComposabilityRequest, name).status.state
+                    == "Running" and len(kids) == 1
+                    and kids[0].status.state == "Online")
+
+        check(_wait(running, IMAGE_RUNNING_S, 0.005),
+              f"operator_image: the request was not Running within"
+              f" {IMAGE_RUNNING_S} s: {fleet.tail_log(IMAGE_REPLICA)}")
+        ms["submit_to_running"] = (time.perf_counter() - t_submit) * 1e3
+        req = obs.get(ComposabilityRequest, name)
+        (child,) = obs.list(ComposableResource,
+                            label_selector={LABEL_MANAGED_BY: name})
+        spec = _ha_spec(SimpleNamespace(cdi_dir=agent_dirs["cdi"]),
+                        f"{name}-slice", child, req, "operator_image")
+
+        maps = {"agent": _mapped_native(agent_proc.pid),
+                "replica": _mapped_native(rep.pid)}
+        check(maps == {"agent": [want["libgpunode"]],
+                       "replica": [want["libtpusched"]]},
+              f"operator_image: the children mapped {maps}, not the"
+              f" image's {want}")
+
+        fleet.drain(IMAGE_REPLICA)
+        agent_proc.send_signal(signal.SIGTERM)
+        rcs = {"replica": rep.proc.returncode,
+               "agent": agent_proc.wait(timeout=30)}
+        check(rcs == {"replica": 0, "agent": 0},
+              f"operator_image: exit codes {rcs}")
+        check(image.listing(lay.final.root) == before,
+              "operator_image: a process wrote into the image's tree")
+    finally:
+        if obs is not None:
+            obs.close()
+        if fleet is not None:
+            fleet.close()
+        if agent_proc.poll() is None:
+            agent_proc.kill()
+            agent_proc.wait(timeout=10)
+        agent_log.close()
+        image.thaw(lay.final.root)
+    rec = {"card": card["nvidia_smi"], "host_ms": ms,
+           "entrypoint": lay.final.entrypoint, "user": lay.final.user,
+           "pip": lay.final.installs.get("pip", []),
+           "libraries": [os.path.relpath(p, workdir) for p in
+                         sorted(want.values())],
+           "request": name, "slice": req.status.slice.to_dict(),
+           "device_ids": list(child.status.device_ids),
+           "spec": {k: v for k, v in spec.items() if k != "env"},
+           "exit_codes": rcs}
+    emit("operator_image", **rec)
+    return rec
 
 
 TRAIN_SHAPE = (8, 512, 8, 2, 64)  # B, S, H, KV, D of the training path
@@ -5650,6 +5831,8 @@ def main() -> int:
     timed_phase("build", phase_build)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_devtools_") as d:
         timed_phase("devtools", phase_devtools, d)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_image_") as d:
+        timed_phase("operator_image", phase_operator_image, d, card)
     flash = timed_phase("flash_fwd", phase_flash, gen)
     paged = timed_phase("paged_decode", phase_paged, gen)
     bwd = timed_phase("flash_bwd", phase_flash_bwd, gen)

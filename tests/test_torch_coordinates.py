@@ -111,6 +111,20 @@ def test_gpu_env_round_trips_as_jax_coords(count):
         SliceCoords.from_env(slice_env(ss, 0, H100)).rank(ss.chips_per_host)
 
 
+def test_default_coordinator_port_is_the_envs_master_port():
+    """The port's ``DEFAULT_COORDINATOR_PORT`` (the JAX package's name) is
+    the port the slice env writes when given none, and the coordinator
+    address of a worker whose env names no port."""
+    from tpu_composer_torch.workload.coords import DEFAULT_COORDINATOR_PORT
+
+    ss = _h100_status(16)
+    env = slice_env(ss, 1, H100)
+    assert env["MASTER_PORT"] == str(DEFAULT_COORDINATOR_PORT) == "29500"
+    del env["MASTER_PORT"]
+    assert SliceCoords.from_env(env).coordinator_address == (
+        f"node-0:{DEFAULT_COORDINATOR_PORT}")
+
+
 def test_gpu_env_names_are_torchruns(monkeypatch):
     """Every PET_ variable is one the installed torchrun reads, and with
     the env alone torchrun's parser starts this host's share of the

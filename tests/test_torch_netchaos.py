@@ -109,6 +109,17 @@ def _recv_exact(sock, n):
     return buf
 
 
+def _counted(proxy, n, timeout=5.0):
+    """``proxy.connections()`` once it reaches ``n`` or the time runs out.
+    A proxied connection pumps bytes before the accept loop lists it
+    (``_ProxyConn`` starts its pumps, then the loop appends it), so an
+    echo can come back before its connection is counted."""
+    deadline = time.monotonic() + timeout
+    while proxy.connections() != n and time.monotonic() < deadline:
+        time.sleep(0.005)
+    return proxy.connections()
+
+
 def _expect_reset(sock):
     """Read until the peer's RST surfaces; a clean FIN fails."""
     with pytest.raises(OSError):
@@ -132,7 +143,7 @@ def bytes_round_trip_through_the_proxy(tw):
         try:
             sock.sendall(b"hello-chaos")
             got = _recv_exact(sock, 11)
-            assert got == b"hello-chaos" and proxy.connections() == 1
+            assert got == b"hello-chaos" and _counted(proxy, 1) == 1
             return got, proxy.connections()
         finally:
             sock.close()
@@ -146,7 +157,7 @@ def multiple_concurrent_connections(tw):
                 s.sendall(f"conn-{i}".encode())
             got = [_recv_exact(s, 6) for s in socks]
             assert got == [f"conn-{i}".encode() for i in range(3)]
-            assert proxy.connections() == 3
+            assert _counted(proxy, 3) == 3
             return got, proxy.connections()
         finally:
             for s in socks:

@@ -3,8 +3,10 @@ validate_manifests}.py) held against the JAX package's
 (tests/test_packaging.py).
 
 Both read the one ``deploy/`` tree. The port's installer and bundle hold
-the JAX package's documents except the two container commands that start
-the operator and the node agent, which run the port's binaries. The
+the JAX package's documents except the two containers that start the
+operator and the node agent, which run the port's binaries from the
+port's image (``Dockerfile.torch``): their command and image differ, and
+nothing else. The
 shared examples and the port's H100 example decode and pass the port's
 admission; ``validate_all`` finds nothing in the real artefacts and the
 same errors as the JAX copy in the broken ones. Every path is under the
@@ -31,13 +33,20 @@ H100_EXAMPLES = os.path.join(REPO, "tpu_composer_torch", "examples")
 H100_EXAMPLE = os.path.join(H100_EXAMPLES, "composabilityrequest-h100.yaml")
 SHARED_EXAMPLES = sorted(glob.glob(os.path.join(REPO, "examples", "*.yaml")))
 
-#: (kind, container) -> (the JAX package's command, the port's).
+JAX_IMAGE = "tpu-composer:latest"
+PORT_IMAGE = "tpu-composer-torch:latest"
+
+#: (kind, container) -> (the JAX package's command and image, the port's).
 REWRITTEN = {
-    ("Deployment", "manager"): (["python", "-m", "tpu_composer"],
-                                ["python", "-m", "tpu_composer_torch"]),
-    ("DaemonSet", "agent"): (["python", "-m", "tpu_composer.agent.serve"],
-                             ["python", "-m",
-                              "tpu_composer_torch.agent.serve"]),
+    ("Deployment", "manager"): (
+        {"command": ["python", "-m", "tpu_composer"], "image": JAX_IMAGE},
+        {"command": ["python", "-m", "tpu_composer_torch"],
+         "image": PORT_IMAGE}),
+    ("DaemonSet", "agent"): (
+        {"command": ["python", "-m", "tpu_composer.agent.serve"],
+         "image": JAX_IMAGE},
+        {"command": ["python", "-m", "tpu_composer_torch.agent.serve"],
+         "image": PORT_IMAGE}),
 }
 
 PORT = twin(PORT_ROOT)
@@ -57,17 +66,26 @@ def _commands(doc):
     return {c["name"]: c.get("command") for c in pod["containers"]}
 
 
-def _with_jax_commands(doc):
-    """``doc`` with the port's rewritten commands put back to the JAX
-    package's; counts what it put back."""
+def _rewritten(doc):
+    """The rewritten fields of each container: {name: {command, image}}."""
+    pod = doc["spec"]["template"]["spec"]
+    return {c["name"]: {k: c.get(k) for k in ("command", "image")}
+            for c in pod["containers"]}
+
+
+def _with_jax_containers(doc):
+    """``doc`` with the port's rewritten containers (command and image
+    both the port's) put back to the JAX package's; counts what it put
+    back."""
     doc = copy.deepcopy(doc)
     put_back = 0
     pod = ((doc.get("spec") or {}).get("template") or {}).get("spec") or {}
     for c in pod.get("containers") or []:
-        jax_cmd, port_cmd = REWRITTEN.get((doc["kind"], c["name"]),
-                                          (None, None))
-        if port_cmd is not None and c.get("command") == port_cmd:
-            c["command"] = jax_cmd
+        jax_fields, port_fields = REWRITTEN.get((doc["kind"], c["name"]),
+                                                (None, None))
+        if port_fields is not None and all(
+                c.get(k) == v for k, v in port_fields.items()):
+            c.update(copy.deepcopy(jax_fields))
             put_back += 1
     return doc, put_back
 
@@ -140,16 +158,17 @@ def test_installer_differs_only_in_the_two_commands(tmp_path):
         assert expected in kinds, f"missing {expected}: {kinds}"
     rewritten = []
     for jax_doc, port_doc in zip(jax_docs, port_docs):
-        restored, n = _with_jax_commands(port_doc)
+        restored, n = _with_jax_containers(port_doc)
         assert restored == jax_doc
         if n:
             rewritten.append((port_doc["kind"], port_doc["metadata"]["name"]))
     assert sorted(k for k, _ in rewritten) == ["DaemonSet", "Deployment"]
-    for (kind, container), (jax_cmd, port_cmd) in REWRITTEN.items():
+    for (kind, container), (jax_fields, port_fields) in REWRITTEN.items():
         jax_w = next(d for d in jax_docs if d["kind"] == kind)
         port_w = next(d for d in port_docs if d["kind"] == kind)
-        assert _commands(jax_w)[container] == jax_cmd
-        assert _commands(port_w)[container] == port_cmd
+        assert _rewritten(jax_w)[container] == jax_fields
+        assert _rewritten(port_w)[container] == port_fields
+    assert _api(PORT, "packaging").PORT_IMAGE == PORT_IMAGE
 
 
 def _bundle(tw, tmp_path):
@@ -179,7 +198,9 @@ def test_bundle_differs_only_in_the_managers_command(tmp_path):
         "FleetTelemetry", "NodeMaintenance",
     }
     [dep] = port_csv["spec"]["install"]["spec"]["deployments"]
-    restored, n = _with_jax_commands(
+    assert _rewritten(dep)["manager"] == REWRITTEN[
+        ("Deployment", "manager")][1]
+    restored, n = _with_jax_containers(
         {"kind": "Deployment", "spec": copy.deepcopy(dep["spec"])})
     assert n == 1  # the bundle carries no DaemonSet
     port_csv["spec"]["install"]["spec"]["deployments"][0]["spec"] = (
@@ -224,6 +245,7 @@ def test_packaging_cli_writes_the_installer(tmp_path, capsys):
     deployment = next(d for d in _load_all(out) if d["kind"] == "Deployment")
     assert _commands(deployment)["manager"] == ["python", "-m",
                                                 "tpu_composer_torch"]
+    assert _rewritten(deployment)["manager"]["image"] == PORT_IMAGE
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,10 @@ CRDs plus a minimal ClusterServiceVersion whose deployment spec is lifted
 from deploy/manager.yaml.
 
 The port reads the same ``deploy/`` tree as the JAX package and ships the
-same documents, except that the containers which start the operator and
-the node agent run the port's binaries (``PORT_COMMANDS``): the image,
-the CSV's names and the package name stay the same.
+same documents, except that the two containers which start the operator
+and the node agent run the port's binaries (``PORT_COMMANDS``) from the
+port's image (``PORT_IMAGE``, built from ``Dockerfile.torch``): the CSV's
+names and the package name stay the same.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ import yaml
 VERSION = "0.1.0"
 PACKAGE = "tpu-composer"
 
+#: The port's operator and node-agent image (``make docker-build-torch``).
+PORT_IMAGE = "tpu-composer-torch:latest"
+
 #: deploy/'s container commands that start the JAX package's binaries,
 #: and the port's commands that take their place.
 PORT_COMMANDS = {
@@ -37,15 +41,16 @@ PORT_COMMANDS = {
 }
 
 
-def port_commands(doc: dict) -> dict:
+def port_containers(doc: dict) -> dict:
     """``doc`` (a workload with a pod template) with each container whose
-    command starts a JAX-package binary given the port's command, in
-    place."""
+    command starts a JAX-package binary given the port's command and the
+    port's image, in place."""
     pod = ((doc.get("spec") or {}).get("template") or {}).get("spec") or {}
     for container in pod.get("containers") or []:
         command = tuple(container.get("command") or ())
         if command in PORT_COMMANDS:
             container["command"] = list(PORT_COMMANDS[command])
+            container["image"] = PORT_IMAGE
     return doc
 
 
@@ -61,7 +66,7 @@ def build_installer(deploy_dir: str, out_file: str) -> str:
     docs: List[dict] = []
     for path in _kustomize_resources(deploy_dir):
         with open(path) as f:
-            docs.extend(port_commands(d) for d in yaml.safe_load_all(f) if d)
+            docs.extend(port_containers(d) for d in yaml.safe_load_all(f) if d)
     os.makedirs(os.path.dirname(out_file) or ".", exist_ok=True)
     with open(out_file, "w") as f:
         f.write("# Generated by `python -m tpu_composer_torch.api.packaging"
@@ -74,7 +79,7 @@ def _load_deployment(deploy_dir: str) -> dict:
     with open(os.path.join(deploy_dir, "manager.yaml")) as f:
         for doc in yaml.safe_load_all(f):
             if doc and doc.get("kind") == "Deployment":
-                return port_commands(doc)
+                return port_containers(doc)
     raise ValueError(f"no Deployment found in {deploy_dir}/manager.yaml")
 
 

@@ -23,6 +23,10 @@ from tpu_composer_torch.device import DeviceLike, resolve_device
 
 log = logging.getLogger("workload.coords")
 
+#: The coordinator's port when the env names none: the port the slice's
+#: env writes by default (torchrun's rendezvous port), where the JAX
+#: package's is jax.distributed's coordinator port.
+DEFAULT_COORDINATOR_PORT = DEFAULT_MASTER_PORT
 #: How long a collective (the rendezvous included) may wait.
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -35,7 +39,7 @@ class SliceCoords:
     topology: str
     slice_name: str
     model: str = ""
-    master_port: int = DEFAULT_MASTER_PORT
+    master_port: int = DEFAULT_COORDINATOR_PORT
 
     @property
     def num_workers(self) -> int:
@@ -69,7 +73,8 @@ class SliceCoords:
             topology=e.get("COMPOSER_TOPOLOGY", ""),
             slice_name=e.get("COMPOSER_SLICE_NAME", ""),
             model=e.get("COMPOSER_ACCELERATOR_MODEL", ""),
-            master_port=int(e.get("MASTER_PORT", str(DEFAULT_MASTER_PORT))),
+            master_port=int(e.get("MASTER_PORT",
+                                  str(DEFAULT_COORDINATOR_PORT))),
         )
 
 
