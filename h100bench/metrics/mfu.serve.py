@@ -1,0 +1,23 @@
+"""The model's operations on real tokens in the window over the window's
+seconds at the card's bf16 peak: each admitted prompt's causal forward
+and each decoded token's forward over the keys it attended (``h100bench/counts.py``; no padding,
+no idle slot counted)."""
+
+from h100bench.counts import decode_flops, prompt_flops
+
+LAYER = "model (models/transformer.py, decode.py)"
+UNIT = "%"
+MOVES = "gen_tok_s"
+
+
+def read(run):
+    if run.peaks is None or not run.steps:
+        return None
+    d = run.dims
+    flops = 0.0
+    for s in run.steps:
+        if s["rows"]:
+            flops += s["rows"] * decode_flops(d, 0) + d.attn_pair_flops() * s["keys"]
+        for n in s["prompts"]:
+            flops += prompt_flops(d, n)
+    return 100.0 * flops / (run.window_s * run.peaks["bf16_flops"] * run.chips)
