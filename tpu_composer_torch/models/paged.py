@@ -50,6 +50,7 @@ from tpu_composer_torch.models.transformer import (
     _tied_logits,
 )
 from tpu_composer_torch.ops.paged_attention import paged_decode_attention
+from tpu_composer_torch.runtime.tracing import host_sync
 
 ATTN_IMPLS = ("gather", "kernel")
 
@@ -134,8 +135,23 @@ def _blocks_needed(tokens, block_size: int):
     return -(-tokens // block_size)  # ceil
 
 
+def upload(device: torch.device, *arrays):
+    """Host arrays (NumPy, lists, numbers) as tensors on ``device``, one
+    per array (the tensor itself for one): each a copy of host memory the
+    host waits for, so each counts as one ``upload`` sync."""
+    out = host_sync("upload", _as_tensors, device, arrays, count=len(arrays))
+    return out[0] if len(arrays) == 1 else out
+
+
+def _as_tensors(device, arrays):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
 def _on(cache: PagedKVCache, x, dtype=torch.int32) -> torch.Tensor:
-    return torch.as_tensor(x, device=cache.free.device).to(dtype)
+    dev = cache.free.device
+    if isinstance(x, torch.Tensor) and x.device == dev:
+        return x.to(dtype)
+    return upload(dev, x).to(dtype)
 
 
 def _pop_blocks(cache: PagedKVCache, flat_want: torch.Tensor):
@@ -171,7 +187,8 @@ def admit(cache: PagedKVCache, row_mask, n_tokens
     slot = torch.arange(mb, device=row_mask.device)[None, :]
     flat = (slot < want_rows[:, None]).reshape(-1)
     popped, total, refcount = _pop_blocks(cache, flat)
-    ok = bool((total <= cache.free_top) & (want_rows <= mb).all())
+    ok = host_sync("pool_ok", bool,
+                   (total <= cache.free_top) & (want_rows <= mb).all())
     if not ok:
         return cache, False
     tables = torch.where(flat, popped, cache.block_tables.reshape(-1))
@@ -235,7 +252,8 @@ def _extend_for_write(cache: PagedKVCache, t: int, active=None
     flat = ((slot >= cache.n_blocks[:, None])
             & (slot < need_total[:, None])).reshape(-1)
     popped, total, refcount = _pop_blocks(cache, flat)
-    ok = bool((total <= cache.free_top) & (need_total <= mb).all())
+    ok = host_sync("pool_ok", bool,
+                   (total <= cache.free_top) & (need_total <= mb).all())
     if not ok:
         return cache, False
     tables = torch.where(flat, popped, cache.block_tables.reshape(-1))
@@ -269,7 +287,8 @@ def attach_prefix(cache: PagedKVCache, slot: int, prefix_blocks,
     slots_idx = torch.arange(mb, device=prefix_blocks.device)
     want = (slots_idx >= k) & (slots_idx < need_total)
     popped, fresh, rc = _pop_blocks(cache, want)
-    if need_total > mb or not bool(fresh <= cache.free_top):
+    if need_total > mb or not host_sync("pool_ok", bool,
+                                        fresh <= cache.free_top):
         return cache, False
     rc.index_add_(0, prefix_blocks.long(), torch.ones_like(prefix_blocks))
     padded = torch.cat([prefix_blocks, prefix_blocks.new_zeros(mb - k)])
@@ -278,10 +297,12 @@ def attach_prefix(cache: PagedKVCache, slot: int, prefix_blocks,
                                         cache.block_tables[slot]))
     tables = cache.block_tables.clone()
     tables[slot] = row_table
+    # A Python number written into a device tensor is copied there first
+    # (a sync): through _on, so the copy is counted.
     length = cache.length.clone()
-    length[slot] = prefix_len
+    length[slot] = _on(cache, prefix_len)
     n_blocks = cache.n_blocks.clone()
-    n_blocks[slot] = need_total
+    n_blocks[slot] = _on(cache, need_total)
     return cache._replace(
         block_tables=tables, length=length, n_blocks=n_blocks,
         free_top=(cache.free_top - fresh).to(torch.int32), refcount=rc,
@@ -295,9 +316,9 @@ def detach_row_keep_blocks(cache: PagedKVCache, slot: int):
     ids = cache.block_tables[slot].clone()
     n = cache.n_blocks[slot].clone()
     length = cache.length.clone()
-    length[slot] = 0
+    length[slot] = _on(cache, 0)
     n_blocks = cache.n_blocks.clone()
-    n_blocks[slot] = 0
+    n_blocks[slot] = _on(cache, 0)
     return cache._replace(length=length, n_blocks=n_blocks), ids, n
 
 
@@ -321,7 +342,7 @@ def _write_index(tables, pos, t: int, block_size: int, active=None):
     off = abs_pos % block_size
     if active is None:
         return blk.reshape(-1), off.reshape(-1), None
-    rows = active.nonzero()[:, 0]
+    rows = host_sync("write_rows", torch.nonzero, active)[:, 0]
     return blk[rows].reshape(-1), off[rows].reshape(-1), rows
 
 
@@ -397,7 +418,7 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
         )
     slot_ids = _on(cache, slot_ids, torch.long)
     mask = torch.zeros(b, dtype=torch.int32, device=slot_ids.device)
-    mask[slot_ids] = 1
+    mask[slot_ids] = _on(cache, 1)  # the number's copy, counted
     cache, ok = admit(cache, mask, mask * s_p)
     tables_r = cache.block_tables[slot_ids]
     zero = torch.zeros(r, dtype=torch.int32, device=tokens.device)

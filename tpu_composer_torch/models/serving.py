@@ -46,8 +46,11 @@ from tpu_composer_torch.models.paged import (
     paged_decode_step,
     paged_prefill_rows,
     release,
+    upload,
 )
 from tpu_composer_torch.models.quant import QTensor
+from tpu_composer_torch.runtime import tracing
+from tpu_composer_torch.runtime.tracing import host_sync
 
 
 @dataclass
@@ -334,7 +337,7 @@ class ContinuousBatchingEngine:
             buf = np.zeros((1, pad), np.int64)
             buf[0, :p_n] = tokens
             _, cache, ok = paged_prefill_rows(
-                self.params, torch.as_tensor(buf, device=self.device),
+                self.params, upload(self.device, buf),
                 self.config, self.cache, slot_ids=[slot], prompt_lens=[p_n])
             if not ok:
                 raise RuntimeError("pool cannot hold the prefix")
@@ -361,9 +364,8 @@ class ContinuousBatchingEngine:
             chunk = np.zeros((self.slots, c_sz), np.int64)
             chunk[slot] = tokens[i:i + c_sz]
             _, cache, ok = paged_decode_chunk(
-                self.params, self.cache,
-                torch.as_tensor(chunk, device=self.device), self.config,
-                attn_impl=self.attn_impl, active=active)
+                self.params, self.cache, upload(self.device, chunk),
+                self.config, attn_impl=self.attn_impl, active=active)
             if not ok:
                 raise RuntimeError("pool cannot hold the prefix")
             self.cache = cache
@@ -392,10 +394,13 @@ class ContinuousBatchingEngine:
                 return i
         return None
 
-    def _try_admit(self) -> List[Tuple[int, int]]:
+    def _try_admit(self, tree: Optional[tracing.Tree]
+                   ) -> List[Tuple[int, int]]:
         """Admit the head-of-line request if a slot and its worst-case
         blocks are available; returns the (req_id, token) events the
-        admission produced. One admission per call."""
+        admission produced. One admission per call; a bucketed one is a
+        ``serving.admit`` span of ``tree`` (``prompt`` real tokens,
+        ``padded`` positions the prefill runs)."""
         if not self._waiting:
             return []
         slot = self._free_slot()
@@ -433,10 +438,22 @@ class ContinuousBatchingEngine:
             self._admitting.append({"slot": slot, "req": req, "consumed": 0,
                                     "padded": padded, "tail": len(tail)})
             return []
+        if tree is None:
+            return self._prefill(slot, req, pad, worst)
+        tree.begin("serving.admit", req_id=req.req_id,
+                   prompt=len(req.prompt), padded=pad)
+        events = self._prefill(slot, req, pad, worst)
+        tree.end()
+        return events
+
+    def _prefill(self, slot: int, req: Request, pad: int, worst: int
+                 ) -> List[Tuple[int, int]]:
+        """The bucketed prefill of ``req`` (padded to ``pad``) into
+        ``slot``, up to its first token."""
         tokens = np.zeros((1, pad), np.int64)
         tokens[0, :len(req.prompt)] = req.prompt
         logits, cache, ok = paged_prefill_rows(
-            self.params, torch.as_tensor(tokens, device=self.device),
+            self.params, upload(self.device, tokens),
             self.config, self.cache, slot_ids=[slot],
             prompt_lens=[len(req.prompt)])
         if not ok:  # host reservation makes this unreachable
@@ -466,24 +483,37 @@ class ContinuousBatchingEngine:
         return float(torch.rand(1, generator=gen, dtype=torch.float64))
 
     def _pick(self, logits, rows: slice, u: np.ndarray) -> torch.Tensor:
-        dev = logits.device
-        return _pick_rows(
-            logits, torch.as_tensor(self._temp[rows], device=dev),
-            torch.as_tensor(self._topk[rows], device=dev),
-            torch.as_tensor(self._topp[rows], device=dev),
-            torch.as_tensor(u, dtype=torch.float64, device=dev))
+        temp, top_k, top_p, u = upload(
+            logits.device, self._temp[rows], self._topk[rows],
+            self._topp[rows], u)
+        return _pick_rows(logits, temp, top_k, top_p, u)
 
     def _pick_first(self, slot: int, logits_1v) -> int:
         u = np.array([self._draw(slot)])
-        return int(self._pick(logits_1v, slice(slot, slot + 1), u)[0])
+        return host_sync("first_token", int,
+                         self._pick(logits_1v, slice(slot, slot + 1), u)[0])
 
-    def _advance_admission(self) -> List[Tuple[int, int]]:
-        """Feed the longest-waiting chunked admission its next chunk; on
-        its last chunk, set the real prompt length, arm sampling and emit
-        the first token."""
+    def _advance_admission(self, tree: Optional[tracing.Tree]
+                           ) -> List[Tuple[int, int]]:
+        """Feed the longest-waiting chunked admission its next chunk, a
+        ``serving.admit`` span of ``tree`` (``prompt`` real tokens in the
+        chunk, ``padded`` the chunk's length)."""
         if not self._admitting:
             return []
         st = self._admitting.popleft()
+        if tree is None:
+            return self._chunk(st)
+        c_sz = self.prefill_chunk
+        tree.begin("serving.admit", req_id=st["req"].req_id,
+                   prompt=min(c_sz, st["tail"] - st["consumed"]),
+                   padded=c_sz)
+        events = self._chunk(st)
+        tree.end()
+        return events
+
+    def _chunk(self, st: Dict[str, Any]) -> List[Tuple[int, int]]:
+        """Run one chunk of the admission ``st``; on its last chunk, set
+        the real prompt length, arm sampling and emit the first token."""
         c_sz = self.prefill_chunk
         slot, req = st["slot"], st["req"]
         chunk = np.zeros((self.slots, c_sz), np.int64)
@@ -491,7 +521,7 @@ class ContinuousBatchingEngine:
         active = np.zeros(self.slots, bool)
         active[slot] = True
         logits, cache, ok = paged_decode_chunk(
-            self.params, self.cache, torch.as_tensor(chunk, device=self.device),
+            self.params, self.cache, upload(self.device, chunk),
             self.config, attn_impl=self.attn_impl, active=active)
         if not ok:
             raise RuntimeError(
@@ -506,7 +536,7 @@ class ContinuousBatchingEngine:
         # Pad-slot K/V sits past the real length: masked on every read and
         # overwritten as the row decodes.
         length = self.cache.length.clone()
-        length[slot] = len(req.prompt)
+        length[slot] = upload(self.device, len(req.prompt))
         self.cache = self.cache._replace(length=length)
         self._arm_sampling(slot, req)
         # The streamed content is the request's tail; its last real
@@ -567,37 +597,68 @@ class ContinuousBatchingEngine:
     def step(self) -> List[Tuple[int, int]]:
         """One engine iteration: admit (at most one), then one decode step
         across every active slot. Returns ALL (req_id, token) events this
-        step, including a just-admitted request's first token."""
-        events = self._try_admit()
-        events += self._advance_admission()
+        step, including a just-admitted request's first token.
+
+        While tracing is on (``runtime/tracing.py``), the step records one
+        span tree, category ``serving``: ``serving.step`` (args ``rows``
+        decoded, ``tokens`` emitted, ``syncs``) holding ``serving.admit``,
+        ``serving.decode`` (the decode forward, from the call until the
+        logits return) and ``serving.emit`` (emitting the tokens and
+        freeing finished slots), and a ``serving.sync`` leaf (arg
+        ``what``) for each host sync, in whichever phase it falls."""
+        tree = tracing.open_tree("serving.step", "serving")
+        if tree is None:
+            return self._step(None)[0]
+        try:
+            events, rows = self._step(tree)
+        except BaseException as e:
+            tree.close(error=f"{type(e).__name__}: {e}")
+            raise
+        tree.close(rows=rows, tokens=len(events))
+        return events
+
+    def _step(self, tree: Optional[tracing.Tree]
+              ) -> Tuple[List[Tuple[int, int]], int]:
+        """The step's events and the number of rows it decoded."""
+        events = self._try_admit(tree)
+        events += self._advance_admission(tree)
         admitting_slots = {st["slot"] for st in self._admitting}
         active = np.array(
             [r is not None and s not in admitting_slots
              for s, r in enumerate(self._slot_req)], bool)
         if not active.any():
-            return events
+            return events, 0
+        if tree is not None:
+            tree.begin("serving.decode")
         logits, cache, ok = paged_decode_step(
-            self.params, self.cache,
-            torch.as_tensor(self._next_token, device=self.device),
+            self.params, self.cache, upload(self.device, self._next_token),
             self.config, attn_impl=self.attn_impl, active=active)
+        if tree is not None:
+            tree.end()
         if not ok:
             # A real exception, not an assert: python -O would strip it
             # and then argmax meaningless logits into request outputs.
             raise RuntimeError("pool exhausted despite host-side reservation")
         self.cache = cache
         if all(g is None for g in self._slot_gen):
-            picks = torch.argmax(logits, dim=-1).cpu().numpy()
+            picks = torch.argmax(logits, dim=-1)
         else:
             # Each active sampled slot takes its next draw, in slot order
             # (each request has its own generator, so order is free).
             u = np.array([self._draw(s) if active[s] else 0.0
                           for s in range(self.slots)])
-            picks = self._pick(logits, slice(None), u).cpu().numpy()
-        for slot in np.nonzero(active)[0]:
+            picks = self._pick(logits, slice(None), u)
+        picks = host_sync("tokens", torch.Tensor.cpu, picks).numpy()
+        if tree is not None:
+            tree.begin("serving.emit")
+        rows = np.nonzero(active)[0]
+        for slot in rows:
             req = self._slot_req[slot]
             self._emit(slot, int(picks[slot]))
             events.append((req.req_id, int(picks[slot])))
-        return events
+        if tree is not None:
+            tree.end()
+        return events, len(rows)
 
     def run(self, max_steps: int = 100000) -> None:
         """Drive until every submitted request is done."""

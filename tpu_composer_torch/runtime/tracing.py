@@ -22,8 +22,9 @@ makes the causality explicit:
   ``status.pending_op`` nonce, so one attach renders as one connected
   trace even across a process crash + adoption (the kill–restart soak
   asserts this).
-- A bounded in-memory ring (default 10k events — old traffic falls off
-  rather than growing the heap) shared process-wide.
+- A bounded in-memory ring (default 10k entries, an entry one event or
+  one pre-timed :func:`record` call — old traffic falls off rather than
+  growing the heap) shared process-wide.
 - ``export_chrome()``: the whole ring as Chrome trace-event JSON ("cat"
   = component, thread = worker) — load it in chrome://tracing or Perfetto.
 - The manager's health server exposes ``/debug/traces`` (same port as
@@ -37,9 +38,28 @@ makes the causality explicit:
   ``span`` degrades to a no-op yield; the perf-smoke gate asserts the
   enabled path stays within 5% of this on the 32-chip wave.
 
-The workload side (JAX) keeps its own richer profiler: ``jax.profiler``
-traces device execution; this module covers the operator half the device
-profiler can't see.
+The serving engine (``models/serving.py``) records one span tree per
+step through the same ring, category ``serving``:
+
+- ``Tree`` / ``open_tree``: spans the owner times itself with
+  ``perf_counter_ns`` and hands over in ONE :func:`record` call when the
+  tree closes (one lock and one ring entry per tree, no generator or
+  event dict per span: :func:`snapshot` builds the events), so a hot
+  loop pays a clock read per phase boundary. Disabled, ``open_tree``
+  returns None and the caller's only cost is the branch on it.
+- ``host_sync(what, fn, *args)``: runs an operation that blocks the host
+  on the device stream (a device-to-host read, an upload of host memory)
+  and, inside an open tree, records it as a ``<cat>.sync`` leaf with
+  ``what`` and counts it in the root's ``syncs``.
+
+The clock: ring timestamps are µs since this module was imported, on
+``perf_counter``. One offset, read at import, maps them to Unix-epoch ns
+(:func:`unix_ns`), the clock ``torch.profiler``'s device and host events
+carry, so a ring export and a profiler export line up in Perfetto;
+:func:`perf_ns` maps them back to ``perf_counter_ns``. ``chrome_doc``
+carries the Unix ns of ts 0 as ``metadata.ts0_unix_ns``. The spans never
+enter the profiler as ranges: a range would show on the device as an
+annotation covering kernels and gaps alike.
 """
 
 from __future__ import annotations
@@ -53,12 +73,20 @@ import zlib
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
+from typing import (
+    Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple,
+)
 
 _lock = threading.Lock()
-_events: Deque[Dict[str, Any]] = deque(maxlen=10_000)
+# Events as dicts, and each record() call as the one tuple it keeps.
+_events: Deque[Any] = deque(maxlen=10_000)
 _tls = threading.local()
-_t0 = time.perf_counter()
+_clock = time.perf_counter_ns
+_T0_NS = _clock()
+_t0 = _T0_NS / 1e9
+#: Unix-epoch ns minus perf_counter ns, read once: what :func:`unix_ns`
+#: adds to put a ring timestamp on torch.profiler's clock.
+_UNIX_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 # Monotonically-increasing ids shared by spans and flows so Perfetto can
 # pair nested spans and flow arrows cheaply.
 _next_id = 0
@@ -122,12 +150,34 @@ def current_replica() -> Optional[str]:
 
 
 def _pid() -> int:
-    bound = getattr(_tls, "replica", None) or _replica_default
-    return bound[1] if bound else os.getpid()
+    bound = _tls.__dict__.get("replica") or _replica_default
+    return bound[1] if bound else _os_pid
+
+
+def _new_os_pid() -> None:
+    global _os_pid
+    _os_pid = os.getpid()
+
+
+# The process's pid, read once (and again in a forked child) rather than
+# by a system call per span.
+_new_os_pid()
+os.register_at_fork(after_in_child=_new_os_pid)
 
 
 def _now_us() -> float:
     return (time.perf_counter() - _t0) * 1e6
+
+
+def perf_ns(ts: float) -> int:
+    """A ring timestamp (``ts``, µs) on the ``perf_counter_ns`` clock."""
+    return _T0_NS + round(ts * 1e3)
+
+
+def unix_ns(ts: float) -> int:
+    """A ring timestamp (``ts``, µs) in Unix-epoch ns, the clock of
+    ``torch.profiler``'s events (kineto's ``start_ns``)."""
+    return perf_ns(ts) + _UNIX_OFFSET_NS
 
 
 def _new_id() -> int:
@@ -323,6 +373,125 @@ def span(
                 pass  # a sink bug must never surface into the traced code
 
 
+#: One pre-timed span: (name, cat, start_ns, end_ns, parent, args), the
+#: times on ``perf_counter_ns``, ``parent`` the index of an earlier span
+#: of the same call or None, ``args`` JSON scalars by name.
+Timed = Tuple[str, str, int, int, Optional[int], Dict[str, Any]]
+
+
+def record(spans: Sequence[Timed]) -> Sequence[int]:
+    """Append spans their caller has already timed and return their ids.
+    One call is ONE entry of the ring, appended under one lock, which
+    :func:`snapshot` expands into complete events, a span's ``parent``
+    (an index into ``spans``) becoming ``args.parent_span``, the parent's
+    id, as :func:`span` nests. So the caller pays neither a dict nor a
+    lock per span, and the ring's bound counts calls, not their spans."""
+    if not _enabled or not spans:
+        return range(0)
+    global _next_id
+    pid, tid, spans = _pid(), _tid(), tuple(spans)
+    with _lock:
+        base = _next_id + 1
+        _next_id += len(spans)
+        entry = (base, pid, tid, spans)
+        _events.append(entry)
+    if _sinks:
+        for sink in list(_sinks):
+            for evt in _expand(entry):
+                try:
+                    sink(evt)
+                except Exception:
+                    pass  # a sink bug must never surface into the traced code
+    return range(base, base + len(spans))
+
+
+def _expand(entry: tuple) -> List[Dict[str, Any]]:
+    """The complete ("X") events of one :func:`record` call."""
+    base, pid, tid, spans = entry
+    out = []
+    for i, (name, cat, start, end, parent, args) in enumerate(spans):
+        args = dict(args)
+        if parent is not None:
+            args["parent_span"] = base + parent
+        out.append({"name": name, "cat": cat, "ph": "X",
+                    "ts": (start - _T0_NS) / 1e3, "dur": (end - start) / 1e3,
+                    "pid": pid, "tid": tid, "id": base + i, "args": args})
+    return out
+
+
+class Tree:
+    """One span tree its owner times with ``perf_counter_ns``: a root
+    opened with the tree, children opened and closed with
+    :meth:`begin`/:meth:`end` (each nested in the innermost open one),
+    and ``<cat>.sync`` leaves added by :func:`host_sync` while the tree
+    is the thread's. :meth:`close` ends whatever is still open, stores
+    the count of syncs in the root's ``syncs`` and hands the whole tree
+    to :func:`record` at once."""
+
+    __slots__ = ("cat", "sync_name", "spans", "open", "syncs", "_prev")
+
+    def __init__(self, name: str, cat: str, **args: Any):
+        self.cat = cat
+        self.sync_name = cat + ".sync"
+        self.spans: List[list] = [[name, cat, _clock(), 0, None, args]]
+        self.open = [0]
+        self.syncs = 0
+        self._prev: Optional["Tree"] = None
+
+    def begin(self, name: str, **args: Any) -> None:
+        spans = self.spans
+        self.open.append(len(spans))
+        spans.append([name, self.cat, _clock(), 0, self.open[-2], args])
+
+    def end(self) -> None:
+        self.spans[self.open.pop()][3] = _clock()
+
+    def close(self, **args: Any) -> Sequence[int]:
+        now = _clock()
+        while self.open:
+            self.spans[self.open.pop()][3] = now
+        self.spans[0][5].update(args, syncs=self.syncs)
+        if _trees.tree is self:
+            _trees.tree = self._prev
+        return record(self.spans)
+
+
+class _Trees(threading.local):
+    tree: Optional[Tree] = None
+
+
+_trees = _Trees()
+
+
+def open_tree(name: str, cat: str, **args: Any) -> Optional[Tree]:
+    """A :class:`Tree` rooted at ``name`` and made the thread's, so
+    :func:`host_sync` calls under it land in it; None while recording is
+    off."""
+    if not _enabled:
+        return None
+    tree = Tree(name, cat, **args)
+    tree._prev = _trees.tree
+    _trees.tree = tree
+    return tree
+
+
+def host_sync(what: str, fn: Callable[..., Any], *args: Any,
+              count: int = 1) -> Any:
+    """``fn(*args)``, an operation that blocks the host until the device
+    stream drains (``count`` of them back to back), timed and counted
+    under ``what`` in the thread's open :class:`Tree`, if any."""
+    tree = _trees.tree
+    if tree is None:
+        return fn(*args)
+    start = _clock()
+    out = fn(*args)
+    tree.spans.append((tree.sync_name, tree.cat, start, _clock(),
+                       tree.open[-1], {"what": what} if count == 1
+                       else {"what": what, "count": count}))
+    tree.syncs += count
+    return out
+
+
 def _safe(v: Any) -> Any:
     if isinstance(v, (str, int, float, bool)) or v is None:
         return v
@@ -336,6 +505,8 @@ def snapshot(
     ``limit`` keeps only the NEWEST n (what /debug/traces paginates on)."""
     with _lock:
         events = list(_events)
+    events = [x for e in events
+              for x in ((e,) if type(e) is dict else _expand(e))]
     if cat:
         events = [e for e in events if e.get("cat") == cat]
     if limit is not None and limit >= 0:
@@ -364,14 +535,18 @@ def chrome_doc(events: Optional[List[Dict[str, Any]]] = None) -> Dict[str, Any]:
     :func:`merge_chrome` can align files from processes whose monotonic
     trace clocks started at different moments. Every trace exit path —
     file dumps, /debug/traces scrapes, pre-kill snapshots — must ship this
-    shape or its events merge unlabeled and unaligned."""
+    shape or its events merge unlabeled and unaligned. ``metadata.
+    ts0_unix_ns`` is ts=0 in Unix-epoch ns from the offset read at import
+    (:func:`unix_ns`): shift the events by it to lay them over a
+    ``torch.profiler`` trace of the same process."""
     if events is None:
         events = snapshot()
     epoch_us = time.time() * 1e6 - _now_us()
     return {
         "traceEvents": _process_name_events(events) + events,
         "displayTimeUnit": "ms",
-        "metadata": {"epoch_us": epoch_us},
+        "metadata": {"epoch_us": epoch_us,
+                     "ts0_unix_ns": _T0_NS + _UNIX_OFFSET_NS},
     }
 
 
