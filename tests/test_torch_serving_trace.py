@@ -27,7 +27,9 @@ from tpu_composer_torch.runtime import tracing
 
 torch.set_num_threads(1)
 
-DECODE_SYNCS = ["upload", "upload", "pool_ok", "write_rows", "tokens"]
+#: A decode-only step's sync leaves: the next tokens and the active mask
+#: in one upload (two copies), then the tokens read with the pool's ok.
+DECODE_SYNCS = [("upload", 2), ("tokens", 1)]
 #: What CUDA's sync debug mode says at each synchronizing operation.
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
@@ -122,13 +124,15 @@ def test_a_decode_only_step_counts_five_syncs_by_site(ring):
     events = eng.step()
     (root, spans), = _trees()
     assert len(events) == root["args"]["rows"] == root["args"]["tokens"] == 2
-    assert root["args"]["syncs"] == 5
+    assert root["args"]["syncs"] == 3
     syncs = sorted((e for e in spans if e["name"] == "serving.sync"),
                    key=lambda e: e["ts"])
-    assert [e["args"]["what"] for e in syncs] == DECODE_SYNCS
+    assert [(e["args"]["what"], e["args"].get("count", 1))
+            for e in syncs] == DECODE_SYNCS
     decode, = [e for e in spans if e["name"] == "serving.decode"]
-    assert [e["args"]["parent_span"] for e in syncs] == [decode["id"]] * 4 + [
-        root["id"]]
+    assert decode["args"]["graph"] == 0  # a CPU engine runs it eagerly
+    assert [e["args"]["parent_span"] for e in syncs] == [decode["id"],
+                                                         root["id"]]
     assert len(spans) + 1 <= 12
 
 
@@ -140,7 +144,7 @@ def test_a_finishing_slot_adds_one_upload_under_emit(ring):
     (root, spans), = _trees()
     emit, = [e for e in spans if e["name"] == "serving.emit"]
     under = [e["args"]["what"] for e in _children((root, spans), emit)]
-    assert under == ["upload"] and root["args"]["syncs"] == 6
+    assert under == ["upload"] and root["args"]["syncs"] == 4
 
 
 def test_a_bucketed_admission_records_real_and_padded_lengths(ring):
@@ -158,7 +162,7 @@ def test_a_bucketed_admission_records_real_and_padded_lengths(ring):
     # the prompt length, the 4 sampling controls, the first token.
     assert whats == ["upload", "upload", "upload", "pool_ok", "upload",
                      "upload", "first_token"]
-    assert root["args"]["syncs"] == 10 + 5
+    assert root["args"]["syncs"] == 10 + 3
 
 
 def test_a_chunked_admission_records_one_span_per_chunk(ring):
@@ -269,26 +273,35 @@ def _counted(eng, what):
                     "\n\n" + "\n".join(stacks))
 
 
+def _replayed(eng, what):
+    """:func:`_counted`, and the step's decode was one replay of the
+    engine's CUDA graph."""
+    replays = eng._graph.replays
+    _counted(eng, what)
+    assert eng._graph.replays == replays + 1
+
+
 @pytest.mark.cuda
 def test_every_sync_on_the_card_is_counted():
     """CUDA's own count of synchronizing operations in a decode-only step,
     a sampled decode step and a step that admits equals the engine's; and
     so in a chunked engine's admissions, one of them onto a shared
-    prefix."""
+    prefix. Each step's decode is a replay of the engine's CUDA graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     tracing.set_enabled(True)
     eng = _engine(device="cuda", dtype=torch.bfloat16, attn="flash",
                   engine_attn="kernel", d_model=256, slots=4)
-    # Kernels built and every shape warm before counting.
+    # Kernels built, every shape warm and the decode graph captured before
+    # counting.
     _run(eng, 4, [_prompt(20, 1), _prompt(40, 2)], [30, 30])
     torch.cuda.synchronize()
-    _counted(eng, 5)
+    _replayed(eng, 3)
     # A sampled request's admission (10 syncs) and the step's decode, which
-    # now samples: 5, and 4 uploads of the sampling controls.
+    # now samples: 3, and 4 uploads of the sampling controls.
     eng.submit(_prompt(20, 3), 30, temperature=0.7, top_k=10, seed=1)
-    _counted(eng, 19)
-    _counted(eng, 9)
+    _replayed(eng, 17)
+    _replayed(eng, 7)
 
     c = ModelConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
                     n_kv_heads=2, d_ff=512, max_seq=256, dtype=torch.bfloat16,
@@ -304,7 +317,7 @@ def test_every_sync_on_the_card_is_counted():
     prefix = _prompt(16, 2)
     handle = eng.register_prefix(prefix)
     eng.submit(prefix + _prompt(10, 3), 30, prefix=handle)
-    _counted(eng, 18)
+    _replayed(eng, 16)
     eng.submit(_prompt(40, 4), 30)
-    for what in (12, 9, 15, 5):  # reservation and chunk, chunk, last chunk
-        _counted(eng, what)
+    for what in (10, 7, 13, 3):  # reservation and chunk, chunk, last chunk
+        _replayed(eng, what)

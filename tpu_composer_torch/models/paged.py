@@ -20,9 +20,14 @@ How the port differs from the JAX functions it mirrors, and why:
   its pools with the one passed in. The small bookkeeping tensors
   (tables, lengths, free stack, refcounts) are replaced, never mutated.
 - No ``mode="drop"`` scatter in torch. Writes for inactive rows are
-  removed by selecting the active rows' coordinates first: an idle
-  slot's stale table may name a live row's block, so it is masked out,
-  never clamped.
+  removed by selecting the active rows' coordinates first (a host read),
+  or, given a ``sink`` block, sent into it: an idle slot's stale table
+  may name a live row's block, so it is masked out, never clamped.
+- A decode step with a ``sink`` reads nothing back: ``ok`` stays a
+  0-dim tensor on the device and a refused step's bookkeeping is
+  selected back to what it was there, its writes all going to the sink.
+  The serving engine steps so, which lets it replay the step as a CUDA
+  graph; every other caller keeps the host-checked step.
 - Tables stay int32 (the kernel reads them); indices become int64 only
   for torch's advanced indexing.
 """
@@ -98,15 +103,18 @@ class PagedKVCache(NamedTuple):
 def init_paged_cache(config: AnyConfig, batch: int, num_blocks: int,
                      block_size: int = 16,
                      blocks_per_row: Optional[int] = None,
-                     quant: bool = False,
+                     quant: bool = False, sink: bool = False,
                      device: DeviceLike = "cuda") -> PagedKVCache:
     """Empty pool. ``blocks_per_row`` bounds one row's table (default: the
     whole pool). ``quant=True`` stores the pool int8 with per-(position,
-    head) fp32 scales."""
+    head) fp32 scales. ``sink=True`` adds block ``num_blocks`` to the pool
+    and to no free stack: the sink of :func:`paged_decode_step`, which
+    only idle rows write and nothing reads."""
     c = config
     dev = resolve_device(device)
     mb = blocks_per_row or num_blocks
-    shape = (c.n_layers, num_blocks, block_size, c.kv_heads, c.head_dim)
+    shape = (c.n_layers, num_blocks + int(sink), block_size, c.kv_heads,
+             c.head_dim)
     i32 = dict(dtype=torch.int32, device=dev)
     common = dict(
         block_tables=torch.zeros((batch, mb), **i32),
@@ -237,14 +245,14 @@ def release(cache: PagedKVCache, row_mask) -> PagedKVCache:
     )
 
 
-def _extend_for_write(cache: PagedKVCache, t: int, active=None
-                      ) -> Tuple[PagedKVCache, bool]:
-    """Claim blocks so every active row can append ``t`` tokens at its
-    current length. Returns (cache, ok); rows past their table capacity or
-    an exhausted pool make ``ok`` False with the cache unchanged."""
+def _extend_on_device(cache: PagedKVCache, t: int, active: torch.Tensor
+                      ) -> Tuple[PagedKVCache, torch.Tensor]:
+    """Claim blocks so every ``active`` row (a device mask of owned rows)
+    can append ``t`` tokens at its current length, reading nothing back.
+    Returns (cache, ok) with ``ok`` a 0-dim bool tensor: rows past their
+    table capacity or an exhausted pool make it False, and the returned
+    bookkeeping is then selected back to the cache's own values."""
     b, mb = cache.block_tables.shape
-    owned = cache.n_blocks > 0
-    active = owned if active is None else _on(cache, active, torch.bool) & owned
     need_total = torch.where(
         active, _blocks_needed(cache.length + t, cache.block_size), 0
     ).to(torch.int32)
@@ -252,17 +260,28 @@ def _extend_for_write(cache: PagedKVCache, t: int, active=None
     flat = ((slot >= cache.n_blocks[:, None])
             & (slot < need_total[:, None])).reshape(-1)
     popped, total, refcount = _pop_blocks(cache, flat)
-    ok = host_sync("pool_ok", bool,
-                   (total <= cache.free_top) & (need_total <= mb).all())
-    if not ok:
-        return cache, False
-    tables = torch.where(flat, popped, cache.block_tables.reshape(-1))
+    ok = (total <= cache.free_top) & (need_total <= mb).all()
+    tables = torch.where(flat & ok, popped, cache.block_tables.reshape(-1))
     return cache._replace(
         block_tables=tables.reshape(b, mb),
-        n_blocks=torch.maximum(cache.n_blocks, need_total),
-        free_top=(cache.free_top - total).to(torch.int32),
-        refcount=refcount,
-    ), True
+        n_blocks=torch.where(ok, torch.maximum(cache.n_blocks, need_total),
+                             cache.n_blocks),
+        free_top=torch.where(ok, cache.free_top - total,
+                             cache.free_top).to(torch.int32),
+        refcount=torch.where(ok, refcount, cache.refcount),
+    ), ok
+
+
+def _extend_for_write(cache: PagedKVCache, t: int, active=None
+                      ) -> Tuple[PagedKVCache, bool]:
+    """:func:`_extend_on_device` with ``ok`` read on the host: (cache,
+    ok), a refusal returning the cache it was given."""
+    owned = cache.n_blocks > 0
+    active = owned if active is None else _on(cache, active, torch.bool) & owned
+    extended, ok = _extend_on_device(cache, t, active)
+    if not host_sync("pool_ok", bool, ok):
+        return cache, False
+    return extended, True
 
 
 def attach_prefix(cache: PagedKVCache, slot: int, prefix_blocks,
@@ -330,17 +349,21 @@ def drop_blocks(cache: PagedKVCache, block_ids, count) -> PagedKVCache:
     return _free_blocks(cache, block_ids, idx < _on(cache, count))
 
 
-def _write_index(tables, pos, t: int, block_size: int, active=None):
+def _write_index(tables, pos, t: int, block_size: int, active=None,
+                 sink: Optional[int] = None):
     """Pool coordinates (block ids, offsets) of every (row, token) write
     at positions ``pos..pos+t``, plus the rows they come from. Rows where
-    ``active`` is False are left out entirely (one host sync to find
-    them): their stale tables may name other rows' blocks."""
+    ``active`` is False write into block ``sink`` or, without one, are
+    left out entirely (one host sync to find them): their stale tables
+    may name other rows' blocks."""
     b, mb = tables.shape
     abs_pos = pos.long()[:, None] + torch.arange(t, device=pos.device)[None, :]
     blk_slot = (abs_pos // block_size).clamp(0, mb - 1)
     blk = torch.gather(tables, 1, blk_slot).long()
     off = abs_pos % block_size
-    if active is None:
+    if sink is not None:
+        blk = torch.where(active[:, None], blk, sink)
+    if active is None or sink is not None:
         return blk.reshape(-1), off.reshape(-1), None
     rows = host_sync("write_rows", torch.nonzero, active)[:, 0]
     return blk[rows].reshape(-1), off[rows].reshape(-1), rows
@@ -447,7 +470,8 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
 
 def paged_decode_chunk(params: Dict, cache: PagedKVCache,
                        tokens: torch.Tensor, config: AnyConfig,
-                       attn_impl: str = "gather", active=None):
+                       attn_impl: str = "gather", active=None,
+                       sink: Optional[int] = None):
     """T tokens (B, T) in -> (per-position logits (B, T, vocab), cache,
     ok): token i attends the cache plus chunk tokens 0..i. T=1 is a decode
     step; T>1 is chunked prefill.
@@ -459,7 +483,13 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
     ``attn_impl="kernel"`` reads through the paged decode kernel on T=1
     steps; chunks read through the gather path. MoE layers route
     drop-free, each row its own group, so idle rows never displace live
-    ones."""
+    ones.
+
+    ``sink`` (a pool block no free stack holds, ``init_paged_cache(...,
+    sink=True)``) makes the step read nothing back from the device: idle
+    rows write into the sink, and ``ok`` is a 0-dim bool tensor; a
+    refused step returns new bookkeeping tensors equal to the old ones
+    and writes only into the sink."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
@@ -467,13 +497,17 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
     b, t = tokens.shape
     owned = cache.n_blocks > 0
     active = owned if active is None else _on(cache, active, torch.bool) & owned
-    cache, ok = _extend_for_write(cache, t, active)
+    if sink is None:
+        cache, ok = _extend_for_write(cache, t, active)
+    else:
+        cache, ok = _extend_on_device(cache, t, active)
+        active = active & ok
     use_kernel = attn_impl == "kernel" and t == 1
     pos = cache.length
     positions = pos[:, None] + torch.arange(
         t, dtype=torch.int32, device=tokens.device)[None, :]
     index = (_write_index(cache.block_tables, pos, t, cache.block_size,
-                          active) if ok else None)
+                          active, sink) if ok is not False else None)
     tables = cache.block_tables
     x = embedding_lookup(params["embed"], tokens, c.dtype)
     for li, layer in enumerate(params["layers"]):
@@ -494,18 +528,20 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
                            drop_free=True)
     x = _rmsnorm(x, params["ln_f"])
     logits = _tied_logits(x, params["embed"], c.dtype)
-    if not ok:
+    if ok is False:
         return logits, cache, False
-    return logits, cache._replace(length=torch.where(active, pos + t, pos)), True
+    return logits, cache._replace(length=torch.where(active, pos + t, pos)), ok
 
 
 def paged_decode_step(params: Dict, cache: PagedKVCache,
                       token: torch.Tensor, config: AnyConfig,
-                      attn_impl: str = "gather", active=None):
-    """One token (B,) in -> (next-token logits (B, vocab), cache, ok)."""
+                      attn_impl: str = "gather", active=None,
+                      sink: Optional[int] = None):
+    """One token (B,) in -> (next-token logits (B, vocab), cache, ok);
+    ``sink`` as in :func:`paged_decode_chunk`."""
     logits, cache, ok = paged_decode_chunk(
         params, cache, token[:, None], config, attn_impl=attn_impl,
-        active=active)
+        active=active, sink=sink)
     return logits[:, 0], cache, ok
 
 

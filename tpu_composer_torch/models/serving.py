@@ -22,7 +22,12 @@ whenever the solo prefill itself drops nothing.
 
 The port runs eagerly; JAX's ``jit`` has no counterpart here. Prompt
 lengths are still padded to power-of-two buckets, because the padded
-length is what the block reservation is computed from.
+length is what the block reservation is computed from. The one
+exception is the decode step of a dense engine on the card: it reads
+nothing back until its tokens (``paged_decode_step(..., sink=...)``), so
+it is captured once as a CUDA graph at the fixed ``(slots,)`` shape and
+replayed every step (:class:`_DecodeGraph`); MoE engines and CPU engines
+run the same step eagerly.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from tpu_composer_torch.models.paged import (
     upload,
 )
 from tpu_composer_torch.models.quant import QTensor
+from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
 from tpu_composer_torch.runtime import tracing
 from tpu_composer_torch.runtime.tracing import host_sync
 
@@ -176,11 +182,19 @@ class ContinuousBatchingEngine:
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
         self.device = _params_device(params)
+        # Idle rows' decode writes go to block num_blocks, which the free
+        # stack never holds, so a decode step needs no host read.
         self.cache = init_paged_cache(
             config, slots, num_blocks, block_size,
-            blocks_per_row=blocks_per_row, quant=kv_quant,
+            blocks_per_row=blocks_per_row, quant=kv_quant, sink=True,
             device=self.device,
         )
+        self._sink = num_blocks
+        # A dense engine on the card replays its decode step from a CUDA
+        # graph, captured at its first decode step.
+        self._graphed = (self.device.type == "cuda"
+                         and not isinstance(config, MoEConfig))
+        self._graph: Optional[_DecodeGraph] = None
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._next_token = np.zeros(slots, np.int32)
         self._reserved = np.zeros(slots, np.int64)  # blocks held per slot
@@ -603,8 +617,9 @@ class ContinuousBatchingEngine:
         span tree, category ``serving``: ``serving.step`` (args ``rows``
         decoded, ``tokens`` emitted, ``syncs``) holding ``serving.admit``,
         ``serving.decode`` (the decode forward, from the call until the
-        logits return) and ``serving.emit`` (emitting the tokens and
-        freeing finished slots), and a ``serving.sync`` leaf (arg
+        logits return; arg ``graph`` 1 where it is a CUDA graph's replay,
+        0 where it runs eagerly) and ``serving.emit`` (emitting the tokens
+        and freeing finished slots), and a ``serving.sync`` leaf (arg
         ``what``) for each host sync, in whichever phase it falls."""
         tree = tracing.open_tree("serving.step", "serving")
         if tree is None:
@@ -629,17 +644,11 @@ class ContinuousBatchingEngine:
         if not active.any():
             return events, 0
         if tree is not None:
-            tree.begin("serving.decode")
-        logits, cache, ok = paged_decode_step(
-            self.params, self.cache, upload(self.device, self._next_token),
-            self.config, attn_impl=self.attn_impl, active=active)
+            tree.begin("serving.decode", graph=int(self._graphed))
+        logits, cache, ok = self._decode(
+            *upload(self.device, self._next_token, active))
         if tree is not None:
             tree.end()
-        if not ok:
-            # A real exception, not an assert: python -O would strip it
-            # and then argmax meaningless logits into request outputs.
-            raise RuntimeError("pool exhausted despite host-side reservation")
-        self.cache = cache
         if all(g is None for g in self._slot_gen):
             picks = torch.argmax(logits, dim=-1)
         else:
@@ -648,7 +657,12 @@ class ContinuousBatchingEngine:
             u = np.array([self._draw(s) if active[s] else 0.0
                           for s in range(self.slots)])
             picks = self._pick(logits, slice(None), u)
-        picks = host_sync("tokens", torch.Tensor.cpu, picks).numpy()
+        picks, ok = host_sync("tokens", _tokens_and_ok, picks, ok)
+        if not ok:
+            # A real exception, not an assert: python -O would strip it
+            # and then emit tokens picked from meaningless logits.
+            raise RuntimeError("pool exhausted despite host-side reservation")
+        self.cache = cache
         if tree is not None:
             tree.begin("serving.emit")
         rows = np.nonzero(active)[0]
@@ -659,6 +673,19 @@ class ContinuousBatchingEngine:
         if tree is not None:
             tree.end()
         return events, len(rows)
+
+    def _decode(self, token: torch.Tensor, active: torch.Tensor):
+        """The decode step's (logits, cache, ok), ``ok`` on the device:
+        replayed from the CUDA graph where the engine has one (captured
+        here at its first decode step), run eagerly otherwise."""
+        if not self._graphed:
+            return paged_decode_step(
+                self.params, self.cache, token, self.config,
+                attn_impl=self.attn_impl, active=active, sink=self._sink)
+        if self._graph is None:
+            self._graph = host_sync("capture", _DecodeGraph, self, token,
+                                    active)
+        return self._graph.replay(self.cache, token, active)
 
     def run(self, max_steps: int = 100000) -> None:
         """Drive until every submitted request is done."""
@@ -672,3 +699,75 @@ class ContinuousBatchingEngine:
 
 def _worst_blocks(prompt_len: int, max_new: int, block_size: int) -> int:
     return -(-(prompt_len + max_new) // block_size)
+
+
+def _tokens_and_ok(picks: torch.Tensor, ok: torch.Tensor):
+    """A decode step's picked tokens and its pool flag, read in one copy
+    to the host: (tokens as a NumPy array, ok as a bool)."""
+    both = torch.cat([picks.to(torch.int64), ok.to(torch.int64)[None]]).cpu()
+    return both[:-1].numpy(), bool(both[-1])
+
+
+#: The cache's bookkeeping, copied into the graph before each replay.
+_STATE = ("block_tables", "length", "n_blocks", "free", "free_top",
+          "refcount")
+#: What a decode step changes of it (the free stack only on release).
+_STEPPED = ("block_tables", "length", "n_blocks", "free_top", "refcount")
+
+
+class _DecodeGraph:
+    """A dense engine's decode step as one CUDA graph at the engine's
+    fixed ``(slots,)`` shape.
+
+    Its inputs are static device buffers: the step's tokens, its active
+    mask and a copy of the cache's bookkeeping; the K/V pools are the
+    engine's own, written in place as an eager step writes them, and the
+    weights are the engine's. :meth:`replay` copies the engine's current
+    state into the inputs (on the device, no sync), replays, and returns
+    the logits and ``ok`` the graph writes and the new bookkeeping as
+    copies, so the engine's cache never shares a buffer with the graph.
+    The step is captured through the names the engine calls
+    (``paged_decode_step`` here, the paged layer's helpers there),
+    looked up when it is captured, after one eager warm-up on a side
+    stream. K2's launch counts, which a capture raises without running
+    anything, are put back and raised by as much at each replay."""
+
+    def __init__(self, eng: "ContinuousBatchingEngine", token: torch.Tensor,
+                 active: torch.Tensor):
+        self.token, self.active = token.clone(), active.clone()
+        self.cache = eng.cache._replace(
+            **{f: getattr(eng.cache, f).clone() for f in _STATE})
+
+        def step():
+            return paged_decode_step(
+                eng.params, self.cache, self.token, eng.config,
+                attn_impl=eng.attn_impl, active=self.active, sink=eng._sink)
+
+        main = torch.cuda.current_stream(eng.device)
+        side = torch.cuda.Stream(eng.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            step()
+        main.wait_stream(side)
+        k2 = paged_decode_cuda
+        before = (k2.launches, k2.launches_int8)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = step()
+        self.k2 = (k2.launches - before[0], k2.launches_int8 - before[1])
+        k2.launches, k2.launches_int8 = before
+        self.replays = 0
+
+    def replay(self, cache, token: torch.Tensor, active: torch.Tensor):
+        """One decode step from ``cache``: (logits, cache, ok)."""
+        self.token.copy_(token)
+        self.active.copy_(active)
+        for f in _STATE:
+            getattr(self.cache, f).copy_(getattr(cache, f))
+        self.graph.replay()
+        self.replays += 1
+        paged_decode_cuda.launches += self.k2[0]
+        paged_decode_cuda.launches_int8 += self.k2[1]
+        logits, out, ok = self.out
+        return logits, cache._replace(
+            **{f: getattr(out, f).clone() for f in _STEPPED}), ok
