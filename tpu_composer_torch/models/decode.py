@@ -15,12 +15,13 @@ draw t. JAX's categorical stream cannot be reproduced, so agreement with
 the JAX package is greedy-only; the filters themselves agree exactly.
 
 MoE capacity: ``prefill`` is the training forward and routes the whole
-prompt as one group with the capacity-factor rule, so it may drop
-tokens past an expert's capacity. ``decode_chunk`` and ``decode_step``
-route DROP-FREE (capacity = chunk length, which no expert can
-overflow), so a T-token chunk computes exactly what T single steps
-would: the invariant speculative verify rests on. The two agree
-whenever the prompt's forward dropped nothing.
+prompt as one group with the config's capacity rule, so a capacity-
+routed config may drop tokens past an expert's capacity (a dropless one
+never does). ``decode_chunk`` and ``decode_step`` route DROP-FREE
+(capacity = chunk length, which no expert can overflow), so a T-token
+chunk computes exactly what T single steps would: the invariant
+speculative verify rests on. The two agree whenever the prompt's
+forward dropped nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from tpu_composer_torch.device import DeviceLike, resolve_device
-from tpu_composer_torch.models.moe import MoEConfig, ffn_delta
+from tpu_composer_torch.models.moe import MoEConfig, RouteRecord, ffn_delta
 from tpu_composer_torch.models.quant import (
     embedding_lookup,
     quantize_weight,
@@ -50,12 +51,21 @@ AnyConfig = Union[ModelConfig, MoEConfig]
 
 
 def _ffn_delta(h, layer, layer_idx: int, c: AnyConfig,
-               drop_free: bool = False):
+               drop_free: bool = False, record: Optional[RouteRecord] = None):
     """The FFN residual through the shared MoE-or-dense branch
     (``models/moe.ffn_delta``), its aux loss dropped: inference trains no
     router. The decode paths pass ``drop_free=True``; prefill keeps the
     training forward's capacity rule."""
-    return ffn_delta(h, layer, layer_idx, c, drop_free=drop_free)[0]
+    return ffn_delta(h, layer, layer_idx, c, drop_free=drop_free,
+                     record=record)[0]
+
+
+def pads_route(c: AnyConfig) -> bool:
+    """Whether pad tokens after a prompt can change its real tokens: a
+    capacity-routed MoE row is one capacity group, so pads may push real
+    tokens past an expert's capacity. Dense and dropless models route
+    (or not) each token on its own."""
+    return isinstance(c, MoEConfig) and not c.dropless
 
 
 class KVCache(NamedTuple):
@@ -185,9 +195,9 @@ def prefill(params: Dict, tokens: torch.Tensor, config: AnyConfig,
     """Run the prompt (B, S_prompt), filling a fresh cache on the tokens'
     device. Returns each row's last-real-position logits (B, vocab) fp32
     and the primed cache. Ragged batches: right-pad and pass
-    ``prompt_lens`` (B,). MoE configs refuse ragged batches: routing
-    shares one capacity group across the padded row, so pads would
-    affect real tokens."""
+    ``prompt_lens`` (B,). Capacity-routed MoE configs refuse ragged
+    batches: routing shares one capacity group across the padded row, so
+    pads would affect real tokens."""
     c = config
     attn = _select_attn(c, None)
     b, s_p = tokens.shape
@@ -195,9 +205,10 @@ def prefill(params: Dict, tokens: torch.Tensor, config: AnyConfig,
     if s_p > cap:
         raise ValueError(f"prompt length {s_p} exceeds cache capacity {cap}")
     if prompt_lens is not None:
-        if isinstance(c, MoEConfig):
+        if pads_route(c):
             raise ValueError(
-                "ragged prompts are dense-only: MoE routing shares one"
+                "ragged prompts are dense-only (or dropless MoE): capacity"
+                " MoE routing shares one"
                 " capacity group across the padded row, so pad tokens"
                 " would affect real ones"
             )

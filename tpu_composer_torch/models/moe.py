@@ -5,7 +5,10 @@ is one routing group, each expert holds ``capacity`` token slots per
 row, and slots fill first come, first served in sequence order, every
 k-th choice queueing behind all (k−1)-th choices. Tokens past an
 expert's capacity are dropped: their FFN delta is zero and the residual
-passes them through.
+passes them through. A DROPLESS config (``capacity_factor=None``, as
+Mixtral routes) gives every expert as many slots as the row has tokens,
+in every path, so no token is ever dropped and a token's routing never
+depends on the others in its row (pads included).
 
 The JAX package builds one-hot (B, S, E, C) dispatch and combine
 tensors and contracts them by einsum. The port routes by index instead:
@@ -27,12 +30,20 @@ sharded over (dp, ep) and each rank routes its own rows (a row is a
 routing group, so the capacity rule does not change); the dispatched
 (E, B_local, C, D) expert inputs go to the experts' owners by an
 all-to-all over 'ep' and come back the same way.
+
+While a ``runtime/tracing`` tree is the thread's (a serving engine's
+step), each MoE layer records four spans in it: ``moe.route``,
+``moe.dispatch``, ``moe.experts`` (args ``rows``, the E × B × C rows the
+expert products compute, and ``real``, the B × S × k (token, choice)
+pairs routed; both from shapes) and ``moe.combine``. They time the host's
+issue of each phase, not the device's work.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +66,7 @@ from tpu_composer_torch.parallel.collectives import (
     all_to_all,
     enter_parallel,
 )
+from tpu_composer_torch.runtime import tracing
 
 
 @dataclass(frozen=True)
@@ -74,7 +86,7 @@ class MoEConfig:
 
     n_experts: int = 8
     top_k: int = 2  # 1 (Switch) or 2 (GShard)
-    capacity_factor: float = 1.25
+    capacity_factor: Optional[float] = 1.25  # None = dropless
     moe_period: int = 2  # every moe_period-th layer is MoE (1 = all)
     router_aux_weight: float = 1e-2
 
@@ -94,8 +106,16 @@ class MoEConfig:
     def is_moe_layer(self, i: int) -> bool:
         return i % self.moe_period == self.moe_period - 1
 
+    @property
+    def dropless(self) -> bool:
+        return self.capacity_factor is None
+
     def capacity(self, seq: int) -> int:
-        """Per-expert token slots for one batch row (the routing group)."""
+        """Per-expert token slots for one batch row (the routing group):
+        ``seq`` when dropless, which no expert can overflow (a token's
+        top-k experts are distinct)."""
+        if self.dropless:
+            return seq
         cap = int(self.capacity_factor * seq * self.top_k / self.n_experts)
         return max(cap, self.top_k)
 
@@ -266,24 +286,51 @@ class _GatherRows(torch.autograd.Function):
         return total, None, None
 
 
+class _Phases:
+    """The MoE layer's phases as spans of the thread's tracing tree, if
+    one is open: ``next(name)`` ends the running phase and begins
+    ``name``; ``end()`` ends the last."""
+
+    __slots__ = ("tree",)
+
+    def __init__(self):
+        self.tree = tracing.current_tree()
+        if self.tree is not None:
+            self.tree.begin("moe.route")
+
+    def next(self, name: str, **args) -> None:
+        if self.tree is not None:
+            self.tree.end()
+            self.tree.begin(name, **args)
+
+    def end(self) -> None:
+        if self.tree is not None:
+            self.tree.end()
+
+
 def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
-             capacity: Optional[int] = None, mesh=None
+             capacity: Optional[int] = None, mesh=None,
+             record: Optional[Callable[[torch.Tensor], None]] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux). SwiGLU experts. ``capacity``
-    overrides the capacity-factor rule (the decode path passes the
-    drop-free capacity S: top-k picks distinct experts per token, so S
-    slots never overflow). With ``mesh``, the local expert stacks say
-    what is sharded: experts over 'ep' (their inputs cross by
-    all-to-all) and the expert width over 'tp' (a tp region as in the
-    dense FFN)."""
+    overrides the config's rule (the decode path passes the drop-free
+    capacity S: top-k picks distinct experts per token, so S slots never
+    overflow). With ``mesh``, the local expert stacks say what is
+    sharded: experts over 'ep' (their inputs cross by all-to-all) and
+    the expert width over 'tp' (a tp region as in the dense FFN).
+    ``record`` is handed the (B, S, k) expert ids that dispatch reads."""
     c = config
     b, s, d = x.shape
     e, k = c.n_experts, c.top_k
     cap = capacity if capacity is not None else c.capacity(s)
     ep_mesh = mesh if layer["w_gate"].shape[0] < e else None
     tp_mesh = ffn_mesh(layer, c, mesh)
+    phases = _Phases()
     logits = torch.einsum("bsd,de->bse", x.float(), layer["w_router"].float())
     experts, slots, gates, aux = _route(logits, k, cap)
+    if record is not None:
+        record(experts)
+    phases.next("moe.dispatch")
 
     # Slot ids in the (E, B, C) layout of the expert inputs; -1 = dropped.
     n_slots = e * b * cap
@@ -304,10 +351,12 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     xin = all_to_all(xin.reshape(e, b, cap, d), ep_mesh, "ep", 0, 1)
     e_local = xin.shape[0]
     xin = enter_parallel(xin.reshape(e_local, -1, d), tp_mesh, "tp")
+    phases.next("moe.experts", rows=n_slots, real=b * s * k)
     h_gate = F.silu(torch.bmm(xin, resolve(layer["w_gate"], c.dtype)).float())
     h_up = torch.bmm(xin, resolve(layer["w_up"], c.dtype)).float()
     xout = torch.bmm((h_gate * h_up).to(c.dtype),
                      resolve(layer["w_down"], c.dtype))
+    phases.next("moe.combine")
     xout = all_reduce(xout, tp_mesh, "tp").reshape(e_local, -1, cap, d)
     # And back: (E/ep, ep·B, C, D) -> (E, B, C, D).
     xout = all_to_all(xout, ep_mesh, "ep", 1, 0)
@@ -319,24 +368,34 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     out = weight[:, 0] * picked[:, 0]
     for j in range(1, k):
         out = out + weight[:, j] * picked[:, j]
+    phases.end()
     return out.to(c.dtype).reshape(b, s, d), aux
 
 
+#: Writes a MoE layer's expert ids: ``record(layer_idx, experts (B, S, k))``.
+RouteRecord = Callable[[int, torch.Tensor], None]
+
+
 def ffn_delta(h: torch.Tensor, layer: Dict, layer_idx: int, config,
-              drop_free: bool = False,
-              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              drop_free: bool = False, mesh=None,
+              record: Optional[RouteRecord] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's FFN residual with the MoE-or-dense branch in one place
     (``forward`` and the cached decode paths call it): expert dispatch on
     MoE layers, SwiGLU otherwise. Returns (delta, aux).
 
     ``drop_free=True`` sizes the capacity at S, so routing never drops a
     token: the decode-chunk semantic (a T-token chunk computes what T
-    single steps would, which speculative verify relies on)."""
+    single steps would, which speculative verify relies on); a dropless
+    config routes so everywhere. ``record`` receives each MoE layer's
+    expert ids."""
     c = config
     if isinstance(c, MoEConfig) and c.is_moe_layer(layer_idx):
         return _moe_ffn(h, layer, c,
                         capacity=h.shape[1] if drop_free else None,
-                        mesh=mesh)
+                        mesh=mesh,
+                        record=None if record is None
+                        else functools.partial(record, layer_idx))
     return (swiglu_ffn(h, layer, c.dtype, ffn_mesh(layer, c, mesh)),
             torch.zeros((), dtype=torch.float32, device=h.device))
 

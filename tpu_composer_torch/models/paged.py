@@ -30,6 +30,12 @@ How the port differs from the JAX functions it mirrors, and why:
   graph; every other caller keeps the host-checked step.
 - Tables stay int32 (the kernel reads them); indices become int64 only
   for torch's advanced indexing.
+
+Routing records (``routes``): a serving engine may pass a
+``(slots, n_layers, positions + 1, top_k)`` uint8 buffer, and the MoE
+layers of a prefill or a decode step then write, on the device, the
+experts each row's token took at each position they computed (the ids
+dispatch read); idle rows write into the spare last position.
 """
 
 from __future__ import annotations
@@ -45,9 +51,10 @@ from tpu_composer_torch.models.decode import (
     _ffn_delta,
     _last_real,
     _project_qkv,
+    pads_route,
     quantize_kv,
 )
-from tpu_composer_torch.models.moe import MoEConfig
+from tpu_composer_torch.models.moe import RouteRecord
 from tpu_composer_torch.models.quant import embedding_lookup, resolve
 from tpu_composer_torch.models.transformer import (
     _rmsnorm,
@@ -387,6 +394,25 @@ def _paged_read(pool_layer, tables):
     return g.reshape((b, mb * g.shape[1]) + g.shape[2:])
 
 
+def _route_writer(routes: Optional[torch.Tensor], rows: torch.Tensor,
+                  positions: torch.Tensor, active=None
+                  ) -> Optional[RouteRecord]:
+    """Where the MoE layers write the experts of rows ``rows`` (R,) at
+    ``positions`` (R, T): ``routes[rows, layer, positions]``; rows not
+    ``active`` write into the spare last position."""
+    if routes is None:
+        return None
+    pos = positions.long()
+    if active is not None:
+        pos = torch.where(active[:, None], pos, routes.shape[2] - 1)
+    rows = rows.long()[:, None]
+
+    def write(li: int, experts: torch.Tensor) -> None:
+        routes[:, li][rows, pos] = experts.to(routes.dtype)
+
+    return write
+
+
 def _write_kv_layer(cache: PagedKVCache, li: int, index, k, v):
     """Write one layer's new K/V (B, T, KV, Dh) into the pools —
     quantizing on the way when the pool is int8 — unless ``index`` is
@@ -419,18 +445,20 @@ def paged_prefill(params: Dict, tokens: torch.Tensor, config: AnyConfig,
 
 def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
                        config: AnyConfig, cache: PagedKVCache, slot_ids,
-                       prompt_lens=None):
+                       prompt_lens=None, routes=None):
     """Admit ``R`` requests (tokens (R, S)) into the named, currently
     released batch slots of a live cache and prefill them; every other
     slot is untouched. Returns (last-position logits (R, vocab), cache,
     ok); ``ok`` False = the pool could not cover the admission and the
     cache is unchanged. Ragged rows allocate by the padded length (dense
-    models only: MoE routing would let pads affect real tokens). MoE
-    layers route with the training forward's capacity rule, as
-    ``decode.prefill`` does."""
+    and dropless MoE models only: capacity routing would let pads affect
+    real tokens). MoE layers route with the config's capacity rule, as
+    ``decode.prefill`` does. ``routes``: the engine's routing record,
+    written at the rows' positions 0..S−1."""
     c = config
-    if isinstance(c, MoEConfig) and prompt_lens is not None:
-        raise ValueError("ragged prompts are dense-only (see decode.prefill)")
+    if pads_route(c) and prompt_lens is not None:
+        raise ValueError("ragged prompts are dense-only (or dropless MoE;"
+                         " see decode.prefill)")
     attn = _select_attn(c, None)
     r, s_p = tokens.shape
     b = cache.block_tables.shape[0]
@@ -448,13 +476,15 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
     index = _write_index(tables_r, zero, s_p, cache.block_size) if ok else None
     positions = torch.arange(s_p, dtype=torch.int32,
                              device=tokens.device).expand(r, s_p)
+    record = _route_writer(routes, slot_ids, positions)
     x = embedding_lookup(params["embed"], tokens, c.dtype)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _project_qkv(layer, x, positions, c)
         _write_kv_layer(cache, li, index, k, v)
         o = attn(q, k, v, causal=True).to(c.dtype)
         x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
-        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c)
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
+                           record=record)
     x = _rmsnorm(x, params["ln_f"])
     if prompt_lens is not None:
         prompt_lens = _on(cache, prompt_lens)
@@ -471,7 +501,7 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
 def paged_decode_chunk(params: Dict, cache: PagedKVCache,
                        tokens: torch.Tensor, config: AnyConfig,
                        attn_impl: str = "gather", active=None,
-                       sink: Optional[int] = None):
+                       sink: Optional[int] = None, routes=None):
     """T tokens (B, T) in -> (per-position logits (B, T, vocab), cache,
     ok): token i attends the cache plus chunk tokens 0..i. T=1 is a decode
     step; T>1 is chunked prefill.
@@ -489,7 +519,8 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
     sink=True)``) makes the step read nothing back from the device: idle
     rows write into the sink, and ``ok`` is a 0-dim bool tensor; a
     refused step returns new bookkeeping tensors equal to the old ones
-    and writes only into the sink."""
+    and writes only into the sink. ``routes``: the engine's routing
+    record (B = its slots), written at the active rows' positions."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
@@ -509,6 +540,8 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
     index = (_write_index(cache.block_tables, pos, t, cache.block_size,
                           active, sink) if ok is not False else None)
     tables = cache.block_tables
+    record = (_route_writer(routes, torch.arange(b, device=tokens.device),
+                            positions, active) if ok is not False else None)
     x = embedding_lookup(params["embed"], tokens, c.dtype)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _project_qkv(layer, x, positions, c)
@@ -525,7 +558,7 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
             )
         x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
         x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
-                           drop_free=True)
+                           drop_free=True, record=record)
     x = _rmsnorm(x, params["ln_f"])
     logits = _tied_logits(x, params["embed"], c.dtype)
     if ok is False:
@@ -536,12 +569,12 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
 def paged_decode_step(params: Dict, cache: PagedKVCache,
                       token: torch.Tensor, config: AnyConfig,
                       attn_impl: str = "gather", active=None,
-                      sink: Optional[int] = None):
+                      sink: Optional[int] = None, routes=None):
     """One token (B,) in -> (next-token logits (B, vocab), cache, ok);
-    ``sink`` as in :func:`paged_decode_chunk`."""
+    ``sink`` and ``routes`` as in :func:`paged_decode_chunk`."""
     logits, cache, ok = paged_decode_chunk(
         params, cache, token[:, None], config, attn_impl=attn_impl,
-        active=active, sink=sink)
+        active=active, sink=sink, routes=routes)
     return logits[:, 0], cache, ok
 
 

@@ -14,20 +14,28 @@ each request draws from its own CPU ``torch.Generator`` seeded with
 ``Request.seed``, one uniform number per generated token, token t from
 draw t, exactly as the solo ``generate(..., seed=seed)`` run does.
 
-MoE models need chunked admission (``prefill_chunk``): a bucketed
-prefill runs the training forward over the padded row, whose shared
-capacity group lets pads push real tokens past an expert's capacity,
-while a chunk routes drop-free. Equality with the solo run then holds
-whenever the solo prefill itself drops nothing.
+Capacity-routed MoE models need chunked admission (``prefill_chunk``):
+a bucketed prefill runs the training forward over the padded row, whose
+shared capacity group lets pads push real tokens past an expert's
+capacity, while a chunk routes drop-free. Equality with the solo run
+then holds whenever the solo prefill itself drops nothing. A dropless
+MoE config (``capacity_factor=None``) routes each token on its own, so
+it admits through the bucketed prefill as a dense model does.
 
 The port runs eagerly; JAX's ``jit`` has no counterpart here. Prompt
 lengths are still padded to power-of-two buckets, because the padded
 length is what the block reservation is computed from. The one
-exception is the decode step of a dense engine on the card: it reads
+exception is the decode step of an engine on the card: it reads
 nothing back until its tokens (``paged_decode_step(..., sink=...)``), so
 it is captured once as a CUDA graph at the fixed ``(slots,)`` shape and
-replayed every step (:class:`_DecodeGraph`); MoE engines and CPU engines
-run the same step eagerly.
+replayed every step (:class:`_DecodeGraph`); CPU engines run the same
+step eagerly.
+
+An MoE engine may keep a routing record (``record_routes=True``): on the
+device, the top-k expert ids of every layer at every position it
+computed for a request, prompt and generated alike, read from the
+tensor dispatch reads (``models/paged.py``). A finished request carries
+its part as ``Request.routes``, a device copy.
 """
 
 from __future__ import annotations
@@ -39,7 +47,11 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_composer_torch.models.decode import AnyConfig, sample_categorical
+from tpu_composer_torch.models.decode import (
+    AnyConfig,
+    pads_route,
+    sample_categorical,
+)
 from tpu_composer_torch.models.moe import MoEConfig
 from tpu_composer_torch.models.paged import (
     admit,
@@ -75,6 +87,10 @@ class Request:
     top_p: float = 1.0      # 1.0 = off
     seed: int = 0
     prefix: Optional["PrefixHandle"] = None
+    #: (n_layers, positions, top_k) uint8 on the device, once done with
+    #: the engine's routing record on: position p's experts at each MoE
+    #: layer, for the prompt and every generated token but the last.
+    routes: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -156,20 +172,26 @@ class ContinuousBatchingEngine:
                  attn_impl: str = "gather", eos_id: Optional[int] = None,
                  blocks_per_row: Optional[int] = None,
                  kv_quant: bool = False,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 record_routes: bool = False):
         """``blocks_per_row`` bounds one request's table and so how many
         table slots every attention read walks. ``attn_impl="kernel"``
         reads decode steps through the paged decode kernel. ``kv_quant``
         stores the pool int8. ``prefill_chunk`` switches admission to
         CHUNKED prefill: the prompt streams through fixed-size chunks, one
-        per engine step, while every other slot keeps decoding; MoE
-        models require it."""
-        if isinstance(config, MoEConfig) and prefill_chunk is None:
+        per engine step, while every other slot keeps decoding;
+        capacity-routed MoE models require it. ``record_routes`` keeps
+        an MoE engine's routing record (module docstring)."""
+        if pads_route(config) and prefill_chunk is None:
             raise ValueError(
-                "MoE serving requires chunked admission: pass "
-                "prefill_chunk (bucketed prefill's padded training-"
+                "capacity-routed MoE serving requires chunked admission: "
+                "pass prefill_chunk (bucketed prefill's padded training-"
                 "forward routing would let pads affect real tokens)"
             )
+        moe = isinstance(config, MoEConfig)
+        if record_routes and not (moe and config.n_experts <= 256):
+            raise ValueError("record_routes needs an MoE config of at most"
+                             " 256 experts (uint8 ids)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
@@ -190,11 +212,23 @@ class ContinuousBatchingEngine:
             device=self.device,
         )
         self._sink = num_blocks
-        # A dense engine on the card replays its decode step from a CUDA
-        # graph, captured at its first decode step.
-        self._graphed = (self.device.type == "cuda"
-                         and not isinstance(config, MoEConfig))
+        # An engine on the card replays its decode step from a CUDA graph,
+        # captured at its first decode step.
+        self._graphed = self.device.type == "cuda"
         self._graph: Optional[_DecodeGraph] = None
+        # The routing record: (slots, layers, positions + 1 spare, top_k).
+        self._routes = (torch.zeros(
+            (slots, config.n_layers, self.cache.capacity_per_row + 1,
+             config.top_k), dtype=torch.uint8, device=self.device)
+            if record_routes else None)
+        # What a replayed decode step's expert products compute, for its
+        # span: rows (E x slots per MoE layer) and routed (token, choice)
+        # pairs, as the eager step's ``moe.experts`` spans say.
+        n_moe = (sum(map(config.is_moe_layer, range(config.n_layers)))
+                 if moe else 0)
+        self._graph_args = ({"rows": n_moe * config.n_experts * slots,
+                             "real": n_moe * slots * config.top_k}
+                            if moe else {})
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._next_token = np.zeros(slots, np.int32)
         self._reserved = np.zeros(slots, np.int64)  # blocks held per slot
@@ -309,17 +343,23 @@ class ContinuousBatchingEngine:
     def register_prefix(self, tokens: List[int]) -> PrefixHandle:
         """Prefill ``tokens`` once into pool blocks and return a handle
         requests can attach to (``submit(..., prefix=h)``). Length must be
-        a nonzero multiple of block_size, and for MoE models of
-        prefill_chunk too (chunk pads would be routed): an MoE prefix is
-        staged through ``admit`` and one chunk per ``prefill_chunk``
-        tokens, a dense one through a bucketed prefill. Staging borrows a
-        free slot; the blocks then detach into the handle."""
+        a nonzero multiple of block_size, and for capacity-routed MoE
+        models of prefill_chunk too (chunk pads would be routed): such a
+        prefix is staged through ``admit`` and one chunk per
+        ``prefill_chunk`` tokens, any other through a bucketed prefill.
+        Staging borrows a free slot; the blocks then detach into the
+        handle. An engine keeping a routing record has no prefixes: a
+        request's record holds the positions it computed itself."""
         if self.prefill_chunk is None:
             raise ValueError(
                 "register_prefix requires chunked admission (pass"
                 " prefill_chunk): bucketed engines cannot attach requests"
                 " to a prefix, so its blocks would leak"
             )
+        if self._routes is not None:
+            raise ValueError("register_prefix: this engine keeps a routing"
+                             " record, which a shared prefix would leave"
+                             " without its positions")
         self._check_ids(tokens)
         p_n = len(tokens)
         if p_n == 0 or p_n % self.block_size:
@@ -331,20 +371,21 @@ class ContinuousBatchingEngine:
         slot = self._free_slot()
         if slot is None:
             raise RuntimeError("no free slot to stage the prefix prefill")
-        moe = isinstance(self.config, MoEConfig)
-        if moe and p_n % self.prefill_chunk:
+        capacity_moe = pads_route(self.config)
+        if capacity_moe and p_n % self.prefill_chunk:
             raise ValueError(
                 f"MoE prefixes must be a multiple of prefill_chunk "
                 f"({self.prefill_chunk}): chunk pads would be routed"
             )
-        staged = -(-(p_n if moe else self._pad_len(p_n)) // self.block_size)
+        staged = -(-(p_n if capacity_moe else self._pad_len(p_n))
+                   // self.block_size)
         if (int(self._reserved.sum()) + self._prefix_reserved + staged
                 > self.num_blocks):
             raise RuntimeError(
                 "pool cannot hold the prefix alongside the blocks "
                 "reserved for in-flight requests"
             )
-        if moe:
+        if capacity_moe:
             self._stage_moe_prefix(slot, tokens)
         else:
             pad = self._pad_len(p_n)
@@ -469,7 +510,7 @@ class ContinuousBatchingEngine:
         logits, cache, ok = paged_prefill_rows(
             self.params, upload(self.device, tokens),
             self.config, self.cache, slot_ids=[slot],
-            prompt_lens=[len(req.prompt)])
+            prompt_lens=[len(req.prompt)], **self._route_kw())
         if not ok:  # host reservation makes this unreachable
             self._waiting.appendleft(req)
             return []
@@ -536,7 +577,8 @@ class ContinuousBatchingEngine:
         active[slot] = True
         logits, cache, ok = paged_decode_chunk(
             self.params, self.cache, upload(self.device, chunk),
-            self.config, attn_impl=self.attn_impl, active=active)
+            self.config, attn_impl=self.attn_impl, active=active,
+            **self._route_kw())
         if not ok:
             raise RuntimeError(
                 "pool exhausted during chunked admission despite "
@@ -575,6 +617,11 @@ class ContinuousBatchingEngine:
         if req is not None and req.prefix is not None:
             self._release_handle_ref(req.prefix)
 
+    def _route_kw(self) -> Dict[str, torch.Tensor]:
+        """The paged calls' ``routes`` argument, where the engine keeps a
+        routing record."""
+        return {} if self._routes is None else {"routes": self._routes}
+
     def _emit(self, slot: int, token: int) -> None:
         req = self._slot_req[slot]
         req.tokens.append(token)
@@ -582,6 +629,9 @@ class ContinuousBatchingEngine:
         if (len(req.tokens) >= req.max_new_tokens
                 or (self.eos_id is not None and token == self.eos_id)):
             req.done = True
+            if self._routes is not None:
+                n = len(req.prompt) + len(req.tokens) - 1
+                req.routes = self._routes[slot, :, :n].clone()
             self._free(slot)
 
     def cancel(self, req: Request) -> bool:
@@ -644,7 +694,10 @@ class ContinuousBatchingEngine:
         if not active.any():
             return events, 0
         if tree is not None:
-            tree.begin("serving.decode", graph=int(self._graphed))
+            if self._graphed:
+                tree.begin("serving.decode", graph=1, **self._graph_args)
+            else:
+                tree.begin("serving.decode", graph=0)
         logits, cache, ok = self._decode(
             *upload(self.device, self._next_token, active))
         if tree is not None:
@@ -681,7 +734,8 @@ class ContinuousBatchingEngine:
         if not self._graphed:
             return paged_decode_step(
                 self.params, self.cache, token, self.config,
-                attn_impl=self.attn_impl, active=active, sink=self._sink)
+                attn_impl=self.attn_impl, active=active, sink=self._sink,
+                **self._route_kw())
         if self._graph is None:
             self._graph = host_sync("capture", _DecodeGraph, self, token,
                                     active)
@@ -716,13 +770,15 @@ _STEPPED = ("block_tables", "length", "n_blocks", "free_top", "refcount")
 
 
 class _DecodeGraph:
-    """A dense engine's decode step as one CUDA graph at the engine's
-    fixed ``(slots,)`` shape.
+    """An engine's decode step as one CUDA graph at the engine's fixed
+    ``(slots,)`` shape.
 
     Its inputs are static device buffers: the step's tokens, its active
-    mask and a copy of the cache's bookkeeping; the K/V pools are the
-    engine's own, written in place as an eager step writes them, and the
-    weights are the engine's. :meth:`replay` copies the engine's current
+    mask and a copy of the cache's bookkeeping; the K/V pools and the
+    routing record are the engine's own, written in place as an eager
+    step writes them, and the weights are the engine's; warm-up and
+    capture record no spans (``tracing.suspended``). :meth:`replay`
+    copies the engine's current
     state into the inputs (on the device, no sync), replays, and returns
     the logits and ``ok`` the graph writes and the new bookkeeping as
     copies, so the engine's cache never shares a buffer with the graph.
@@ -741,19 +797,21 @@ class _DecodeGraph:
         def step():
             return paged_decode_step(
                 eng.params, self.cache, self.token, eng.config,
-                attn_impl=eng.attn_impl, active=self.active, sink=eng._sink)
+                attn_impl=eng.attn_impl, active=self.active, sink=eng._sink,
+                **eng._route_kw())
 
         main = torch.cuda.current_stream(eng.device)
         side = torch.cuda.Stream(eng.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            step()
-        main.wait_stream(side)
-        k2 = paged_decode_cuda
-        before = (k2.launches, k2.launches_int8)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = step()
+        with tracing.suspended():
+            with torch.cuda.stream(side):
+                step()
+            main.wait_stream(side)
+            k2 = paged_decode_cuda
+            before = (k2.launches, k2.launches_int8)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = step()
         self.k2 = (k2.launches - before[0], k2.launches_int8 - before[1])
         k2.launches, k2.launches_int8 = before
         self.replays = 0

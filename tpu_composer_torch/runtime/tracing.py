@@ -51,6 +51,9 @@ step through the same ring, category ``serving``:
   on the device stream (a device-to-host read, an upload of host memory)
   and, inside an open tree, records it as a ``<cat>.sync`` leaf with
   ``what`` and counts it in the root's ``syncs``.
+- ``current_tree()``: the thread's open tree, for code below the owner
+  that adds spans of its own (``models/moe.py``'s ``moe.*``);
+  ``suspended()`` hides it for a block (a CUDA graph's capture).
 
 The clock: ring timestamps are µs since this module was imported, on
 ``perf_counter``. One offset, read at import, maps them to Unix-epoch ns
@@ -473,6 +476,21 @@ def open_tree(name: str, cat: str, **args: Any) -> Optional[Tree]:
     tree._prev = _trees.tree
     _trees.tree = tree
     return tree
+
+
+def current_tree() -> Optional[Tree]:
+    """The thread's open :class:`Tree`, None where there is none."""
+    return _trees.tree
+
+
+@contextmanager
+def suspended() -> Iterator[None]:
+    """No tree is the thread's inside the block."""
+    prev, _trees.tree = _trees.tree, None
+    try:
+        yield
+    finally:
+        _trees.tree = prev
 
 
 def host_sync(what: str, fn: Callable[..., Any], *args: Any,
