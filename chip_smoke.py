@@ -1429,10 +1429,10 @@ def _make_recording_engine():
 
         first_logits: dict
 
-        def _pick_first(self, slot, logits_1v):
+        def _pick_first(self, slot, logits_1v, ok=None):
             self.first_logits[self._slot_req[slot].req_id] = (
                 logits_1v[0].float().cpu())
-            return super()._pick_first(slot, logits_1v)
+            return super()._pick_first(slot, logits_1v, ok)
 
     return RecordingEngine
 

@@ -87,9 +87,9 @@ def _logged(eng):
     seen = defaultdict(list)
     first, dec = eng._pick_first, eng._decode
 
-    def pick_first(slot, logits):
+    def pick_first(slot, logits, ok=None):
         seen[eng._slot_req[slot].req_id].append(logits[0].clone())
-        return first(slot, logits)
+        return first(slot, logits, ok)
 
     def decode_step(token, active):
         out = dec(token, active)

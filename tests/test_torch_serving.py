@@ -190,6 +190,32 @@ class TestSampling:
                 top_p=tp if tp < 1.0 else None, seed=s), req.req_id
         assert greedy.tokens == env[2]([[2, 4, 6]], 7)[0]
 
+    @pytest.mark.parametrize("kv_quant", [False, True], ids=["fp", "int8"])
+    @pytest.mark.parametrize("sampled", [False, True],
+                             ids=["greedy", "sampled"])
+    def test_admissions_at_every_bucket_match_solo_runs(self, env, sampled,
+                                                        kv_quant):
+        """Bucketed admissions at pads 8 to 64, each one upload in and
+        one read of its first token with the pool's ok: greedy requests
+        equal the JAX package's solo runs, sampled ones the port's solo
+        ``generate`` with their seeds."""
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, 64, ln).tolist() for ln in (5, 12, 30, 50)]
+        kws = [dict(temperature=0.9, top_k=8, top_p=0.95, seed=30 + i)
+               if sampled else {} for i in range(len(prompts))]
+        eng = _engine(env, slots=2, num_blocks=64, block_size=8,
+                      kv_quant=kv_quant)
+        reqs = [eng.submit(p, 6, **kw) for p, kw in zip(prompts, kws)]
+        eng.run()
+        if sampled:
+            for req, p, kw in zip(reqs, prompts, kws):
+                assert req.tokens == _port_solo(env, p, 6, kv_quant=kv_quant,
+                                                **kw), req.req_id
+        else:
+            assert [r.tokens for r in reqs] == env[2](prompts, 6,
+                                                      kv_quant=kv_quant)
+        _drained(eng)
+
     def test_chunked_sampled_int8(self, env):
         eng = _engine(env, slots=2, num_blocks=32, block_size=8,
                       prefill_chunk=8, kv_quant=True)

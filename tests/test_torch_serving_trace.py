@@ -158,11 +158,49 @@ def test_a_bucketed_admission_records_real_and_padded_lengths(ring):
     assert root["args"]["tokens"] == 2 and root["args"]["rows"] == 1
     whats = [e["args"]["what"] for e in sorted(
         _children((root, spans), admit), key=lambda e: e["ts"])]
-    # The padded prompt, the slot ids, the slot mask's 1, the pool's ok,
-    # the prompt length, the 4 sampling controls, the first token.
-    assert whats == ["upload", "upload", "upload", "pool_ok", "upload",
-                     "upload", "first_token"]
-    assert root["args"]["syncs"] == 10 + 3
+    # The padded prompt with its slot and length, then the first token
+    # read with the pool's ok.
+    assert whats == ["upload", "first_token"]
+    assert root["args"]["syncs"] == 2 + 3
+
+
+@pytest.mark.parametrize("kw, whats", [
+    ({}, [("upload", 1), ("first_token", 1)]),
+    (dict(temperature=0.8, top_k=20, seed=3),
+     [("upload", 1), ("upload", 4), ("first_token", 1)]),
+], ids=["greedy", "sampled"])
+def test_a_bucketed_admission_uploads_once_and_reads_once(ring, kw, whats):
+    """The padded prompt, its slot and its length go up in one copy, and
+    the first token comes back with the pool's ok in one read; a sampled
+    request's four sampling controls go up besides. A CPU engine's
+    admission runs eagerly (``graph`` 0)."""
+    eng = _engine()
+    _run(eng, 2, [_prompt(12, 1)], [8])
+    ring.reset()
+    eng.submit(_prompt(40, 2), 4, **kw)
+    eng.step()
+    (root, spans), = _trees()
+    admit, = [e for e in spans if e["name"] == "serving.admit"]
+    assert admit["args"]["graph"] == 0 and admit["args"]["padded"] == 64
+    assert [(e["args"]["what"], e["args"].get("count", 1)) for e in sorted(
+        _children((root, spans), admit), key=lambda e: e["ts"])] == whats
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["bucketed", "chunked"])
+def test_admit_spans_say_eager_on_the_cpu(ring, chunk):
+    """Every admission span of a CPU engine, bucketed or chunked, carries
+    ``graph`` 0."""
+    c = ModelConfig(vocab_size=256, d_model=64, n_layers=1, n_heads=4,
+                    n_kv_heads=2, d_ff=128, max_seq=256, dtype=torch.float32)
+    eng = ContinuousBatchingEngine(init_params(c, 0, device="cpu"), c,
+                                   slots=2, num_blocks=32, block_size=8,
+                                   prefill_chunk=chunk)
+    eng.submit(_prompt(20), 2)
+    eng.submit(_prompt(9, 1), 2)
+    eng.run()
+    flags = [e["args"]["graph"] for _, spans in _trees() for e in spans
+             if e["name"] == "serving.admit"]
+    assert flags == [0] * (2 if chunk is None else 5)
 
 
 def test_a_chunked_admission_records_one_span_per_chunk(ring):
@@ -297,10 +335,11 @@ def test_every_sync_on_the_card_is_counted():
     _run(eng, 4, [_prompt(20, 1), _prompt(40, 2)], [30, 30])
     torch.cuda.synchronize()
     _replayed(eng, 3)
-    # A sampled request's admission (10 syncs) and the step's decode, which
-    # now samples: 3, and 4 uploads of the sampling controls.
+    # A sampled request's admission (its inputs, its 4 sampling controls
+    # and its first token: 6 syncs) and the step's decode, which now
+    # samples: 3, and 4 uploads of the sampling controls.
     eng.submit(_prompt(20, 3), 30, temperature=0.7, top_k=10, seed=1)
-    _replayed(eng, 17)
+    _replayed(eng, 13)
     _replayed(eng, 7)
 
     c = ModelConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
@@ -317,7 +356,7 @@ def test_every_sync_on_the_card_is_counted():
     prefix = _prompt(16, 2)
     handle = eng.register_prefix(prefix)
     eng.submit(prefix + _prompt(10, 3), 30, prefix=handle)
-    _replayed(eng, 16)
+    _replayed(eng, 12)
     eng.submit(_prompt(40, 4), 30)
-    for what in (10, 7, 13, 3):  # reservation and chunk, chunk, last chunk
+    for what in (10, 7, 9, 3):  # reservation and chunk, chunk, last chunk
         _replayed(eng, what)

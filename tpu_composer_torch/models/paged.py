@@ -27,7 +27,9 @@ How the port differs from the JAX functions it mirrors, and why:
   0-dim tensor on the device and a refused step's bookkeeping is
   selected back to what it was there, its writes all going to the sink.
   The serving engine steps so, which lets it replay the step as a CUDA
-  graph; every other caller keeps the host-checked step.
+  graph; every other caller keeps the host-checked step. The engine's
+  bucketed admission, :func:`paged_prefill_slot`, likewise takes its
+  slot and length from the device and leaves ``ok`` there.
 - Tables stay int32 (the kernel reads them); indices become int64 only
   for torch's advanced indexing.
 
@@ -193,27 +195,30 @@ def admit(cache: PagedKVCache, row_mask, n_tokens
     reset its length to 0. Returns ``(cache, ok)``; when the pool or a
     row's table cannot cover the request, ``ok`` is False and the cache is
     returned unchanged. Masked rows must be empty (released)."""
-    b, mb = cache.block_tables.shape
-    row_mask = _on(cache, row_mask, torch.bool)
-    n_tokens = _on(cache, n_tokens)
+    admitted, ok = _admit_on_device(cache, _on(cache, row_mask, torch.bool),
+                                    _on(cache, n_tokens))
+    if not host_sync("pool_ok", bool, ok):
+        return cache, False
+    return admitted, True
+
+
+def _admit_on_device(cache: PagedKVCache, row_mask: torch.Tensor, n_tokens
+                     ) -> Tuple[PagedKVCache, torch.Tensor]:
+    """:func:`admit` reading nothing back: (cache, ok) with ``ok`` a 0-dim
+    bool tensor; a refusal's bookkeeping is selected back to the cache's
+    own values."""
+    mb = cache.block_tables.shape[1]
     want_rows = torch.where(
         row_mask, _blocks_needed(n_tokens, cache.block_size), 0
     ).to(torch.int32)
     slot = torch.arange(mb, device=row_mask.device)[None, :]
     flat = (slot < want_rows[:, None]).reshape(-1)
-    popped, total, refcount = _pop_blocks(cache, flat)
-    ok = host_sync("pool_ok", bool,
-                   (total <= cache.free_top) & (want_rows <= mb).all())
-    if not ok:
-        return cache, False
-    tables = torch.where(flat, popped, cache.block_tables.reshape(-1))
-    return cache._replace(
-        block_tables=tables.reshape(b, mb),
-        length=torch.where(row_mask, 0, cache.length),
-        n_blocks=torch.where(row_mask, want_rows, cache.n_blocks),
-        free_top=(cache.free_top - total).to(torch.int32),
-        refcount=refcount,
-    ), True
+    claimed, ok = _claim_on_device(cache, flat, (want_rows <= mb).all())
+    rows = row_mask & ok
+    return claimed._replace(
+        length=torch.where(rows, 0, cache.length),
+        n_blocks=torch.where(rows, want_rows, cache.n_blocks),
+    ), ok
 
 
 def _free_blocks(cache: PagedKVCache, ids, drop_mask) -> PagedKVCache:
@@ -259,20 +264,32 @@ def _extend_on_device(cache: PagedKVCache, t: int, active: torch.Tensor
     Returns (cache, ok) with ``ok`` a 0-dim bool tensor: rows past their
     table capacity or an exhausted pool make it False, and the returned
     bookkeeping is then selected back to the cache's own values."""
-    b, mb = cache.block_tables.shape
+    mb = cache.block_tables.shape[1]
     need_total = torch.where(
         active, _blocks_needed(cache.length + t, cache.block_size), 0
     ).to(torch.int32)
     slot = torch.arange(mb, device=active.device)[None, :]
     flat = ((slot >= cache.n_blocks[:, None])
             & (slot < need_total[:, None])).reshape(-1)
-    popped, total, refcount = _pop_blocks(cache, flat)
-    ok = (total <= cache.free_top) & (need_total <= mb).all()
-    tables = torch.where(flat & ok, popped, cache.block_tables.reshape(-1))
+    cache, ok = _claim_on_device(cache, flat, (need_total <= mb).all())
     return cache._replace(
-        block_tables=tables.reshape(b, mb),
         n_blocks=torch.where(ok, torch.maximum(cache.n_blocks, need_total),
                              cache.n_blocks),
+    ), ok
+
+
+def _claim_on_device(cache: PagedKVCache, flat: torch.Tensor,
+                     fits: torch.Tensor) -> Tuple[PagedKVCache, torch.Tensor]:
+    """Pop a block into every table slot where ``flat`` (the tables,
+    row-major) is True, reading nothing back: (cache with the new tables,
+    free stack top and refcounts, ok). ``ok`` is a 0-dim bool tensor,
+    False where the pool runs short or ``fits`` (0-dim bool) is False,
+    and the three are then selected back to the cache's own values."""
+    popped, total, refcount = _pop_blocks(cache, flat)
+    ok = (total <= cache.free_top) & fits
+    tables = torch.where(flat & ok, popped, cache.block_tables.reshape(-1))
+    return cache._replace(
+        block_tables=tables.reshape(cache.block_tables.shape),
         free_top=torch.where(ok, cache.free_top - total,
                              cache.free_top).to(torch.int32),
         refcount=torch.where(ok, refcount, cache.refcount),
@@ -456,17 +473,9 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
     ``decode.prefill`` does. ``routes``: the engine's routing record,
     written at the rows' positions 0..S−1."""
     c = config
-    if pads_route(c) and prompt_lens is not None:
-        raise ValueError("ragged prompts are dense-only (or dropless MoE;"
-                         " see decode.prefill)")
-    attn = _select_attn(c, None)
+    _check_prefill(c, cache, tokens.shape[1], ragged=prompt_lens is not None)
     r, s_p = tokens.shape
     b = cache.block_tables.shape[0]
-    if s_p > cache.capacity_per_row:
-        raise ValueError(
-            f"prompt length {s_p} exceeds the per-row table capacity "
-            f"{cache.capacity_per_row}"
-        )
     slot_ids = _on(cache, slot_ids, torch.long)
     mask = torch.zeros(b, dtype=torch.int32, device=slot_ids.device)
     mask[slot_ids] = _on(cache, 1)  # the number's copy, counted
@@ -477,15 +486,7 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
     positions = torch.arange(s_p, dtype=torch.int32,
                              device=tokens.device).expand(r, s_p)
     record = _route_writer(routes, slot_ids, positions)
-    x = embedding_lookup(params["embed"], tokens, c.dtype)
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = _project_qkv(layer, x, positions, c)
-        _write_kv_layer(cache, li, index, k, v)
-        o = attn(q, k, v, causal=True).to(c.dtype)
-        x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
-        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
-                           record=record)
-    x = _rmsnorm(x, params["ln_f"])
+    x = _prefill_forward(params, tokens, positions, c, cache, index, record)
     if prompt_lens is not None:
         prompt_lens = _on(cache, prompt_lens)
     logits = _tied_logits(_last_real(x, prompt_lens), params["embed"], c.dtype)
@@ -496,6 +497,67 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
     length = cache.length.clone()
     length[slot_ids] = lens_r
     return logits, cache._replace(length=length), True
+
+
+def paged_prefill_slot(params: Dict, inputs: torch.Tensor,
+                       config: AnyConfig, cache: PagedKVCache, sink: int,
+                       routes=None):
+    """:func:`paged_prefill_rows` of one request, reading nothing back:
+    the serving engine's bucketed admission. ``inputs`` (S + 2,) int64 on
+    the cache's device holds the prompt padded to S, the released slot it
+    takes and its real length. The slot's blocks are claimed as
+    :func:`admit` claims them, but ``ok`` is a 0-dim bool tensor: a
+    refused admission returns bookkeeping equal to the cache's own and
+    writes its K/V into block ``sink`` only (``init_paged_cache(...,
+    sink=True)``). Returns (the last real position's logits (1, vocab),
+    cache, ok)."""
+    c = config
+    s_p = inputs.shape[0] - 2
+    _check_prefill(c, cache, s_p, ragged=True)
+    tokens, slot, real = inputs[None, :s_p], inputs[s_p:s_p + 1], inputs[-1:]
+    dev = inputs.device
+    row = torch.arange(cache.block_tables.shape[0], device=dev) == slot
+    cache, ok = _admit_on_device(cache, row, s_p)
+    cache = cache._replace(length=torch.where(
+        row & ok, real.to(torch.int32), cache.length))
+    index = _write_index(cache.block_tables.index_select(0, slot),
+                         torch.zeros(1, dtype=torch.int32, device=dev), s_p,
+                         cache.block_size, active=ok[None], sink=sink)
+    positions = torch.arange(s_p, dtype=torch.int32, device=dev)[None]
+    record = _route_writer(routes, slot, positions)
+    x = _prefill_forward(params, tokens, positions, c, cache, index, record)
+    logits = _tied_logits(_last_real(x, real), params["embed"], c.dtype)
+    return logits, cache, ok
+
+
+def _check_prefill(c: AnyConfig, cache: PagedKVCache, s_p: int,
+                   ragged: bool) -> None:
+    if pads_route(c) and ragged:
+        raise ValueError("ragged prompts are dense-only (or dropless MoE;"
+                         " see decode.prefill)")
+    if s_p > cache.capacity_per_row:
+        raise ValueError(
+            f"prompt length {s_p} exceeds the per-row table capacity "
+            f"{cache.capacity_per_row}"
+        )
+
+
+def _prefill_forward(params: Dict, tokens: torch.Tensor,
+                     positions: torch.Tensor, c: AnyConfig,
+                     cache: PagedKVCache, index, record) -> torch.Tensor:
+    """The prompts' forward (R, S): each layer's K/V written into the
+    pools at ``index`` (None: nowhere), causal attention over the prompt
+    alone. Returns the final-normed hidden states (R, S, D)."""
+    attn = _select_attn(c, None)
+    x = embedding_lookup(params["embed"], tokens, c.dtype)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _project_qkv(layer, x, positions, c)
+        _write_kv_layer(cache, li, index, k, v)
+        o = attn(q, k, v, causal=True).to(c.dtype)
+        x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
+                           record=record)
+    return _rmsnorm(x, params["ln_f"])
 
 
 def paged_decode_chunk(params: Dict, cache: PagedKVCache,

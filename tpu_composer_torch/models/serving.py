@@ -24,12 +24,16 @@ it admits through the bucketed prefill as a dense model does.
 
 The port runs eagerly; JAX's ``jit`` has no counterpart here. Prompt
 lengths are still padded to power-of-two buckets, because the padded
-length is what the block reservation is computed from. The one
-exception is the decode step of an engine on the card: it reads
-nothing back until its tokens (``paged_decode_step(..., sink=...)``), so
-it is captured once as a CUDA graph at the fixed ``(slots,)`` shape and
-replayed every step (:class:`_DecodeGraph`); CPU engines run the same
-step eagerly.
+length is what the block reservation is computed from. The exceptions
+are on the card. An engine's decode step reads nothing back until its
+tokens (``paged_decode_step(..., sink=...)``), so it is captured once as
+a CUDA graph at the fixed ``(slots,)`` shape and replayed every step
+(:class:`_DecodeGraph`). A bucketed admission reads nothing back until
+its first token either (``paged_prefill_slot``: one upload of the padded
+prompt, its slot and its length, one read of the first token with the
+pool's ok), and a dense engine replays it from one CUDA graph per padded
+length (:class:`_PrefillGraph`); an MoE engine's admission, paced by its
+expert products, runs eagerly. CPU engines run everything eagerly.
 
 An MoE engine may keep a routing record (``record_routes=True``): on the
 device, the top-k expert ids of every layer at every position it
@@ -62,10 +66,12 @@ from tpu_composer_torch.models.paged import (
     paged_decode_chunk,
     paged_decode_step,
     paged_prefill_rows,
+    paged_prefill_slot,
     release,
     upload,
 )
 from tpu_composer_torch.models.quant import QTensor
+from tpu_composer_torch.ops.attention import flash_fwd_cuda
 from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
 from tpu_composer_torch.runtime import tracing
 from tpu_composer_torch.runtime.tracing import host_sync
@@ -213,9 +219,15 @@ class ContinuousBatchingEngine:
         )
         self._sink = num_blocks
         # An engine on the card replays its decode step from a CUDA graph,
-        # captured at its first decode step.
+        # captured at its first decode step, and a dense engine its
+        # bucketed admissions from one graph per padded length, captured
+        # at that length's first admission; the admission graphs share one
+        # memory pool, as they replay one at a time.
         self._graphed = self.device.type == "cuda"
         self._graph: Optional[_DecodeGraph] = None
+        self._admit_graphs: Optional[Dict[int, _PrefillGraph]] = (
+            None if moe else {})
+        self._admit_pool = None
         # The routing record: (slots, layers, positions + 1 spare, top_k).
         self._routes = (torch.zeros(
             (slots, config.n_layers, self.cache.capacity_per_row + 1,
@@ -496,7 +508,8 @@ class ContinuousBatchingEngine:
         if tree is None:
             return self._prefill(slot, req, pad, worst)
         tree.begin("serving.admit", req_id=req.req_id,
-                   prompt=len(req.prompt), padded=pad)
+                   prompt=len(req.prompt), padded=pad,
+                   graph=int(self._admit_graphed))
         events = self._prefill(slot, req, pad, worst)
         tree.end()
         return events
@@ -504,23 +517,50 @@ class ContinuousBatchingEngine:
     def _prefill(self, slot: int, req: Request, pad: int, worst: int
                  ) -> List[Tuple[int, int]]:
         """The bucketed prefill of ``req`` (padded to ``pad``) into
-        ``slot``, up to its first token."""
-        tokens = np.zeros((1, pad), np.int64)
-        tokens[0, :len(req.prompt)] = req.prompt
-        logits, cache, ok = paged_prefill_rows(
-            self.params, upload(self.device, tokens),
-            self.config, self.cache, slot_ids=[slot],
-            prompt_lens=[len(req.prompt)], **self._route_kw())
+        ``slot``, up to its first token: one upload of the padded prompt,
+        the slot and the real length, and one read of the first token
+        with the pool's ok."""
+        n = len(req.prompt)
+        inputs = np.zeros(pad + 2, np.int64)
+        inputs[:n] = req.prompt
+        inputs[pad:] = slot, n
+        logits, cache, ok = self._admit(upload(self.device, inputs))
+        self._slot_req[slot] = req
+        self._arm_sampling(slot, req)
+        first, ok = self._pick_first(slot, logits, ok)
         if not ok:  # host reservation makes this unreachable
+            self._clear(slot)
             self._waiting.appendleft(req)
             return []
         self.cache = cache
-        self._slot_req[slot] = req
         self._reserved[slot] = worst
-        self._arm_sampling(slot, req)
-        first = self._pick_first(slot, logits)
         self._emit(slot, first)
         return [(req.req_id, first)]
+
+    @property
+    def _admit_graphed(self) -> bool:
+        """Whether a bucketed admission replays a CUDA graph."""
+        return self._graphed and self._admit_graphs is not None
+
+    def _admit_body(self, cache, inputs: torch.Tensor):
+        return paged_prefill_slot(self.params, inputs, self.config, cache,
+                                  self._sink, **self._route_kw())
+
+    def _admit(self, inputs: torch.Tensor):
+        """The bucketed admission's (logits, cache, ok), ``ok`` on the
+        device: replayed from the padded length's CUDA graph where the
+        engine takes one (captured here at that length's first
+        admission), run eagerly otherwise."""
+        if not self._admit_graphed:
+            return self._admit_body(self.cache, inputs)
+        graph = self._admit_graphs.get(inputs.shape[0])
+        if graph is None:
+            if self._admit_pool is None:
+                self._admit_pool = torch.cuda.graph_pool_handle()
+            graph = host_sync("capture", _PrefillGraph, self,
+                              self._admit_body, (inputs,), self._admit_pool)
+            self._admit_graphs[inputs.shape[0]] = graph
+        return graph.replay(self.cache, inputs)
 
     def _arm_sampling(self, slot: int, req: Request) -> None:
         self._temp[slot] = req.temperature
@@ -543,10 +583,19 @@ class ContinuousBatchingEngine:
             self._topp[rows], u)
         return _pick_rows(logits, temp, top_k, top_p, u)
 
-    def _pick_first(self, slot: int, logits_1v) -> int:
-        u = np.array([self._draw(slot)])
-        return host_sync("first_token", int,
-                         self._pick(logits_1v, slice(slot, slot + 1), u)[0])
+    def _pick_first(self, slot: int, logits_1v, ok=None) -> Tuple[int, bool]:
+        """The slot's first token from its (1, vocab) logits, the argmax
+        for a greedy slot: (token, ok), read in one copy with ``ok``, a
+        device flag, or None where the host has checked the pool."""
+        if self._slot_gen[slot] is None:
+            pick = torch.argmax(logits_1v, dim=-1)
+        else:
+            pick = self._pick(logits_1v, slice(slot, slot + 1),
+                              np.array([self._draw(slot)]))
+        if ok is None:
+            return host_sync("first_token", int, pick[0]), True
+        first, ok = host_sync("first_token", _tokens_and_ok, pick, ok)
+        return int(first[0]), ok
 
     def _advance_admission(self, tree: Optional[tracing.Tree]
                            ) -> List[Tuple[int, int]]:
@@ -561,7 +610,7 @@ class ContinuousBatchingEngine:
         c_sz = self.prefill_chunk
         tree.begin("serving.admit", req_id=st["req"].req_id,
                    prompt=min(c_sz, st["tail"] - st["consumed"]),
-                   padded=c_sz)
+                   padded=c_sz, graph=0)
         events = self._chunk(st)
         tree.end()
         return events
@@ -597,7 +646,7 @@ class ContinuousBatchingEngine:
         self._arm_sampling(slot, req)
         # The streamed content is the request's tail; its last real
         # token's logits sit at tail-relative offset (tail-1) % chunk.
-        first = self._pick_first(
+        first, _ = self._pick_first(
             slot, logits[slot:slot + 1, (st["tail"] - 1) % c_sz])
         self._emit(slot, first)
         return [(req.req_id, first)]
@@ -608,14 +657,18 @@ class ContinuousBatchingEngine:
         handle reference."""
         req = self._slot_req[slot]
         self.cache = release(self.cache, self._row_mask(slot))
+        self._clear(slot)
+        if req is not None and req.prefix is not None:
+            self._release_handle_ref(req.prefix)
+
+    def _clear(self, slot: int) -> None:
+        """Zero a slot's per-slot state."""
         self._slot_req[slot] = None
         self._reserved[slot] = 0
         self._temp[slot] = 0.0
         self._topk[slot] = 0
         self._topp[slot] = 1.0
         self._slot_gen[slot] = None
-        if req is not None and req.prefix is not None:
-            self._release_handle_ref(req.prefix)
 
     def _route_kw(self) -> Dict[str, torch.Tensor]:
         """The paged calls' ``routes`` argument, where the engine keeps a
@@ -665,10 +718,11 @@ class ContinuousBatchingEngine:
 
         While tracing is on (``runtime/tracing.py``), the step records one
         span tree, category ``serving``: ``serving.step`` (args ``rows``
-        decoded, ``tokens`` emitted, ``syncs``) holding ``serving.admit``,
-        ``serving.decode`` (the decode forward, from the call until the
-        logits return; arg ``graph`` 1 where it is a CUDA graph's replay,
-        0 where it runs eagerly) and ``serving.emit`` (emitting the tokens
+        decoded, ``tokens`` emitted, ``syncs``) holding ``serving.admit``
+        (the admission up to its first token) and ``serving.decode`` (the
+        decode forward, from the call until the logits return), each with
+        arg ``graph`` 1 where its forward is a CUDA graph's replay and 0
+        where it runs eagerly, and ``serving.emit`` (emitting the tokens
         and freeing finished slots), and a ``serving.sync`` leaf (arg
         ``what``) for each host sync, in whichever phase it falls."""
         tree = tracing.open_tree("serving.step", "serving")
@@ -732,14 +786,16 @@ class ContinuousBatchingEngine:
         replayed from the CUDA graph where the engine has one (captured
         here at its first decode step), run eagerly otherwise."""
         if not self._graphed:
-            return paged_decode_step(
-                self.params, self.cache, token, self.config,
-                attn_impl=self.attn_impl, active=active, sink=self._sink,
-                **self._route_kw())
+            return self._decode_body(self.cache, token, active)
         if self._graph is None:
-            self._graph = host_sync("capture", _DecodeGraph, self, token,
-                                    active)
+            self._graph = host_sync("capture", _DecodeGraph, self,
+                                    self._decode_body, (token, active))
         return self._graph.replay(self.cache, token, active)
+
+    def _decode_body(self, cache, token: torch.Tensor, active: torch.Tensor):
+        return paged_decode_step(
+            self.params, cache, token, self.config, attn_impl=self.attn_impl,
+            active=active, sink=self._sink, **self._route_kw())
 
     def run(self, max_steps: int = 100000) -> None:
         """Drive until every submitted request is done."""
@@ -762,70 +818,83 @@ def _tokens_and_ok(picks: torch.Tensor, ok: torch.Tensor):
     return both[:-1].numpy(), bool(both[-1])
 
 
-#: The cache's bookkeeping, copied into the graph before each replay.
+#: The cache's bookkeeping, copied into a graph before each replay.
 _STATE = ("block_tables", "length", "n_blocks", "free", "free_top",
           "refcount")
-#: What a decode step changes of it (the free stack only on release).
+#: What a decode step or an admission changes of it (the free stack only
+#: on release).
 _STEPPED = ("block_tables", "length", "n_blocks", "free_top", "refcount")
 
 
-class _DecodeGraph:
-    """An engine's decode step as one CUDA graph at the engine's fixed
-    ``(slots,)`` shape.
+class _Graph:
+    """One of an engine's forwards, ``body(cache, *args) -> (logits,
+    cache, ok)``, as one CUDA graph at the shape of ``args``.
 
-    Its inputs are static device buffers: the step's tokens, its active
-    mask and a copy of the cache's bookkeeping; the K/V pools and the
-    routing record are the engine's own, written in place as an eager
-    step writes them, and the weights are the engine's; warm-up and
-    capture record no spans (``tracing.suspended``). :meth:`replay`
-    copies the engine's current
-    state into the inputs (on the device, no sync), replays, and returns
-    the logits and ``ok`` the graph writes and the new bookkeeping as
-    copies, so the engine's cache never shares a buffer with the graph.
-    The step is captured through the names the engine calls
-    (``paged_decode_step`` here, the paged layer's helpers there),
-    looked up when it is captured, after one eager warm-up on a side
-    stream. K2's launch counts, which a capture raises without running
-    anything, are put back and raised by as much at each replay."""
+    Its inputs are static device buffers: copies of ``args`` and of the
+    cache's bookkeeping; the K/V pools and the routing record are the
+    engine's own, written in place as an eager forward writes them, and
+    the weights are the engine's; warm-up and capture record no spans
+    (``tracing.suspended``). :meth:`replay` copies the engine's current
+    state and the new arguments into the inputs (on the device, no sync),
+    replays, and returns the logits and ``ok`` the graph writes and the
+    new bookkeeping as copies, so the engine's cache never shares a
+    buffer with the graph. The body is captured through the names it
+    calls, looked up when it is captured, after one eager warm-up on a
+    side stream; ``pool`` is a memory pool shared with other graphs that
+    never replay at once. The kernels' launch counts (``COUNTERS``),
+    which a capture raises without running anything, are put back and
+    raised by as much at each replay."""
 
-    def __init__(self, eng: "ContinuousBatchingEngine", token: torch.Tensor,
-                 active: torch.Tensor):
-        self.token, self.active = token.clone(), active.clone()
+    COUNTERS: Tuple[Tuple[Any, str], ...] = ()
+
+    def __init__(self, eng: "ContinuousBatchingEngine", body,
+                 args: Tuple[torch.Tensor, ...], pool=None):
+        self.args = [a.clone() for a in args]
         self.cache = eng.cache._replace(
             **{f: getattr(eng.cache, f).clone() for f in _STATE})
-
-        def step():
-            return paged_decode_step(
-                eng.params, self.cache, self.token, eng.config,
-                attn_impl=eng.attn_impl, active=self.active, sink=eng._sink,
-                **eng._route_kw())
-
         main = torch.cuda.current_stream(eng.device)
         side = torch.cuda.Stream(eng.device)
         side.wait_stream(main)
         with tracing.suspended():
             with torch.cuda.stream(side):
-                step()
+                body(self.cache, *self.args)
             main.wait_stream(side)
-            k2 = paged_decode_cuda
-            before = (k2.launches, k2.launches_int8)
+            before = [getattr(fn, name) for fn, name in self.COUNTERS]
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.out = step()
-        self.k2 = (k2.launches - before[0], k2.launches_int8 - before[1])
-        k2.launches, k2.launches_int8 = before
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.out = body(self.cache, *self.args)
+        self.launches = []
+        for (fn, name), was in zip(self.COUNTERS, before):
+            self.launches.append(getattr(fn, name) - was)
+            setattr(fn, name, was)
         self.replays = 0
 
-    def replay(self, cache, token: torch.Tensor, active: torch.Tensor):
-        """One decode step from ``cache``: (logits, cache, ok)."""
-        self.token.copy_(token)
-        self.active.copy_(active)
+    def replay(self, cache, *args):
+        """The forward from ``cache`` on ``args``: (logits, cache, ok)."""
+        for buf, a in zip(self.args, args):
+            buf.copy_(a)
         for f in _STATE:
             getattr(self.cache, f).copy_(getattr(cache, f))
         self.graph.replay()
         self.replays += 1
-        paged_decode_cuda.launches += self.k2[0]
-        paged_decode_cuda.launches_int8 += self.k2[1]
+        for (fn, name), n in zip(self.COUNTERS, self.launches):
+            setattr(fn, name, getattr(fn, name) + n)
         logits, out, ok = self.out
         return logits, cache._replace(
             **{f: getattr(out, f).clone() for f in _STEPPED}), ok
+
+
+class _DecodeGraph(_Graph):
+    """An engine's decode step at its fixed ``(slots,)`` shape, on the
+    step's tokens and active mask; it raises K2's launch counts."""
+
+    COUNTERS = ((paged_decode_cuda, "launches"),
+                (paged_decode_cuda, "launches_int8"))
+
+
+class _PrefillGraph(_Graph):
+    """A dense engine's bucketed admission at one padded length, on the
+    admission's uploaded inputs (``paged_prefill_slot``); it raises K1's
+    launch count."""
+
+    COUNTERS = ((flash_fwd_cuda, "launches"),)
