@@ -1,15 +1,17 @@
 """The serving engine's decode step without host reads, and its CUDA
-graph (``models/paged.py``'s ``sink`` path, ``models/serving.py``'s
+graph (``models/paged.py``'s pool contract, ``models/serving.py``'s
 ``_DecodeGraph``).
 
-On the CPU: the engine's step, whose idle rows write into a sink block
-and whose pool check stays on the device, leaves the same state, live
-blocks and logits as the host-checked step (``nonzero`` for the rows,
-``bool(ok)``) over runs where rows join and leave; a refused step
-changes nothing but the sink and raises at the token read; and the
+On the CPU: the engine's step, whose idle rows write into the pool's
+sink block and whose pool check stays on the device, leaves the same
+bookkeeping as the JAX package's ``paged_decode_step`` on the same cache,
+and the same live rows' logits and pool blocks to fp32 tolerance, over
+runs where rows join and leave; a refused step changes nothing but the
+sink, as JAX's refuses it, and raises at the token read; and the
 benchmark's ``decode_graph_pct.batch`` reads what the spans say. The
 tests marked ``cuda`` hold the replayed step to the eager one on the
-card, bit for bit. This file imports no JAX; on the card:
+card, bit for bit. Only the CPU tests import JAX (inside them); on the
+card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_decode_graph.py -q
 """
@@ -76,34 +78,44 @@ ENGINES = {
 }
 
 
+def _jax_world():
+    """(jax config, jax params, port config, port params): the same
+    weights at :func:`_config`'s shape."""
+    from tests.torch_parity import world
+
+    return world(0, vocab_size=256, d_model=64, d_ff=128, max_seq=256)
+
+
 @pytest.mark.parametrize("kind", sorted(ENGINES))
 def test_sink_step_equals_the_host_checked_step(monkeypatch, kind):
-    """Each of the engine's decode steps, against the host-checked step
-    on a copy of its cache: the same bookkeeping, the same logits and the
-    same pool outside the sink, which only idle rows write."""
-    c, params = _config()
+    """Each of the engine's decode steps, against the JAX package's
+    ``paged_decode_step`` on the same cache: the same bookkeeping and
+    ``ok``, and the live rows' logits and the pool's blocks (JAX's pool
+    has no sink; idle rows write only into the port's) to fp32
+    tolerance."""
+    import jax.numpy as jnp
+
+    from tests.torch_parity import assert_paged_matches, jax_paged
+    from tpu_composer.models import paged as jpg
+
+    jc, jp, c, params = _jax_world()
     eng = ContinuousBatchingEngine(params, c, slots=3, num_blocks=40,
                                    block_size=4, **ENGINES[kind])
-    sink = eng.num_blocks
     real = serving.paged_decode_step
     seen = []
 
-    def held(params, cache, token, config, attn_impl, active, sink):
-        ref_in = _copy(cache)
-        ref_logits, ref, ref_ok = real(params, ref_in, token, config,
-                                       attn_impl=attn_impl,
-                                       active=active.numpy())
+    def held(params, cache, token, config, attn_impl, active):
+        j_logits, j_out, j_ok = jpg.paged_decode_step(
+            jp, jax_paged(cache), jnp.asarray(token.numpy()), jc,
+            active=jnp.asarray(active.numpy()))
         logits, out, ok = real(params, cache, token, config,
-                               attn_impl=attn_impl, active=active, sink=sink)
-        assert ref_ok is True and bool(ok)
-        for f in STATE:
-            assert torch.equal(getattr(out, f), getattr(ref, f)), f
-        assert torch.equal(logits, ref_logits)
-        # The host-checked step writes no idle row: so none wrote outside
-        # the sink here.
-        for new, want in zip(_pools(out), _pools(ref)):
-            assert torch.equal(new[:, :sink], want[:, :sink])
-        seen.append(int((active & (cache.n_blocks > 0)).sum()))
+                               attn_impl=attn_impl, active=active)
+        assert torch.is_tensor(ok) and bool(ok) and bool(j_ok)
+        assert_paged_matches(out, j_out, "step")
+        live = (active & (cache.n_blocks > 0)).numpy()
+        np.testing.assert_allclose(logits.numpy()[live],
+                                   np.asarray(j_logits)[live], atol=1e-4)
+        seen.append(int(live.sum()))
         return logits, out, ok
 
     monkeypatch.setattr(serving, "paged_decode_step", held)
@@ -117,40 +129,45 @@ def test_sink_step_equals_the_host_checked_step(monkeypatch, kind):
 def _full(kind):
     """A cache whose live rows need blocks that they cannot have: two
     rows want a block each and the pool holds one (``pool``), or the one
-    row's table is full (``table``)."""
-    c, params = _config()
+    row's table is full (``table``). Returns the JAX world too."""
+    jc, jp, c, params = _jax_world()
     if kind == "pool":
-        cache = paged.init_paged_cache(c, 2, 3, 4, sink=True, device="cpu")
+        cache = paged.init_paged_cache(c, 2, 3, 4, device="cpu")
         toks = torch.tensor([[5, 6, 7, 8], [9, 10, 11, 12]])
         slots = [0, 1]
     else:
         cache = paged.init_paged_cache(c, 2, 8, 4, blocks_per_row=1,
-                                       sink=True, device="cpu")
+                                       device="cpu")
         toks = torch.tensor([[5, 6, 7, 8]])
         slots = [0]
     _, cache, ok = paged.paged_prefill_rows(params, toks, c, cache, slots)
     assert ok
-    return c, params, cache
+    return (jc, jp), c, params, cache
 
 
 @pytest.mark.parametrize("kind", ["pool", "table"])
 def test_a_refused_sink_step_changes_nothing_but_the_sink(kind):
-    c, params, cache = _full(kind)
-    sink = cache.free.shape[0]
+    import jax.numpy as jnp
+
+    from tests.torch_parity import jax_paged
+    from tpu_composer.models import paged as jpg
+
+    (jc, jp), c, params, cache = _full(kind)
+    sink = cache.sink
     before = _copy(cache)
     token = torch.tensor([1, 2], dtype=torch.int32)
     _, out, ok = paged.paged_decode_step(params, cache, token, c,
-                                         active=torch.tensor([True, True]),
-                                         sink=sink)
+                                         active=torch.tensor([True, True]))
     assert torch.is_tensor(ok) and not bool(ok)
     for f in STATE:
         assert torch.equal(getattr(out, f), getattr(before, f)), f
     for new, old in zip(_pools(out), _pools(before)):
         assert torch.equal(new[:, :sink], old[:, :sink])
         assert not torch.equal(new[:, sink], old[:, sink])
-    # The host-checked step refuses the same way.
-    _, same, ok = paged.paged_decode_step(params, _copy(before), token, c)
-    assert ok is False
+    # The JAX package refuses the same step.
+    _, _, j_ok = jpg.paged_decode_step(jp, jax_paged(before),
+                                       jnp.asarray(token.numpy()), jc)
+    assert not bool(j_ok)
 
 
 def test_the_engine_raises_at_the_token_read_and_keeps_its_cache():

@@ -352,12 +352,12 @@ def _kv_position_dropped(monkeypatch):
         keep = torch.ones(k.shape[:2], dtype=torch.bool)
         keep[:, 2] = False
         keep = keep.reshape(-1)
-        blk, off, rows = index
+        blk, off = index
 
         def flat(x):
             return x.reshape((1, -1) + x.shape[2:])[:, keep]
 
-        return write(cache, li, (blk[keep], off[keep], rows), flat(k), flat(v))
+        return write(cache, li, (blk[keep], off[keep]), flat(k), flat(v))
 
     monkeypatch.setattr(paged, "_write_kv_layer", dropped)
 

@@ -4,10 +4,13 @@ package's models/paged.py.
 Pool accounting: the same admit / extend / release / attach / detach /
 drop sequence runs on both, and the tables, lengths, block counts, free
 stack and refcounts agree exactly after every operation, refusals
-included (a refused operation leaves the cache exactly as it was).
-Decoding: paged greedy tokens equal the JAX package's dense
-``decode.generate``, through the gather path and the kernel switch, fp
-and int8 pools; step logits agree to fp32 atol 1e-4.
+included (a refused operation's bookkeeping is the cache's own); ``ok``
+is a 0-dim bool tensor, as JAX's is an array. Decoding: paged greedy
+tokens equal the JAX package's dense ``decode.generate``, through the
+gather path and the kernel switch, fp and int8 pools; step logits agree
+to fp32 atol 1e-4, and the pools on their first ``num_blocks`` blocks
+(the port's pool carries a sink block past them). No pool operation
+reads the device back.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from tests.torch_parity import JaxGreedy, configs, n, t, world
 from tpu_composer.models import paged as jpg
 from tpu_composer_torch.models import paged as tpg
+from tpu_composer_torch.runtime import tracing
 
 torch.set_num_threads(1)
 
@@ -49,6 +53,28 @@ def _assert_same(tcache, jcache, what=""):
         np.testing.assert_array_equal(ts[k], js[k], err_msg=f"{what}: {k}")
 
 
+def _is_ok(ok) -> bool:
+    """``ok`` as the one contract returns it: a 0-dim bool tensor."""
+    assert torch.is_tensor(ok) and ok.dtype == torch.bool and ok.dim() == 0
+    return bool(ok)
+
+
+def _assert_refused(old, new, ok):
+    """A refusal: ``ok`` False, the bookkeeping as it was and no block of
+    the pool written but the sink."""
+    assert not _is_ok(ok)
+    for k in STATE:
+        assert torch.equal(getattr(new, k), getattr(old["state"], k)), k
+    for now, was in zip((new.k_pool, new.v_pool), old["pools"]):
+        assert torch.equal(now[:, :new.sink], was[:, :new.sink])
+
+
+def _before(cache):
+    return {"state": cache._replace(**{k: getattr(cache, k).clone()
+                                       for k in STATE}),
+            "pools": (cache.k_pool.clone(), cache.v_pool.clone())}
+
+
 class Twin:
     """A JAX pool and a port pool driven through the same operations,
     compared after each one."""
@@ -67,13 +93,12 @@ class Twin:
         j_ok = t_ok = True
         if not isinstance(jres, jpg.PagedKVCache):
             jres, j_ok = jres[0], bool(jres[1])
-            tres, t_ok = tres[0], tres[1]
-            assert isinstance(t_ok, bool)
+            tres, t_ok = tres[0], _is_ok(tres[1])
         assert j_ok == t_ok, f"{name}: ok {t_ok} != JAX {j_ok}"
         if expect_ok is not None:
             assert t_ok == expect_ok, name
         if not t_ok:
-            assert tres is self.t, f"{name}: a refusal must not touch it"
+            _assert_same(tres, self.j, f"{name}: a refusal must not touch it")
         self.j, self.t = jres, tres
         _assert_same(self.t, self.j, name)
         return t_ok
@@ -240,14 +265,14 @@ class TestDecodeParity:
             prompt_lens=jnp.array([6, 4], jnp.int32))
         tl, tcache, tok = tpg.paged_prefill_rows(
             tp, t(toks), tc, tcache, [2, 0], prompt_lens=[6, 4])
-        assert bool(jok) and tok
+        assert bool(jok) and _is_ok(tok)
         np.testing.assert_allclose(n(tl), n(jl), atol=FP32_ATOL)
         _assert_same(tcache, jcache, "prefill_rows")
         chunk = rng.integers(0, 64, (3, 3)).astype(np.int32)
         jl, jcache, jok = jpg.paged_decode_chunk(jp, jcache,
                                                  jnp.asarray(chunk), jc)
         tl, tcache, tok = tpg.paged_decode_chunk(tp, tcache, t(chunk), tc)
-        assert bool(jok) and tok
+        assert bool(jok) and _is_ok(tok)
         np.testing.assert_allclose(n(tl)[[0, 2]], n(jl)[[0, 2]],
                                    atol=FP32_ATOL)
         _assert_same(tcache, jcache, "chunk")
@@ -261,13 +286,15 @@ class TestDecodeParity:
         np.testing.assert_allclose(n(tl)[[0, 2]], n(jl)[[0, 2]],
                                    atol=FP32_ATOL)
         _assert_same(tcache, jcache, "step")
+        blocks = tcache.sink
         if quant:
-            assert np.abs(n(tcache.k_pool) - n(jcache.k_pool)).max() <= 1
-            np.testing.assert_allclose(n(tcache.v_scale), n(jcache.v_scale),
-                                       rtol=1e-5)
+            assert np.abs(n(tcache.k_pool[:, :blocks])
+                          - n(jcache.k_pool)).max() <= 1
+            np.testing.assert_allclose(n(tcache.v_scale[:, :blocks]),
+                                       n(jcache.v_scale), rtol=1e-5)
         else:
-            np.testing.assert_allclose(n(tcache.k_pool), n(jcache.k_pool),
-                                       atol=1e-5)
+            np.testing.assert_allclose(n(tcache.k_pool[:, :blocks]),
+                                       n(jcache.k_pool), atol=1e-5)
 
     def test_exhausted_step_is_a_cache_noop(self, gqa):
         _, _, tc, tp = gqa
@@ -275,44 +302,46 @@ class TestDecodeParity:
             np.int32)
         cache = tpg.init_paged_cache(tc, 2, 2, 4, device="cpu")
         _, cache, ok = tpg.paged_prefill(tp, t(toks), tc, cache)
-        assert ok and int(cache.free_top) == 0
-        pools = (cache.k_pool.clone(), cache.v_pool.clone())
+        assert _is_ok(ok) and int(cache.free_top) == 0
+        old = _before(cache)
         _, cache2, ok = tpg.paged_decode_step(tp, cache, t(toks[:, 0]), tc)
-        assert not ok and cache2 is cache
-        torch.testing.assert_close(cache.k_pool, pools[0], rtol=0, atol=0)
-        torch.testing.assert_close(cache.v_pool, pools[1], rtol=0, atol=0)
+        _assert_refused(old, cache2, ok)
         # Releasing a row unblocks the other: the documented recovery.
         cache3 = tpg.release(cache2, [0, 1])
         _, cache4, ok = tpg.paged_decode_step(tp, cache3, t(toks[:, 0]), tc)
-        assert ok and int(cache4.length[0]) == 5
+        assert _is_ok(ok) and int(cache4.length[0]) == 5
 
     def test_idle_row_with_stale_table_writes_nothing(self, gqa):
         """An idle slot whose stale table names a live row's block must
-        not write into it (masked, never clamped)."""
+        not write into it (masked, never clamped): no block but the sink
+        changes."""
         _, _, tc, tp = gqa
         cache = tpg.init_paged_cache(tc, 2, 4, 4, device="cpu")
         toks = torch.tensor([[5, 6, 7]], dtype=torch.int32)
         _, cache, ok = tpg.paged_prefill_rows(tp, toks, tc, cache, [0])
-        assert ok
+        assert _is_ok(ok)
         live = int(cache.block_tables[0, 0])
         tables = cache.block_tables.clone()
         tables[1, 0] = live  # the idle row's stale slot names it
         cache = cache._replace(block_tables=tables)
-        before = cache.k_pool[:, live].clone()
+        before = (cache.k_pool.clone(), cache.v_pool.clone())
         _, cache, ok = tpg.paged_decode_step(
             tp, cache, torch.tensor([1, 2], dtype=torch.int32), tc,
             active=[False, False])
-        assert ok
-        torch.testing.assert_close(cache.k_pool[:, live], before, rtol=0,
-                                   atol=0)
+        assert _is_ok(ok)
+        sink = cache.sink
+        for now, was in zip((cache.k_pool, cache.v_pool), before):
+            torch.testing.assert_close(now[:, :sink], was[:, :sink], rtol=0,
+                                       atol=0)
 
     def test_prefill_over_capacity_leaves_pool_clean(self, gqa):
         _, _, tc, tp = gqa
         cache = tpg.init_paged_cache(tc, 2, 2, 4, device="cpu")
         toks = torch.zeros((2, 8), dtype=torch.int32)
+        old = _before(cache)
         _, cache2, ok = tpg.paged_prefill(tp, toks, tc, cache)
-        assert not ok and cache2 is cache
-        assert int(cache.k_pool.abs().sum()) == 0
+        _assert_refused(old, cache2, ok)
+        assert int(cache2.k_pool[:, :cache2.sink].abs().sum()) == 0
 
     def test_generate_pool_too_small_raises(self, gqa):
         _, _, tc, tp = gqa
@@ -326,3 +355,57 @@ class TestDecodeParity:
         with pytest.raises(ValueError, match="attn_impl"):
             tpg.paged_decode_step(tp, cache, torch.zeros(1, dtype=torch.int32),
                                   tc, attn_impl="pallas")
+
+
+def _live_row(tc, tp):
+    """Three slots over eight blocks of four, slot 0 holding five
+    tokens."""
+    cache = tpg.init_paged_cache(tc, 3, 8, 4, device="cpu")
+    _, cache, ok = tpg.paged_prefill_rows(
+        tp, torch.tensor([[5, 6, 7, 8, 9]]), tc, cache, torch.tensor([0]))
+    assert _is_ok(ok)
+    return cache
+
+
+#: Each pool operation on :func:`_live_row`'s cache, with the host inputs
+#: it is handed (each one upload).
+POOL_CALLS = {
+    "admit": (lambda tp, tc, c: tpg.admit(c, [0, 1, 0], [0, 6, 0]), 2),
+    "_extend_for_write": (
+        lambda tp, tc, c: tpg._extend_for_write(c, 4, [True, False, False]),
+        1),
+    "attach_prefix": (lambda tp, tc, c: tpg.attach_prefix(
+        c, 1, c.block_tables[0, :1], 4, 3), 0),
+    "paged_prefill_rows": (lambda tp, tc, c: tpg.paged_prefill_rows(
+        tp, torch.tensor([[1, 2, 3, 0]]), tc, c, [2], prompt_lens=[3]), 2),
+    "paged_decode_chunk": (lambda tp, tc, c: tpg.paged_decode_chunk(
+        tp, c, torch.tensor([[1, 2], [3, 4], [5, 6]]), tc,
+        active=[True, False, False]), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(POOL_CALLS))
+def test_the_cache_layer_reads_nothing_back(gqa, name):
+    """Under an open span tree, each pool operation records no host sync
+    but the uploads of the host inputs it was handed, and returns ``ok``
+    as a 0-dim bool tensor."""
+    _, _, tc, tp = gqa
+    call, uploads = POOL_CALLS[name]
+    cache = _live_row(tc, tp)
+    was = tracing.enabled()
+    tracing.set_enabled(True)
+    tracing.reset()
+    try:
+        tree = tracing.open_tree("serving.step", "serving")
+        try:
+            ok = call(tp, tc, cache)[-1]
+        finally:
+            tree.close()
+        syncs = [e["args"] for e in tracing.snapshot(cat="serving")
+                 if e["name"] == "serving.sync"]
+    finally:
+        tracing.set_enabled(was)
+        tracing.reset()
+    assert [a["what"] for a in syncs] == ["upload"] * len(syncs)
+    assert sum(a.get("count", 1) for a in syncs) == uploads
+    assert _is_ok(ok)

@@ -1,17 +1,19 @@
 """The serving engine's bucketed admission without host reads, and its
-CUDA graphs (``models/paged.py``'s ``paged_prefill_slot``,
-``models/serving.py``'s ``_PrefillGraph``).
+CUDA graphs (``models/paged.py``'s ``paged_prefill_rows``,
+``models/serving.py``'s ``_admit_body`` and ``_PrefillGraph``).
 
-On the CPU: the admission that takes its slot and length from the device
-and leaves ``ok`` there leaves the same state, blocks and logits as the
-host-checked ``paged_prefill_rows`` at every bucket, which keeps its own
-contract; a refused admission changes nothing but the sink, and the
-engine reads that refusal with the first token and puts the request
-back; and the benchmark's ``admit_graph_pct.batch`` reads what the spans
-say. The tests marked ``cuda`` hold the replayed admission to the eager
-one on the card, bit for bit, at the buckets a serving mix pads to, and
-count its syncs and its kernel launches. This file imports no JAX; on
-the card:
+On the CPU: the engine's admission, which takes its slot and length from
+the device and leaves ``ok`` there, leaves the same bookkeeping as the
+JAX package's ``paged_prefill_rows`` on the same live cache at every
+bucket, and the same logits and blocks to fp32 tolerance; so does
+``paged_prefill_rows`` at one to three rows; a refused admission changes
+nothing but the sink, and the engine reads that refusal with the first
+token and puts the request back; and the benchmark's
+``admit_graph_pct.batch`` reads what the spans say. The tests marked
+``cuda`` hold the replayed admission to the eager one on the card, bit
+for bit, at the buckets a serving mix pads to, and count its syncs and
+its kernel launches. Only the CPU tests import JAX (inside them); on the
+card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_prefill_graph.py -q
 """
@@ -61,6 +63,21 @@ def _pools(cache):
     return [getattr(cache, f) for f in POOLS if getattr(cache, f) is not None]
 
 
+def _jax_world():
+    """(jax config, jax params, port config, port params): the same
+    weights at :func:`_config`'s shape."""
+    from tests.torch_parity import world
+
+    return world(0, vocab_size=256, d_model=64, d_ff=128, max_seq=256)
+
+
+def _admit(params, c, cache, inputs):
+    """The engine's bucketed admission (``_admit_body``) of ``inputs`` on
+    ``cache``."""
+    eng = SimpleNamespace(params=params, config=c, _route_kw=dict)
+    return ContinuousBatchingEngine._admit_body(eng, cache, inputs)
+
+
 def _inputs(prompt, pad, slot, device="cpu"):
     """The admission's one upload: the padded prompt, its slot, its
     length."""
@@ -72,10 +89,10 @@ def _inputs(prompt, pad, slot, device="cpu"):
 
 def _live(c, params, quant, device="cpu", num_blocks=64, block_size=4,
           lengths=(5, 11)):
-    """A cache with a sink and two live rows of three slots (slot 2
-    free), freed blocks mixed back into the stack."""
+    """A cache with two live rows of three slots (slot 2 free), freed
+    blocks mixed back into the stack."""
     cache = paged.init_paged_cache(c, 3, num_blocks, block_size, quant=quant,
-                                   sink=True, device=device)
+                                   device=device)
     pad = max(lengths)
     toks = torch.tensor([_prompt(pad, 7), _prompt(pad, 8)], device=device)
     _, cache, ok = paged.paged_prefill_rows(params, toks, c, cache, [0, 1],
@@ -92,26 +109,27 @@ def _live(c, params, quant, device="cpu", num_blocks=64, block_size=4,
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("pad", [8, 16, 32, 64])
 def test_the_slot_prefill_equals_the_host_checked_prefill(pad, quant):
-    """At each bucket, the engine's admission and ``paged_prefill_rows``
-    on a copy of the same live cache: the same logits, the same
-    bookkeeping and the same pools, bit for bit; ``ok`` stays a 0-dim
-    tensor."""
-    c, params = _config()
+    """At each bucket, the engine's admission (one row of
+    ``paged_prefill_rows``) and the JAX package's ``paged_prefill_rows``
+    on the same live cache: the same bookkeeping and ``ok``, a 0-dim
+    tensor; the logits and the pool's blocks to fp32 tolerance."""
+    import jax.numpy as jnp
+
+    from tests.torch_parity import assert_paged_matches, jax_paged
+    from tpu_composer.models import paged as jpg
+
+    jc, jp, c, params = _jax_world()
     cache = _live(c, params, quant)
     prompt = _prompt(pad - 3, pad)
-    ref_in = _copy(cache)
-    ref_logits, ref, ref_ok = paged.paged_prefill_rows(
-        params, torch.tensor([prompt + [0] * 3]), c, ref_in, [2],
-        prompt_lens=[len(prompt)])
-    logits, out, ok = paged.paged_prefill_slot(
-        params, _inputs(prompt, pad, 2), c, cache, sink=64)
-    assert ref_ok is True and torch.is_tensor(ok) and ok.dim() == 0
-    assert bool(ok)
-    assert torch.equal(logits, ref_logits)
-    for f in STATE:
-        assert torch.equal(getattr(out, f), getattr(ref, f)), f
-    for new, want in zip(_pools(out), _pools(ref)):
-        assert torch.equal(new[:, :64], want[:, :64])
+    j_logits, j_out, j_ok = jpg.paged_prefill_rows(
+        jp, jnp.asarray([prompt + [0] * 3]), jc, jax_paged(cache),
+        jnp.asarray([2]), prompt_lens=jnp.asarray([len(prompt)]))
+    logits, out, ok = _admit(params, c, cache, _inputs(prompt, pad, 2))
+    assert torch.is_tensor(ok) and ok.dim() == 0
+    assert bool(ok) and bool(j_ok)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
+                               atol=1e-4)
+    assert_paged_matches(out, j_out, f"pad {pad}")
     assert int(out.length[2]) == len(prompt)
 
 
@@ -119,13 +137,13 @@ def test_the_slot_prefill_equals_the_host_checked_prefill(pad, quant):
 def test_a_refused_admission_changes_nothing_but_the_sink(quant):
     """A pool too short for the prompt: ``ok`` False on the device, every
     bookkeeping value as it was, and the K/V written into the sink only;
-    the host-checked prefill refuses the same admission."""
+    given the slot and length as host sequences, ``paged_prefill_rows``
+    refuses the same admission."""
     c, params = _config()
     cache = _live(c, params, quant, num_blocks=12)
-    assert 0 < int(cache.free_top) < 8
+    assert 0 < int(cache.free_top) < 8 and cache.sink == 12
     before = _copy(cache)
-    _, out, ok = paged.paged_prefill_slot(
-        params, _inputs(_prompt(30, 1), 32, 2), c, cache, sink=12)
+    _, out, ok = _admit(params, c, cache, _inputs(_prompt(30, 1), 32, 2))
     assert torch.is_tensor(ok) and not bool(ok)
     for f in STATE:
         assert torch.equal(getattr(out, f), getattr(before, f)), f
@@ -135,27 +153,50 @@ def test_a_refused_admission_changes_nothing_but_the_sink(quant):
     _, same, ok = paged.paged_prefill_rows(
         params, torch.tensor([_prompt(32, 1)]), c, _copy(before), [2],
         prompt_lens=[30])
-    assert ok is False
+    assert not bool(ok)
+    for f in STATE:
+        assert torch.equal(getattr(same, f), getattr(before, f)), f
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3])
 def test_paged_prefill_rows_keeps_its_host_contract(rows):
-    """``paged_prefill_rows`` still admits any number of rows with ``ok``
-    a Python bool, and a refusal returns the very cache it was given."""
-    c, params = _config()
+    """``paged_prefill_rows`` admits any number of rows as the JAX
+    package's does: the same bookkeeping, logits and blocks, and ``ok`` a
+    0-dim bool tensor; a refusal, which JAX's makes too, returns the
+    cache's own bookkeeping."""
+    import jax.numpy as jnp
+
+    from tests.torch_parity import assert_paged_matches, jax_paged
+    from tpu_composer.models import paged as jpg
+
+    jc, jp, c, params = _jax_world()
     cache = paged.init_paged_cache(c, 3, 3 * rows, 4, device="cpu")
-    toks = torch.tensor([_prompt(8, r) for r in range(rows)])
+    toks = [_prompt(8, r) for r in range(rows)]
+    lens = [8 - r for r in range(rows)]
+    j_logits, j_out, j_ok = jpg.paged_prefill_rows(
+        jp, jnp.asarray(toks), jc, jax_paged(cache),
+        jnp.arange(rows, dtype=jnp.int32), prompt_lens=jnp.asarray(lens))
     logits, cache, ok = paged.paged_prefill_rows(
-        params, toks, c, cache, list(range(rows)),
-        prompt_lens=[8 - r for r in range(rows)])
-    assert ok is True and tuple(logits.shape) == (rows, 256)
-    assert cache.length.tolist()[:rows] == [8 - r for r in range(rows)]
+        params, torch.tensor(toks), c, cache, list(range(rows)),
+        prompt_lens=lens)
+    assert torch.is_tensor(ok) and ok.dtype == torch.bool and ok.dim() == 0
+    assert bool(ok) and bool(j_ok) and tuple(logits.shape) == (rows, 256)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
+                               atol=1e-4)
+    assert_paged_matches(cache, j_out, f"{rows} rows")
+    assert cache.length.tolist()[:rows] == lens
     assert int(cache.free_top) == rows
     full = paged.init_paged_cache(c, 3, 2 * rows - 1, 4, blocks_per_row=2,
                                   device="cpu")
-    _, same, ok = paged.paged_prefill_rows(params, toks, c, full,
-                                           list(range(rows)))
-    assert ok is False and same is full
+    before = _copy(full)
+    _, same, ok = paged.paged_prefill_rows(params, torch.tensor(toks), c,
+                                           full, list(range(rows)))
+    _, _, j_ok = jpg.paged_prefill_rows(
+        jp, jnp.asarray(toks), jc, jax_paged(before),
+        jnp.arange(rows, dtype=jnp.int32))
+    assert not bool(ok) and not bool(j_ok)
+    for f in STATE:
+        assert torch.equal(getattr(same, f), getattr(before, f)), f
 
 
 def test_the_engine_reads_ok_with_the_first_token(monkeypatch):

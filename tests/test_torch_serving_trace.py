@@ -355,8 +355,11 @@ def test_every_sync_on_the_card_is_counted():
     torch.cuda.synchronize()
     prefix = _prompt(16, 2)
     handle = eng.register_prefix(prefix)
+    # The attach reads its ok (1), its one chunk uploads its tokens and
+    # active rows and reads its ok (3), the last chunk uploads the length
+    # and reads the first token (2), and the decode step's 3.
     eng.submit(prefix + _prompt(10, 3), 30, prefix=handle)
-    _replayed(eng, 12)
+    _replayed(eng, 9)
     eng.submit(_prompt(40, 4), 30)
-    for what in (10, 7, 9, 3):  # reservation and chunk, chunk, last chunk
+    for what in (9, 6, 8, 3):  # reservation and chunk, chunk, last chunk
         _replayed(eng, what)

@@ -122,3 +122,45 @@ class JaxGreedy:
             out += [got[r].tolist() for r in range(len(part))]
         return [row[:n] for row, n in zip(out, n_new)]
 
+
+
+PAGED_STATE = ("block_tables", "length", "n_blocks", "free", "free_top",
+               "refcount")
+PAGED_POOLS = ("k_pool", "v_pool", "k_scale", "v_scale")
+
+
+def jax_paged(cache):
+    """The port's ``PagedKVCache`` as the JAX package's: the same
+    bookkeeping and the pools' first ``num_blocks`` blocks (the port's
+    pool carries a sink block past them)."""
+    from tpu_composer.models.paged import PagedKVCache
+
+    fields = {f: jnp.asarray(n(getattr(cache, f))) for f in PAGED_STATE}
+    for f in PAGED_POOLS:
+        v = getattr(cache, f)
+        fields[f] = None if v is None else jnp.asarray(n(v[:, :cache.sink]))
+    return PagedKVCache(**fields)
+
+
+def assert_paged_matches(tcache, jcache, what: str = "") -> None:
+    """The port's cache against the JAX package's: the bookkeeping
+    exactly, the pools on their first ``num_blocks`` blocks to fp32 atol
+    1e-5 (int8 values to one rounding step, scales to rtol 1e-5)."""
+    for f in PAGED_STATE:
+        np.testing.assert_array_equal(n(getattr(tcache, f)),
+                                      n(getattr(jcache, f)),
+                                      err_msg=f"{what}: {f}")
+    for f in PAGED_POOLS:
+        tv, jv = getattr(tcache, f), getattr(jcache, f)
+        if tv is None:
+            assert jv is None, f
+            continue
+        got, want = n(tv[:, :tcache.sink]), n(jv)
+        if got.dtype.kind == "i":
+            assert np.abs(got.astype(np.int32) - want).max() <= 1, f
+        elif tcache.quantized:
+            np.testing.assert_allclose(got, want, rtol=1e-5,
+                                       err_msg=f"{what}: {f}")
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-5,
+                                       err_msg=f"{what}: {f}")

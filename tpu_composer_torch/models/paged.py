@@ -9,27 +9,22 @@ when it crosses a block boundary. Reads go through the gather path
 ``attn_impl="kernel"`` on single-token steps, through the paged decode
 kernel (``ops/paged_attention.py``), which walks the table itself.
 
+Every pool operation keeps the JAX package's contract: it computes the
+new bookkeeping on the device and returns ``ok`` as a 0-dim bool tensor,
+and where ``ok`` is False the bookkeeping it returns equals the cache's
+own. Nothing here reads the device back: a caller that branches on
+``ok`` reads it once, as a ``pool_ok`` sync or with its tokens.
 How the port differs from the JAX functions it mirrors, and why:
 
-- All-or-nothing updates. JAX computes the new cache and selects it or
-  the old one by ``ok``. Here ``ok`` is decided on the host FIRST and
-  returned as a Python bool; a refused admit / extend / attach returns
-  the cache it was given, untouched. Nothing is ever half-applied.
 - In-place pool writes. K/V (and int8 scales) are written into the pool
   tensors in place: the cache returned by a prefill or decode step shares
   its pools with the one passed in. The small bookkeeping tensors
   (tables, lengths, free stack, refcounts) are replaced, never mutated.
-- No ``mode="drop"`` scatter in torch. Writes for inactive rows are
-  removed by selecting the active rows' coordinates first (a host read),
-  or, given a ``sink`` block, sent into it: an idle slot's stale table
-  may name a live row's block, so it is masked out, never clamped.
-- A decode step with a ``sink`` reads nothing back: ``ok`` stays a
-  0-dim tensor on the device and a refused step's bookkeeping is
-  selected back to what it was there, its writes all going to the sink.
-  The serving engine steps so, which lets it replay the step as a CUDA
-  graph; every other caller keeps the host-checked step. The engine's
-  bucketed admission, :func:`paged_prefill_slot`, likewise takes its
-  slot and length from the device and leaves ``ok`` there.
+- A sink block in place of ``mode="drop"``, which torch's scatter lacks.
+  Every pool has one block past ``num_blocks`` (``cache.sink``) that no
+  free stack holds and no read sees: the writes of idle rows and of a
+  refused operation go there. An idle slot's stale table may name a live
+  row's block, so it is masked, never clamped.
 - Tables stay int32 (the kernel reads them); indices become int64 only
   for torch's advanced indexing.
 
@@ -72,7 +67,8 @@ ATTN_IMPLS = ("gather", "kernel")
 class PagedKVCache(NamedTuple):
     """Shared block pool + per-row block tables.
 
-    - ``k_pool``/``v_pool``: (L, N, Bs, KV, Dh).
+    - ``k_pool``/``v_pool``: (L, N + 1, Bs, KV, Dh): N blocks, then the
+      sink.
     - ``block_tables``: (B, MB) int32; slot ``j`` holds the row's
       positions ``[j*Bs, (j+1)*Bs)``. Unassigned slots keep stale ids:
       reads mask by ``length``, never by table content.
@@ -82,7 +78,8 @@ class PagedKVCache(NamedTuple):
     - ``free_top``: () int32.
     - ``refcount``: (N,) int32 owners per block (a shared-prefix block
       counts each attached row plus its registry handle).
-    - ``k_scale``/``v_scale``: (L, N, Bs, KV) fp32 when the pool is int8.
+    - ``k_scale``/``v_scale``: (L, N + 1, Bs, KV) fp32 when the pool is
+      int8.
     """
 
     k_pool: torch.Tensor
@@ -108,22 +105,26 @@ class PagedKVCache(NamedTuple):
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    @property
+    def sink(self) -> int:
+        """The pool's last block, which no free stack holds and no table
+        reads: where writes that must not land go."""
+        return self.k_pool.shape[1] - 1
+
 
 def init_paged_cache(config: AnyConfig, batch: int, num_blocks: int,
                      block_size: int = 16,
                      blocks_per_row: Optional[int] = None,
-                     quant: bool = False, sink: bool = False,
+                     quant: bool = False,
                      device: DeviceLike = "cuda") -> PagedKVCache:
-    """Empty pool. ``blocks_per_row`` bounds one row's table (default: the
-    whole pool). ``quant=True`` stores the pool int8 with per-(position,
-    head) fp32 scales. ``sink=True`` adds block ``num_blocks`` to the pool
-    and to no free stack: the sink of :func:`paged_decode_step`, which
-    only idle rows write and nothing reads."""
+    """Empty pool of ``num_blocks`` blocks and the sink past them.
+    ``blocks_per_row`` bounds one row's table (default: the whole pool).
+    ``quant=True`` stores the pool int8 with per-(position, head) fp32
+    scales."""
     c = config
     dev = resolve_device(device)
     mb = blocks_per_row or num_blocks
-    shape = (c.n_layers, num_blocks + int(sink), block_size, c.kv_heads,
-             c.head_dim)
+    shape = (c.n_layers, num_blocks + 1, block_size, c.kv_heads, c.head_dim)
     i32 = dict(dtype=torch.int32, device=dev)
     common = dict(
         block_tables=torch.zeros((batch, mb), **i32),
@@ -190,23 +191,15 @@ def _pop_blocks(cache: PagedKVCache, flat_want: torch.Tensor):
 
 
 def admit(cache: PagedKVCache, row_mask, n_tokens
-          ) -> Tuple[PagedKVCache, bool]:
+          ) -> Tuple[PagedKVCache, torch.Tensor]:
     """Assign ``ceil(n_tokens/Bs)`` fresh blocks to each masked row and
-    reset its length to 0. Returns ``(cache, ok)``; when the pool or a
-    row's table cannot cover the request, ``ok`` is False and the cache is
-    returned unchanged. Masked rows must be empty (released)."""
-    admitted, ok = _admit_on_device(cache, _on(cache, row_mask, torch.bool),
-                                    _on(cache, n_tokens))
-    if not host_sync("pool_ok", bool, ok):
-        return cache, False
-    return admitted, True
-
-
-def _admit_on_device(cache: PagedKVCache, row_mask: torch.Tensor, n_tokens
-                     ) -> Tuple[PagedKVCache, torch.Tensor]:
-    """:func:`admit` reading nothing back: (cache, ok) with ``ok`` a 0-dim
-    bool tensor; a refusal's bookkeeping is selected back to the cache's
-    own values."""
+    reset its length to 0; ``row_mask`` and ``n_tokens`` (B,) are host
+    arrays or device tensors. Returns ``(cache, ok)``: ``ok`` is False
+    where the pool or a row's table cannot cover the request, and the
+    bookkeeping is then the cache's own. Masked rows must be empty
+    (released)."""
+    row_mask = _on(cache, row_mask, torch.bool)
+    n_tokens = _on(cache, n_tokens)
     mb = cache.block_tables.shape[1]
     want_rows = torch.where(
         row_mask, _blocks_needed(n_tokens, cache.block_size), 0
@@ -257,13 +250,19 @@ def release(cache: PagedKVCache, row_mask) -> PagedKVCache:
     )
 
 
-def _extend_on_device(cache: PagedKVCache, t: int, active: torch.Tensor
+def _active_rows(cache: PagedKVCache, active) -> torch.Tensor:
+    """The rows that own blocks, of ``active`` (every row where None)."""
+    owned = cache.n_blocks > 0
+    return owned if active is None else _on(cache, active, torch.bool) & owned
+
+
+def _extend_for_write(cache: PagedKVCache, t: int, active=None
                       ) -> Tuple[PagedKVCache, torch.Tensor]:
-    """Claim blocks so every ``active`` row (a device mask of owned rows)
-    can append ``t`` tokens at its current length, reading nothing back.
-    Returns (cache, ok) with ``ok`` a 0-dim bool tensor: rows past their
-    table capacity or an exhausted pool make it False, and the returned
-    bookkeeping is then selected back to the cache's own values."""
+    """Claim blocks so every active row that owns blocks can append ``t``
+    tokens at its current length. Returns (cache, ok): rows past their
+    table capacity or an exhausted pool make ``ok`` False, and the
+    bookkeeping is then the cache's own."""
+    active = _active_rows(cache, active)
     mb = cache.block_tables.shape[1]
     need_total = torch.where(
         active, _blocks_needed(cache.length + t, cache.block_size), 0
@@ -278,13 +277,13 @@ def _extend_on_device(cache: PagedKVCache, t: int, active: torch.Tensor
     ), ok
 
 
-def _claim_on_device(cache: PagedKVCache, flat: torch.Tensor,
-                     fits: torch.Tensor) -> Tuple[PagedKVCache, torch.Tensor]:
+def _claim_on_device(cache: PagedKVCache, flat: torch.Tensor, fits
+                     ) -> Tuple[PagedKVCache, torch.Tensor]:
     """Pop a block into every table slot where ``flat`` (the tables,
-    row-major) is True, reading nothing back: (cache with the new tables,
-    free stack top and refcounts, ok). ``ok`` is a 0-dim bool tensor,
-    False where the pool runs short or ``fits`` (0-dim bool) is False,
-    and the three are then selected back to the cache's own values."""
+    row-major) is True: (cache with the new tables, free stack top and
+    refcounts, ok). ``ok`` is a 0-dim bool tensor, False where the pool
+    runs short or ``fits`` (a bool or a 0-dim bool tensor) is False, and
+    the three are then selected back to the cache's own values."""
     popped, total, refcount = _pop_blocks(cache, flat)
     ok = (total <= cache.free_top) & fits
     tables = torch.where(flat & ok, popped, cache.block_tables.reshape(-1))
@@ -296,26 +295,15 @@ def _claim_on_device(cache: PagedKVCache, flat: torch.Tensor,
     ), ok
 
 
-def _extend_for_write(cache: PagedKVCache, t: int, active=None
-                      ) -> Tuple[PagedKVCache, bool]:
-    """:func:`_extend_on_device` with ``ok`` read on the host: (cache,
-    ok), a refusal returning the cache it was given."""
-    owned = cache.n_blocks > 0
-    active = owned if active is None else _on(cache, active, torch.bool) & owned
-    extended, ok = _extend_on_device(cache, t, active)
-    if not host_sync("pool_ok", bool, ok):
-        return cache, False
-    return extended, True
-
-
 def attach_prefix(cache: PagedKVCache, slot: int, prefix_blocks,
                   prefix_len: int, extra_tokens: int
-                  ) -> Tuple[PagedKVCache, bool]:
+                  ) -> Tuple[PagedKVCache, torch.Tensor]:
     """Admit one row that STARTS with a shared prefix: its table opens
     with ``prefix_blocks`` (refcount +1 each; the row never writes them)
-    followed by fresh blocks for ``extra_tokens``. All-or-nothing like
-    admit. ``prefix_len`` must equal ``len(prefix_blocks) * block_size``."""
-    mb = cache.block_tables.shape[1]
+    followed by fresh blocks for ``extra_tokens``. Returns (cache, ok),
+    all-or-nothing like admit. ``prefix_len`` must equal
+    ``len(prefix_blocks) * block_size``."""
+    b, mb = cache.block_tables.shape
     prefix_blocks = _on(cache, prefix_blocks)
     k = prefix_blocks.shape[0]
     if prefix_len != k * cache.block_size:
@@ -327,42 +315,34 @@ def attach_prefix(cache: PagedKVCache, slot: int, prefix_blocks,
         raise ValueError(
             f"prefix spans {k} blocks but the row table holds {mb}")
     need_total = -(-(prefix_len + extra_tokens) // cache.block_size)
-    slots_idx = torch.arange(mb, device=prefix_blocks.device)
+    dev = prefix_blocks.device
+    slots_idx = torch.arange(mb, device=dev)
+    row = torch.arange(b, device=dev) == slot
     want = (slots_idx >= k) & (slots_idx < need_total)
-    popped, fresh, rc = _pop_blocks(cache, want)
-    if need_total > mb or not host_sync("pool_ok", bool,
-                                        fresh <= cache.free_top):
-        return cache, False
-    rc.index_add_(0, prefix_blocks.long(), torch.ones_like(prefix_blocks))
+    claimed, ok = _claim_on_device(
+        cache, (row[:, None] & want).reshape(-1), need_total <= mb)
+    row = row & ok
     padded = torch.cat([prefix_blocks, prefix_blocks.new_zeros(mb - k)])
-    row_table = torch.where(slots_idx < k, padded,
-                            torch.where(want, popped,
-                                        cache.block_tables[slot]))
-    tables = cache.block_tables.clone()
-    tables[slot] = row_table
-    # A Python number written into a device tensor is copied there first
-    # (a sync): through _on, so the copy is counted.
-    length = cache.length.clone()
-    length[slot] = _on(cache, prefix_len)
-    n_blocks = cache.n_blocks.clone()
-    n_blocks[slot] = _on(cache, need_total)
-    return cache._replace(
-        block_tables=tables, length=length, n_blocks=n_blocks,
-        free_top=(cache.free_top - fresh).to(torch.int32), refcount=rc,
-    ), True
+    return claimed._replace(
+        block_tables=torch.where(row[:, None] & (slots_idx < k), padded,
+                                 claimed.block_tables),
+        length=torch.where(row, prefix_len, cache.length),
+        n_blocks=torch.where(row, need_total, cache.n_blocks),
+        refcount=claimed.refcount.index_add(
+            0, prefix_blocks.long(), ok.to(torch.int32).expand(k)),
+    ), ok
 
 
 def detach_row_keep_blocks(cache: PagedKVCache, slot: int):
     """Zero a row WITHOUT dropping its block ownership: returns (cache,
     block_ids (MB,), n_blocks) so a prefix registry can hold the
     refcounts until it drops them via drop_blocks."""
-    ids = cache.block_tables[slot].clone()
-    n = cache.n_blocks[slot].clone()
-    length = cache.length.clone()
-    length[slot] = _on(cache, 0)
-    n_blocks = cache.n_blocks.clone()
-    n_blocks[slot] = _on(cache, 0)
-    return cache._replace(length=length, n_blocks=n_blocks), ids, n
+    row = (torch.arange(cache.length.shape[0], device=cache.length.device)
+           == slot)
+    return cache._replace(
+        length=torch.where(row, 0, cache.length),
+        n_blocks=torch.where(row, 0, cache.n_blocks),
+    ), cache.block_tables[slot].clone(), cache.n_blocks[slot].clone()
 
 
 def drop_blocks(cache: PagedKVCache, block_ids, count) -> PagedKVCache:
@@ -373,33 +353,26 @@ def drop_blocks(cache: PagedKVCache, block_ids, count) -> PagedKVCache:
     return _free_blocks(cache, block_ids, idx < _on(cache, count))
 
 
-def _write_index(tables, pos, t: int, block_size: int, active=None,
-                 sink: Optional[int] = None):
+def _write_index(cache: PagedKVCache, tables, pos, t: int, active):
     """Pool coordinates (block ids, offsets) of every (row, token) write
-    at positions ``pos..pos+t``, plus the rows they come from. Rows where
-    ``active`` is False write into block ``sink`` or, without one, are
-    left out entirely (one host sync to find them): their stale tables
-    may name other rows' blocks."""
-    b, mb = tables.shape
+    at positions ``pos..pos+t`` of the rows of ``tables``. Rows where
+    ``active`` is False write into the sink: their stale tables may name
+    other rows' blocks."""
+    mb = tables.shape[1]
     abs_pos = pos.long()[:, None] + torch.arange(t, device=pos.device)[None, :]
-    blk_slot = (abs_pos // block_size).clamp(0, mb - 1)
+    blk_slot = (abs_pos // cache.block_size).clamp(0, mb - 1)
     blk = torch.gather(tables, 1, blk_slot).long()
-    off = abs_pos % block_size
-    if sink is not None:
-        blk = torch.where(active[:, None], blk, sink)
-    if active is None or sink is not None:
-        return blk.reshape(-1), off.reshape(-1), None
-    rows = host_sync("write_rows", torch.nonzero, active)[:, 0]
-    return blk[rows].reshape(-1), off[rows].reshape(-1), rows
+    blk = torch.where(active[:, None], blk, cache.sink)
+    return blk.reshape(-1), (abs_pos % cache.block_size).reshape(-1)
 
 
 def _paged_write(pool_layer, index, new):
     """Write ``new`` (B, T, ...) into the pool layer in place at the
-    coordinates ``_write_index`` gave. Blocks are row-owned, so the
-    (block, offset) pairs are distinct and the order is irrelevant."""
-    blk, off, rows = index
-    src = new if rows is None else new[rows]
-    pool_layer[blk, off] = src.reshape((-1,) + new.shape[2:]).to(
+    coordinates ``_write_index`` gave. Blocks are row-owned, so outside
+    the sink, which nothing reads, the (block, offset) pairs are distinct
+    and the order is irrelevant."""
+    blk, off = index
+    pool_layer[blk, off] = new.reshape((-1,) + new.shape[2:]).to(
         pool_layer.dtype)
 
 
@@ -456,7 +429,7 @@ def paged_prefill(params: Dict, tokens: torch.Tensor, config: AnyConfig,
     slots. Returns (last-real-position logits (B, vocab), cache, ok)."""
     b = tokens.shape[0]
     return paged_prefill_rows(params, tokens, config, cache,
-                              slot_ids=list(range(b)),
+                              slot_ids=torch.arange(b, device=tokens.device),
                               prompt_lens=prompt_lens)
 
 
@@ -465,69 +438,36 @@ def paged_prefill_rows(params: Dict, tokens: torch.Tensor,
                        prompt_lens=None, routes=None):
     """Admit ``R`` requests (tokens (R, S)) into the named, currently
     released batch slots of a live cache and prefill them; every other
-    slot is untouched. Returns (last-position logits (R, vocab), cache,
-    ok); ``ok`` False = the pool could not cover the admission and the
-    cache is unchanged. Ragged rows allocate by the padded length (dense
-    and dropless MoE models only: capacity routing would let pads affect
-    real tokens). MoE layers route with the config's capacity rule, as
+    slot is untouched. ``slot_ids`` and ``prompt_lens`` (R,) are host
+    sequences or device tensors. Returns (last-position logits (R,
+    vocab), cache, ok); ``ok`` False = the pool could not cover the
+    admission, the bookkeeping is the cache's own and the K/V went into
+    the sink. Ragged rows allocate by the padded length (dense and
+    dropless MoE models only: capacity routing would let pads affect real
+    tokens). MoE layers route with the config's capacity rule, as
     ``decode.prefill`` does. ``routes``: the engine's routing record,
     written at the rows' positions 0..S−1."""
     c = config
     _check_prefill(c, cache, tokens.shape[1], ragged=prompt_lens is not None)
     r, s_p = tokens.shape
-    b = cache.block_tables.shape[0]
+    dev = tokens.device
     slot_ids = _on(cache, slot_ids, torch.long)
-    mask = torch.zeros(b, dtype=torch.int32, device=slot_ids.device)
-    mask[slot_ids] = _on(cache, 1)  # the number's copy, counted
-    cache, ok = admit(cache, mask, mask * s_p)
-    tables_r = cache.block_tables[slot_ids]
-    zero = torch.zeros(r, dtype=torch.int32, device=tokens.device)
-    index = _write_index(tables_r, zero, s_p, cache.block_size) if ok else None
-    positions = torch.arange(s_p, dtype=torch.int32,
-                             device=tokens.device).expand(r, s_p)
+    hit = (torch.arange(cache.block_tables.shape[0], device=dev)[:, None]
+           == slot_ids[None, :])  # (B, R)
+    row = hit.any(dim=1)
+    cache, ok = admit(cache, row, row.to(torch.int32) * s_p)
+    index = _write_index(cache, cache.block_tables.index_select(0, slot_ids),
+                         torch.zeros(r, dtype=torch.int32, device=dev), s_p,
+                         ok.expand(r))
+    positions = torch.arange(s_p, dtype=torch.int32, device=dev).expand(r, s_p)
     record = _route_writer(routes, slot_ids, positions)
     x = _prefill_forward(params, tokens, positions, c, cache, index, record)
     if prompt_lens is not None:
         prompt_lens = _on(cache, prompt_lens)
     logits = _tied_logits(_last_real(x, prompt_lens), params["embed"], c.dtype)
-    if not ok:
-        return logits, cache, False
-    lens_r = (torch.full((r,), s_p, dtype=torch.int32, device=tokens.device)
-              if prompt_lens is None else prompt_lens)
-    length = cache.length.clone()
-    length[slot_ids] = lens_r
-    return logits, cache._replace(length=length), True
-
-
-def paged_prefill_slot(params: Dict, inputs: torch.Tensor,
-                       config: AnyConfig, cache: PagedKVCache, sink: int,
-                       routes=None):
-    """:func:`paged_prefill_rows` of one request, reading nothing back:
-    the serving engine's bucketed admission. ``inputs`` (S + 2,) int64 on
-    the cache's device holds the prompt padded to S, the released slot it
-    takes and its real length. The slot's blocks are claimed as
-    :func:`admit` claims them, but ``ok`` is a 0-dim bool tensor: a
-    refused admission returns bookkeeping equal to the cache's own and
-    writes its K/V into block ``sink`` only (``init_paged_cache(...,
-    sink=True)``). Returns (the last real position's logits (1, vocab),
-    cache, ok)."""
-    c = config
-    s_p = inputs.shape[0] - 2
-    _check_prefill(c, cache, s_p, ragged=True)
-    tokens, slot, real = inputs[None, :s_p], inputs[s_p:s_p + 1], inputs[-1:]
-    dev = inputs.device
-    row = torch.arange(cache.block_tables.shape[0], device=dev) == slot
-    cache, ok = _admit_on_device(cache, row, s_p)
-    cache = cache._replace(length=torch.where(
-        row & ok, real.to(torch.int32), cache.length))
-    index = _write_index(cache.block_tables.index_select(0, slot),
-                         torch.zeros(1, dtype=torch.int32, device=dev), s_p,
-                         cache.block_size, active=ok[None], sink=sink)
-    positions = torch.arange(s_p, dtype=torch.int32, device=dev)[None]
-    record = _route_writer(routes, slot, positions)
-    x = _prefill_forward(params, tokens, positions, c, cache, index, record)
-    logits = _tied_logits(_last_real(x, real), params["embed"], c.dtype)
-    return logits, cache, ok
+    lens = (hit * (s_p if prompt_lens is None else prompt_lens)).sum(dim=1)
+    return logits, cache._replace(length=torch.where(
+        row & ok, lens.to(torch.int32), cache.length)), ok
 
 
 def _check_prefill(c: AnyConfig, cache: PagedKVCache, s_p: int,
@@ -562,48 +502,36 @@ def _prefill_forward(params: Dict, tokens: torch.Tensor,
 
 def paged_decode_chunk(params: Dict, cache: PagedKVCache,
                        tokens: torch.Tensor, config: AnyConfig,
-                       attn_impl: str = "gather", active=None,
-                       sink: Optional[int] = None, routes=None):
+                       attn_impl: str = "gather", active=None, routes=None):
     """T tokens (B, T) in -> (per-position logits (B, T, vocab), cache,
     ok): token i attends the cache plus chunk tokens 0..i. T=1 is a decode
     step; T>1 is chunked prefill.
 
     ``ok`` False: the pool could not supply a block some row needed; the
-    cache comes back unchanged (no write, no length advance) and the
-    logits are meaningless. ``active`` (B,) masks rows: idle slots compute
-    garbage logits but write nothing and never advance.
-    ``attn_impl="kernel"`` reads through the paged decode kernel on T=1
-    steps; chunks read through the gather path. MoE layers route
+    bookkeeping comes back as it was (no length advance), the K/V went
+    into the sink and the logits are meaningless. ``active`` (B,) masks
+    rows: idle slots compute garbage logits, write into the sink and never
+    advance. ``attn_impl="kernel"`` reads through the paged decode kernel
+    on T=1 steps; chunks read through the gather path. MoE layers route
     drop-free, each row its own group, so idle rows never displace live
-    ones.
-
-    ``sink`` (a pool block no free stack holds, ``init_paged_cache(...,
-    sink=True)``) makes the step read nothing back from the device: idle
-    rows write into the sink, and ``ok`` is a 0-dim bool tensor; a
-    refused step returns new bookkeeping tensors equal to the old ones
-    and writes only into the sink. ``routes``: the engine's routing
-    record (B = its slots), written at the active rows' positions."""
+    ones. ``routes``: the engine's routing record (B = its slots), written
+    at the active rows' positions."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
     c = config
     b, t = tokens.shape
-    owned = cache.n_blocks > 0
-    active = owned if active is None else _on(cache, active, torch.bool) & owned
-    if sink is None:
-        cache, ok = _extend_for_write(cache, t, active)
-    else:
-        cache, ok = _extend_on_device(cache, t, active)
-        active = active & ok
+    active = _active_rows(cache, active)
+    cache, ok = _extend_for_write(cache, t, active)
+    active = active & ok
     use_kernel = attn_impl == "kernel" and t == 1
     pos = cache.length
     positions = pos[:, None] + torch.arange(
         t, dtype=torch.int32, device=tokens.device)[None, :]
-    index = (_write_index(cache.block_tables, pos, t, cache.block_size,
-                          active, sink) if ok is not False else None)
     tables = cache.block_tables
-    record = (_route_writer(routes, torch.arange(b, device=tokens.device),
-                            positions, active) if ok is not False else None)
+    index = _write_index(cache, tables, pos, t, active)
+    record = _route_writer(routes, torch.arange(b, device=tokens.device),
+                           positions, active)
     x = embedding_lookup(params["embed"], tokens, c.dtype)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _project_qkv(layer, x, positions, c)
@@ -623,20 +551,17 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
                            drop_free=True, record=record)
     x = _rmsnorm(x, params["ln_f"])
     logits = _tied_logits(x, params["embed"], c.dtype)
-    if ok is False:
-        return logits, cache, False
     return logits, cache._replace(length=torch.where(active, pos + t, pos)), ok
 
 
 def paged_decode_step(params: Dict, cache: PagedKVCache,
                       token: torch.Tensor, config: AnyConfig,
-                      attn_impl: str = "gather", active=None,
-                      sink: Optional[int] = None, routes=None):
+                      attn_impl: str = "gather", active=None, routes=None):
     """One token (B,) in -> (next-token logits (B, vocab), cache, ok);
-    ``sink`` and ``routes`` as in :func:`paged_decode_chunk`."""
+    ``routes`` as in :func:`paged_decode_chunk`."""
     logits, cache, ok = paged_decode_chunk(
         params, cache, token[:, None], config, attn_impl=attn_impl,
-        active=active, sink=sink, routes=routes)
+        active=active, routes=routes)
     return logits[:, 0], cache, ok
 
 
@@ -660,12 +585,12 @@ def paged_generate(params: Dict, prompt: torch.Tensor, config: AnyConfig,
     cache = init_paged_cache(c, b, num_blocks, block_size,
                              blocks_per_row=per_row, quant=kv_quant,
                              device=prompt.device)
+    # The pool covers the worst case, so every ok is True and none is read.
     logits, cache, _ok = paged_prefill(params, prompt, c, cache,
                                        prompt_lens=prompt_lens)
     token = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [token]
     for _ in range(max_new_tokens - 1):
-        # The pool covers the worst case, so every step is ok.
         logits, cache, _ok = paged_decode_step(params, cache, token, c,
                                                attn_impl=attn_impl)
         token = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -25,15 +25,18 @@ it admits through the bucketed prefill as a dense model does.
 The port runs eagerly; JAX's ``jit`` has no counterpart here. Prompt
 lengths are still padded to power-of-two buckets, because the padded
 length is what the block reservation is computed from. The exceptions
-are on the card. An engine's decode step reads nothing back until its
-tokens (``paged_decode_step(..., sink=...)``), so it is captured once as
-a CUDA graph at the fixed ``(slots,)`` shape and replayed every step
+are on the card. The paged cache reads nothing back (its ``ok`` stays on
+the device, refused writes go to its sink), so an engine's decode step
+reads nothing until its tokens and is captured once as a CUDA graph at
+the fixed ``(slots,)`` shape and replayed every step
 (:class:`_DecodeGraph`). A bucketed admission reads nothing back until
-its first token either (``paged_prefill_slot``: one upload of the padded
-prompt, its slot and its length, one read of the first token with the
-pool's ok), and a dense engine replays it from one CUDA graph per padded
-length (:class:`_PrefillGraph`); an MoE engine's admission, paced by its
-expert products, runs eagerly. CPU engines run everything eagerly.
+its first token either (``paged_prefill_rows`` on one upload of the
+padded prompt, its slot and its length, one read of the first token with
+the pool's ok), and a dense engine replays it from one CUDA graph per
+padded length (:class:`_PrefillGraph`); an MoE engine's admission, paced
+by its expert products, runs eagerly. CPU engines run everything
+eagerly. Chunked admission and prefixes read the pool's ok where they
+branch on it.
 
 An MoE engine may keep a routing record (``record_routes=True``): on the
 device, the top-k expert ids of every layer at every position it
@@ -66,7 +69,6 @@ from tpu_composer_torch.models.paged import (
     paged_decode_chunk,
     paged_decode_step,
     paged_prefill_rows,
-    paged_prefill_slot,
     release,
     upload,
 )
@@ -210,14 +212,11 @@ class ContinuousBatchingEngine:
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
         self.device = _params_device(params)
-        # Idle rows' decode writes go to block num_blocks, which the free
-        # stack never holds, so a decode step needs no host read.
         self.cache = init_paged_cache(
             config, slots, num_blocks, block_size,
-            blocks_per_row=blocks_per_row, quant=kv_quant, sink=True,
+            blocks_per_row=blocks_per_row, quant=kv_quant,
             device=self.device,
         )
-        self._sink = num_blocks
         # An engine on the card replays its decode step from a CUDA graph,
         # captured at its first decode step, and a dense engine its
         # bucketed admissions from one graph per padded length, captured
@@ -406,7 +405,7 @@ class ContinuousBatchingEngine:
             _, cache, ok = paged_prefill_rows(
                 self.params, upload(self.device, buf),
                 self.config, self.cache, slot_ids=[slot], prompt_lens=[p_n])
-            if not ok:
+            if not host_sync("pool_ok", bool, ok):
                 raise RuntimeError("pool cannot hold the prefix")
             self.cache = cache
         self.cache, ids, n_total = detach_row_keep_blocks(self.cache, slot)
@@ -423,7 +422,7 @@ class ContinuousBatchingEngine:
         c_sz = self.prefill_chunk
         mask = self._row_mask(slot)
         cache, ok = admit(self.cache, mask, mask * len(tokens))
-        if not ok:
+        if not host_sync("pool_ok", bool, ok):
             raise RuntimeError("pool cannot hold the prefix")
         self.cache = cache
         active = mask.astype(bool)
@@ -433,7 +432,7 @@ class ContinuousBatchingEngine:
             _, cache, ok = paged_decode_chunk(
                 self.params, self.cache, upload(self.device, chunk),
                 self.config, attn_impl=self.attn_impl, active=active)
-            if not ok:
+            if not host_sync("pool_ok", bool, ok):
                 raise RuntimeError("pool cannot hold the prefix")
             self.cache = cache
 
@@ -494,7 +493,8 @@ class ContinuousBatchingEngine:
                 mask = self._row_mask(slot)
                 cache, ok = admit(self.cache, mask, mask * pad)
                 tail = req.prompt
-            if not ok:  # host reservation makes this unreachable
+            if not host_sync("pool_ok", bool, ok):
+                # The host reservation makes this unreachable.
                 self._waiting.appendleft(req)
                 return []
             self.cache = cache
@@ -543,8 +543,13 @@ class ContinuousBatchingEngine:
         return self._graphed and self._admit_graphs is not None
 
     def _admit_body(self, cache, inputs: torch.Tensor):
-        return paged_prefill_slot(self.params, inputs, self.config, cache,
-                                  self._sink, **self._route_kw())
+        """The bucketed admission from its one upload ``inputs`` (S + 2,):
+        the prompt padded to S, the released slot it takes, its length."""
+        pad = inputs.shape[0] - 2
+        return paged_prefill_rows(
+            self.params, inputs[None, :pad], self.config, cache,
+            slot_ids=inputs[pad:pad + 1], prompt_lens=inputs[-1:],
+            **self._route_kw())
 
     def _admit(self, inputs: torch.Tensor):
         """The bucketed admission's (logits, cache, ok), ``ok`` on the
@@ -628,7 +633,7 @@ class ContinuousBatchingEngine:
             self.params, self.cache, upload(self.device, chunk),
             self.config, attn_impl=self.attn_impl, active=active,
             **self._route_kw())
-        if not ok:
+        if not host_sync("pool_ok", bool, ok):
             raise RuntimeError(
                 "pool exhausted during chunked admission despite "
                 "host-side reservation"
@@ -795,7 +800,7 @@ class ContinuousBatchingEngine:
     def _decode_body(self, cache, token: torch.Tensor, active: torch.Tensor):
         return paged_decode_step(
             self.params, cache, token, self.config, attn_impl=self.attn_impl,
-            active=active, sink=self._sink, **self._route_kw())
+            active=active, **self._route_kw())
 
     def run(self, max_steps: int = 100000) -> None:
         """Drive until every submitted request is done."""
@@ -894,7 +899,7 @@ class _DecodeGraph(_Graph):
 
 class _PrefillGraph(_Graph):
     """A dense engine's bucketed admission at one padded length, on the
-    admission's uploaded inputs (``paged_prefill_slot``); it raises K1's
+    admission's uploaded inputs (``_admit_body``); it raises K1's
     launch count."""
 
     COUNTERS = ((flash_fwd_cuda, "launches"),)

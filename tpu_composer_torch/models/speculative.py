@@ -32,6 +32,7 @@ from tpu_composer_torch.models.paged import (
     paged_decode_chunk,
     paged_prefill,
 )
+from tpu_composer_torch.runtime.tracing import host_sync
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -194,14 +195,14 @@ def paged_speculative_generate(params: Dict, draft_params: Dict,
                                  blocks_per_row=per_row, quant=kv_quant,
                                  device=prompt.device)
         logits, cache, ok = paged_prefill(p, prompt, cfg, cache)
-        if not ok:
+        if not host_sync("pool_ok", bool, ok):
             raise RuntimeError("pool could not cover the prompt")
         return logits, cache
 
     def chunked(p, cfg):
         def fn(cache, chunk):
             logits, cache, ok = paged_decode_chunk(p, cache, chunk, cfg)
-            if not ok:
+            if not host_sync("pool_ok", bool, ok):
                 raise RuntimeError(
                     "pool exhausted mid-speculation despite the capacity "
                     "precheck")
