@@ -29,7 +29,7 @@ nonzero. Phases, in order:
 
 1. ``card``: the card, its power limit, torch and CUDA versions. The
    raw ``nvidia-smi --query-gpu=name,power.limit`` line follows it.
-2. ``build``: nvcc seconds per kernel source (all three compile at once,
+2. ``build``: nvcc seconds per kernel source (all four compile at once,
    with the host compiler's builds of the scheduler's ``tpusched.cc``
    and the node agent's ``gpunode.cc`` beside them) and ptxas's report
    per kernel (registers, spills); a
@@ -72,6 +72,13 @@ nonzero. Phases, in order:
    1..64); fp32, bf16, int8; and at the MoE engine's MHA shape (KV=8,
    G=1, lengths 0..320). Two launches must give the same bits; the
    split geometry (chunk, n_split, CTAs) is printed.
+4a. ``swiglu``: the SwiGLU kernel (``csrc/swiglu.cu``) against the
+   eager chain, bit for bit: every bf16 bit pattern as the gate against
+   up values that hold ±0, ±inf, NaN and the largest finite values; a
+   shape whose rows and width are no multiple of 8 and an operand that
+   is not 16-byte aligned; and the cells' shapes (``SWIGLU_SHAPES``),
+   where it prints the kernel's device time, the eager chain's (its
+   five kernels) and the bytes floor (6 bytes an element).
 5. ``flash_bwd``: kernels B3 (dQ) and B4 (dK/dV) against
    ``flash_bwd_plain`` over B in {1, 2}, S in {8, 64, 256, 512} at D=64
    and S=100 at D=128, H=8 over KV in {2, 8}, causal or not, fp32 and
@@ -645,7 +652,8 @@ def phase_build() -> None:
     host = threading.Thread(target=build_native, name="host-libs-build")
     host.start()
     try:
-        seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
+        seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd",
+                                "swiglu"])
     finally:
         host.join()
     if native_err:
@@ -1115,6 +1123,71 @@ def phase_paged(gen: torch.Generator) -> dict:
     return timing
 
 
+#: SwiGLU's operands on the cells' paths: the MoE decode step's expert
+#: rows (E, B, C) = (8, 128, 1), the dense decode step's 128 rows, the
+#: dense prefill at pad 2,048 and an MoE admission's (8, 1, 1,024), all
+#: at Mistral's and Mixtral's width 14,336.
+SWIGLU_SHAPES = {"moe_decode": (8, 128, 14336), "dense_decode": (128, 14336),
+                 "dense_prefill": (2048, 14336),
+                 "moe_admit": (8, 1024, 14336)}
+
+
+def swiglu_edge_operands() -> tuple:
+    """(gate, up) on the card: every bf16 bit pattern as the gate (rows)
+    against 64 up values (columns): ±0, ±1, ±inf, NaN, the largest
+    finite bf16 both ways, the smallest subnormal, and N(0, 4) draws."""
+    gate = torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    special = torch.tensor([0.0, -0.0, 1.0, -1.0, math.inf, -math.inf,
+                            math.nan, 3.3895e38, -3.3895e38, 9.2e-41])
+    draws = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        64 - len(special), np.float32) * 2.0)
+    up = torch.cat([special, draws]).to(torch.bfloat16)
+    return (gate[:, None].expand(-1, 64).contiguous().cuda(),
+            up[None, :].expand(65536, -1).contiguous().cuda())
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def phase_swiglu(gen: torch.Generator) -> dict:
+    from tpu_composer_torch.ops.swiglu import swiglu_cuda, swiglu_plain
+
+    def bf16(shape):
+        return (torch.randn(shape, generator=gen) * 2.0).to(
+            "cuda", torch.bfloat16)
+
+    with _uncounted():
+        gate, up = swiglu_edge_operands()
+        check(same_bits(swiglu_cuda(gate, up), swiglu_plain(gate, up)),
+              "swiglu: every bf16 gate against the edge values differs from"
+              " the eager chain")
+        gate, up = bf16((37, 1003)), bf16((37, 1003))
+        check(same_bits(swiglu_cuda(gate, up), swiglu_plain(gate, up)),
+              "swiglu: (37, 1003) differs from the eager chain")
+        gate, up = bf16((8 * 1003 + 1,))[1:], bf16((8 * 1003,))
+        check(gate.data_ptr() % 16 != 0, "swiglu: the view is aligned")
+        check(same_bits(swiglu_cuda(gate, up), swiglu_plain(gate, up)),
+              "swiglu: an unaligned gate differs from the eager chain")
+        timing = {}
+        for name, shape in SWIGLU_SHAPES.items():
+            gate, up = bf16(shape), bf16(shape)
+            check(same_bits(swiglu_cuda(gate, up), swiglu_plain(gate, up)),
+                  f"swiglu: {name} {shape} differs from the eager chain")
+            t = timings(lambda: swiglu_cuda(gate, up),
+                        lambda: swiglu_plain(gate, up))
+            t["bound_ms"], t["bound_by"] = bound_ms(6 * gate.numel(),
+                                                    30 * gate.numel(),
+                                                    torch.bfloat16)
+            t.update(shape=list(shape), max_abs_err=0.0,
+                     floor_pct=100 * t["bound_ms"] / t["ms"])
+            timing[name] = t
+    emit("swiglu", bitwise=True, edge_rows=65536, edge_cols=64,
+         timing=timing)
+    return timing
+
+
 def _bwd_errors(got, want, dtype, case: str, worst: dict) -> None:
     """Check each of dq, dk, dv of one case against its plain value,
     relative to that gradient's own max|ref|, and keep in ``worst`` the
@@ -1333,6 +1406,7 @@ def _set_counts(counts: dict) -> None:
         flash_fwd_cuda,
     )
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
+    from tpu_composer_torch.ops.swiglu import swiglu_cuda
 
     flash_fwd_cuda.launches = counts["flash_fwd"]
     flash_fwd_cuda.launches_lse = counts["flash_fwd_lse"]
@@ -1340,6 +1414,7 @@ def _set_counts(counts: dict) -> None:
     flash_bwd_dkv_cuda.launches = counts["flash_bwd_dkv"]
     paged_decode_cuda.launches = counts["paged_decode"]
     paged_decode_cuda.launches_int8 = counts["paged_decode_int8"]
+    swiglu_cuda.launches = counts["swiglu"]
 
 
 def _reset_counts() -> None:
@@ -5835,6 +5910,7 @@ def main() -> int:
         timed_phase("operator_image", phase_operator_image, d, card)
     flash = timed_phase("flash_fwd", phase_flash, gen)
     paged = timed_phase("paged_decode", phase_paged, gen)
+    swiglu = timed_phase("swiglu", phase_swiglu, gen)
     bwd = timed_phase("flash_bwd", phase_flash_bwd, gen)
 
     # Each main path: every count is set to 0 just before its phases run
@@ -5967,6 +6043,10 @@ def main() -> int:
         row("paged_decode_int8", "tpu_composer_torch/csrc/paged_decode.cu",
             "tpu_composer/ops/paged_attention.py:41",
             "paged_attention.py::_kernel_quant", paged["int8_q_bf16"]),
+        row("swiglu", "tpu_composer_torch/csrc/swiglu.cu",
+            "none: the chain XLA fuses",
+            "transformer.py::swiglu_ffn, moe.py::_moe_ffn",
+            swiglu["moe_decode"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"], "count": card["count"]}}),

@@ -180,7 +180,8 @@ def test_a_dense_engine_keeps_no_record_and_no_moe_span(ring):
     assert not {n for n in names if n.startswith("moe.")}
     decodes = [e for e in ring.snapshot(cat="serving")
                if e["name"] == "serving.decode"]
-    assert all(set(e["args"]) <= {"graph", "parent_span"} for e in decodes)
+    assert all(set(e["args"]) <= {"graph", "parent_span", "swiglu_fused"}
+               for e in decodes)
 
 
 def _dropped(c, params, tokens):

@@ -18,7 +18,8 @@ in the forward and in the backward, so no float is accumulated by a
 scatter or an atomic and a token comes out the same bits every run. The
 arithmetic is the reference's: router logits in fp32 (fp32 activations
 times the fp32 router), expert inputs in the model dtype, the gate and
-up products in fp32 before SiLU with their product cast back, and the
+up products in fp32 before SiLU with their product cast back
+(``ops/swiglu.swiglu``, one kernel on the card in bf16), and the
 combine weights rounded to the model dtype before the top-k sum, which
 runs in fp32 in choice order and is rounded once.
 :func:`_top_k_routing` still returns the dense tensors, for the tests.
@@ -35,8 +36,9 @@ While a ``runtime/tracing`` tree is the thread's (a serving engine's
 step), each MoE layer records four spans in it: ``moe.route``,
 ``moe.dispatch``, ``moe.experts`` (args ``rows``, the E × B × C rows the
 expert products compute, and ``real``, the B × S × k (token, choice)
-pairs routed; both from shapes) and ``moe.combine``. They time the host's
-issue of each phase, not the device's work.
+pairs routed, both from shapes; ``fused``, 1 where SwiGLU's step ran
+the kernel ``csrc/swiglu.cu``, else 0) and ``moe.combine``. They time
+the host's issue of each phase, not the device's work.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from tpu_composer_torch.models.transformer import (
     full_embedding,
     swiglu_ffn,
 )
+from tpu_composer_torch.ops.swiglu import swiglu, swiglu_cuda
 from tpu_composer_torch.parallel.collectives import (
     all_reduce,
     all_to_all,
@@ -303,6 +306,11 @@ class _Phases:
             self.tree.end()
             self.tree.begin(name, **args)
 
+    def note(self, **args) -> None:
+        """Add ``args`` to the running phase's span."""
+        if self.tree is not None:
+            self.tree.note(**args)
+
     def end(self) -> None:
         if self.tree is not None:
             self.tree.end()
@@ -352,10 +360,12 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     e_local = xin.shape[0]
     xin = enter_parallel(xin.reshape(e_local, -1, d), tp_mesh, "tp")
     phases.next("moe.experts", rows=n_slots, real=b * s * k)
-    h_gate = F.silu(torch.bmm(xin, resolve(layer["w_gate"], c.dtype)).float())
-    h_up = torch.bmm(xin, resolve(layer["w_up"], c.dtype)).float()
-    xout = torch.bmm((h_gate * h_up).to(c.dtype),
-                     resolve(layer["w_down"], c.dtype))
+    h_gate = torch.bmm(xin, resolve(layer["w_gate"], c.dtype))
+    h_up = torch.bmm(xin, resolve(layer["w_up"], c.dtype))
+    launched = swiglu_cuda.launches
+    h = swiglu(h_gate, h_up)
+    phases.note(fused=swiglu_cuda.launches - launched)
+    xout = torch.bmm(h, resolve(layer["w_down"], c.dtype))
     phases.next("moe.combine")
     xout = all_reduce(xout, tp_mesh, "tp").reshape(e_local, -1, cap, d)
     # And back: (E/ep, ep·B, C, D) -> (E, B, C, D).

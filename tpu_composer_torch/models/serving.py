@@ -75,6 +75,7 @@ from tpu_composer_torch.models.paged import (
 from tpu_composer_torch.models.quant import QTensor
 from tpu_composer_torch.ops.attention import flash_fwd_cuda
 from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
+from tpu_composer_torch.ops.swiglu import swiglu_cuda
 from tpu_composer_torch.runtime import tracing
 from tpu_composer_torch.runtime.tracing import host_sync
 
@@ -510,7 +511,11 @@ class ContinuousBatchingEngine:
         tree.begin("serving.admit", req_id=req.req_id,
                    prompt=len(req.prompt), padded=pad,
                    graph=int(self._admit_graphed))
+        launched = swiglu_cuda.launches
         events = self._prefill(slot, req, pad, worst)
+        tree.note(swiglu_fused=self._fused(
+            launched, self._admit_graphs.get(pad + 2)
+            if self._admit_graphed else None))
         tree.end()
         return events
 
@@ -616,7 +621,9 @@ class ContinuousBatchingEngine:
         tree.begin("serving.admit", req_id=st["req"].req_id,
                    prompt=min(c_sz, st["tail"] - st["consumed"]),
                    padded=c_sz, graph=0)
+        launched = swiglu_cuda.launches
         events = self._chunk(st)
+        tree.note(swiglu_fused=self._fused(launched, None))
         tree.end()
         return events
 
@@ -726,10 +733,12 @@ class ContinuousBatchingEngine:
         decoded, ``tokens`` emitted, ``syncs``) holding ``serving.admit``
         (the admission up to its first token) and ``serving.decode`` (the
         decode forward, from the call until the logits return), each with
-        arg ``graph`` 1 where its forward is a CUDA graph's replay and 0
-        where it runs eagerly, and ``serving.emit`` (emitting the tokens
-        and freeing finished slots), and a ``serving.sync`` leaf (arg
-        ``what``) for each host sync, in whichever phase it falls."""
+        args ``graph`` (1 where its forward is a CUDA graph's replay, 0
+        where it runs eagerly) and ``swiglu_fused`` (the SwiGLU products
+        of its forward that ran the kernel ``csrc/swiglu.cu``), then
+        ``serving.emit`` (emitting the tokens and freeing finished
+        slots), and a ``serving.sync`` leaf (arg ``what``) for each host
+        sync, in whichever phase it falls."""
         tree = tracing.open_tree("serving.step", "serving")
         if tree is None:
             return self._step(None)[0]
@@ -757,9 +766,11 @@ class ContinuousBatchingEngine:
                 tree.begin("serving.decode", graph=1, **self._graph_args)
             else:
                 tree.begin("serving.decode", graph=0)
+        launched = swiglu_cuda.launches
         logits, cache, ok = self._decode(
             *upload(self.device, self._next_token, active))
         if tree is not None:
+            tree.note(swiglu_fused=self._fused(launched, self._graph))
             tree.end()
         if all(g is None for g in self._slot_gen):
             picks = torch.argmax(logits, dim=-1)
@@ -785,6 +796,15 @@ class ContinuousBatchingEngine:
         if tree is not None:
             tree.end()
         return events, len(rows)
+
+    @staticmethod
+    def _fused(launched: int, graph: Optional["_Graph"]) -> int:
+        """How many of the SwiGLU products of the forward just run took
+        the kernel (``swiglu_fused`` on its span): a replayed graph's,
+        counted at its capture; an eager forward's, the kernel's launches
+        since ``launched``."""
+        return swiglu_cuda.launches - launched if graph is None else (
+            graph.fused)
 
     def _decode(self, token: torch.Tensor, active: torch.Tensor):
         """The decode step's (logits, cache, ok), ``ok`` on the device:
@@ -848,9 +868,10 @@ class _Graph:
     side stream; ``pool`` is a memory pool shared with other graphs that
     never replay at once. The kernels' launch counts (``COUNTERS``),
     which a capture raises without running anything, are put back and
-    raised by as much at each replay."""
+    raised by as much at each replay; the first is the SwiGLU kernel's
+    (:attr:`fused`)."""
 
-    COUNTERS: Tuple[Tuple[Any, str], ...] = ()
+    COUNTERS: Tuple[Tuple[Any, str], ...] = ((swiglu_cuda, "launches"),)
 
     def __init__(self, eng: "ContinuousBatchingEngine", body,
                  args: Tuple[torch.Tensor, ...], pool=None):
@@ -874,6 +895,12 @@ class _Graph:
             setattr(fn, name, was)
         self.replays = 0
 
+    @property
+    def fused(self) -> int:
+        """The SwiGLU products of the captured forward that run the
+        kernel."""
+        return self.launches[0]
+
     def replay(self, cache, *args):
         """The forward from ``cache`` on ``args``: (logits, cache, ok)."""
         for buf, a in zip(self.args, args):
@@ -893,8 +920,8 @@ class _DecodeGraph(_Graph):
     """An engine's decode step at its fixed ``(slots,)`` shape, on the
     step's tokens and active mask; it raises K2's launch counts."""
 
-    COUNTERS = ((paged_decode_cuda, "launches"),
-                (paged_decode_cuda, "launches_int8"))
+    COUNTERS = _Graph.COUNTERS + ((paged_decode_cuda, "launches"),
+                                  (paged_decode_cuda, "launches_int8"))
 
 
 class _PrefillGraph(_Graph):
@@ -902,4 +929,4 @@ class _PrefillGraph(_Graph):
     admission's uploaded inputs (``_admit_body``); it raises K1's
     launch count."""
 
-    COUNTERS = ((flash_fwd_cuda, "launches"),)
+    COUNTERS = _Graph.COUNTERS + ((flash_fwd_cuda, "launches"),)

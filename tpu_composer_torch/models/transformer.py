@@ -15,11 +15,11 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from tpu_composer_torch.device import DeviceLike, resolve_device
 from tpu_composer_torch.models.quant import embedding_lookup, resolve
 from tpu_composer_torch.ops.attention import flash_attention, mha_reference
+from tpu_composer_torch.ops.swiglu import swiglu
 from tpu_composer_torch.parallel.collectives import (
     all_gather,
     all_reduce,
@@ -245,11 +245,9 @@ def swiglu_ffn(h: torch.Tensor, layer: Dict, dtype,
     enters the tp region and the partial ``w_down`` products are summed
     over tp."""
     h = enter_parallel(h, mesh, "tp")
-    gate = F.silu(torch.einsum(
-        "bsd,df->bsf", h, resolve(layer["w_gate"], dtype)).float())
-    up = torch.einsum("bsd,df->bsf", h,
-                      resolve(layer["w_up"], dtype)).float()
-    out = torch.einsum("bsf,fd->bsd", (gate * up).to(dtype),
+    gate = torch.einsum("bsd,df->bsf", h, resolve(layer["w_gate"], dtype))
+    up = torch.einsum("bsd,df->bsf", h, resolve(layer["w_up"], dtype))
+    out = torch.einsum("bsf,fd->bsd", swiglu(gate, up),
                        resolve(layer["w_down"], dtype))
     return all_reduce(out, mesh, "tp")
 

@@ -446,6 +446,11 @@ class Tree:
         self.open.append(len(spans))
         spans.append([name, self.cat, _clock(), 0, self.open[-2], args])
 
+    def note(self, **args: Any) -> None:
+        """Add ``args`` to the innermost open span's, for what is known
+        only once its work has been issued."""
+        self.spans[self.open[-1]][5].update(args)
+
     def end(self) -> None:
         self.spans[self.open.pop()][3] = _clock()
 

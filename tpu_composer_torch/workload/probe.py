@@ -139,13 +139,15 @@ def kernel_launches() -> Dict[str, int]:
         flash_fwd_cuda,
     )
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
+    from tpu_composer_torch.ops.swiglu import swiglu_cuda
 
     return {"flash_fwd": flash_fwd_cuda.launches,
             "flash_fwd_lse": flash_fwd_cuda.launches_lse,
             "flash_bwd_dq": flash_bwd_dq_cuda.launches,
             "flash_bwd_dkv": flash_bwd_dkv_cuda.launches,
             "paged_decode": paged_decode_cuda.launches,
-            "paged_decode_int8": paged_decode_cuda.launches_int8}
+            "paged_decode_int8": paged_decode_cuda.launches_int8,
+            "swiglu": swiglu_cuda.launches}
 
 
 def launch_record(before: Dict[str, int]) -> Dict[str, Any]:
