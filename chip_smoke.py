@@ -79,6 +79,16 @@ nonzero. Phases, in order:
    is not 16-byte aligned; and the cells' shapes (``SWIGLU_SHAPES``),
    where it prints the kernel's device time, the eager chain's (its
    five kernels) and the bytes floor (6 bytes an element).
+4b. ``mla_decode``: the latent decode kernel K3 (``csrc/mla_decode.cu``)
+   against its gather twin in bf16: ragged lengths with a 0-length row,
+   a block's last position, tile and split boundaries, chunks of 32, 96
+   and 512, full rows; two launches give the same bits and a CUDA
+   graph's replay on new lengths the eager launch's; then its device
+   time at the MLA cell's decode shape (128 rows, 512 blocks of 16,
+   every row 3,200 and then 7,500 long) beside its bytes floor.
+4c. ``flash_fwd_192``: K1's 192 instance (MLA's expanded prefill: q and
+   k 192 wide, v 128 zero-padded) against the plain version, causal, at
+   both CTA heights; its time at one 2,048 prompt of 16 heads.
 5. ``flash_bwd``: kernels B3 (dQ) and B4 (dK/dV) against
    ``flash_bwd_plain`` over B in {1, 2}, S in {8, 64, 256, 512} at D=64
    and S=100 at D=128, H=8 over KV in {2, 8}, causal or not, fp32 and
@@ -114,6 +124,15 @@ nonzero. Phases, in order:
    the engine's chunks, reference attention);
    tokens/s, decode step p50, a profile of 8 decode steps with the MoE
    FFN's share; K2 mid-flight against the gather path, as in ``serve``.
+9a. ``mla_serve``: the MLA engine at K3's widths (16 heads, latent
+   entries 512 + 64, nope 128, v 128; d_model 256, a dense layer then
+   an MoE layer of 8 experts top-2 by sigmoid scores and one shared) in
+   bf16, built with the engine's default ``attn_impl``, 6 greedy
+   requests of 17-513 tokens and 48 outputs on 4 slots, once with the
+   decode graph and once eagerly: K1's 192 instance and K3 must launch
+   in each; each request's first-token logits against the plain
+   expanded forward (``flash_fwd_plain``, 5e-2), and the graphed
+   engine's tokens and routing records equal the eager engine's.
 10. ``speculative``: the MoE flagship in fp32 (prefill through K1) as
     target, its int8-quantized self as draft, gamma 4, 3 prompts of
     32-200 tokens, 64 new tokens, through ``speculative_generate`` and
@@ -397,7 +416,7 @@ nonzero. Phases, in order:
     adoption.
 32. ``timing`` (the whole run's seconds, builds included, and each
     phase's) and ``launches`` (per path: serving is phases 6-7,
-    moe_serving 8-9, speculative 10, training 11-13, moe_training 14,
+    moe_serving 8-9, mla_serving 9a, speculative 10, training 11-13, moe_training 14,
     mesh_training 15-16, pipeline_training 17, reshard_training 18,
     composed_worker 19-25, operator_ha 26-27, operator_fleet 28-29,
     operator_binary 30-31, the ranks', the probe child's and the pod's
@@ -597,10 +616,11 @@ def phase_card() -> dict:
     return card
 
 
-# Kernels that must compile without spills: the tensor-core B3 and K2's
-# two kernels (every instantiation).
+# Kernels that must compile without spills: the tensor-core B3, K2's
+# two kernels and K3's two (every instantiation).
 NO_SPILL = ("flash_bwd_dq_tc_kernel", "paged_decode_split_kernel",
-            "paged_decode_merge_kernel")
+            "paged_decode_merge_kernel", "mla_decode_split_kernel",
+            "mla_decode_merge_kernel")
 
 
 def _ptxas_report(log: str) -> list:
@@ -614,7 +634,7 @@ def _ptxas_report(log: str) -> list:
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(_Z\w+)", ln)
         if m:
-            name = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?E)?E?v",
+            name = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?E)?E?[vP]",
                              m.group(1))
             current = ([name.group(1), name.group(2) or "", None, 0]
                        if name else [m.group(1)[:60], "", None, 0])
@@ -653,7 +673,7 @@ def phase_build() -> None:
     host.start()
     try:
         seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd",
-                                "swiglu"])
+                                "swiglu", "mla_decode"])
     finally:
         host.join()
     if native_err:
@@ -1188,6 +1208,158 @@ def phase_swiglu(gen: torch.Generator) -> dict:
     return timing
 
 
+#: K3's inputs on the MLA cell's decode step: 128 rows, 16 heads, entries
+#: of 576 (512 + 64 rope), blocks of 16, 512 table slots a row (8,192
+#: positions); live lengths about the cell's mean and near its end.
+MLA_ROWS, MLA_BS, MLA_MB = 128, 16, 512
+MLA_LENGTHS = {"mean_3k2": 3200, "late_7k5": 7500}
+
+
+def _mla_inputs(gen, b: int, mb: int, lengths, bs: int = MLA_BS):
+    """q (B, 16, 576), a pool whose rows own shuffled blocks, tables and
+    lengths, bf16 on the card."""
+    n = b * mb
+    q = torch.randn(b, 16, 576, generator=gen).to("cuda", torch.bfloat16)
+    pool = torch.randn(n + 1, bs, 576, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+    tables = torch.randperm(n, generator=gen).to(torch.int32).view(b, mb)
+    return (q, pool, tables.cuda(), torch.as_tensor(
+        lengths, dtype=torch.int32).cuda())
+
+
+def _mla_bound(args) -> tuple:
+    """K3's bytes (each live entry once, q in, o_lat out) and operations
+    (2·(576 + 512) per live (head, position))."""
+    q, _, _, lengths = args
+    live = int(lengths.clamp_min(0).sum())
+    n_bytes = live * 576 * 2 + q.shape[0] * 16 * (576 + 512) * 2
+    return bound_ms(n_bytes, live * 16 * 2 * (576 + 512), torch.bfloat16)
+
+
+def phase_mla_decode(gen: torch.Generator) -> dict:
+    """K3 against its gather twin: ragged lengths with a 0-length row,
+    the last position of a block, split and tile boundaries, several
+    chunk sizes; two launches give the same bits, and a CUDA graph's
+    replay on new lengths gives the eager launch's bits; then times at
+    the cell's shapes."""
+    from tpu_composer_torch.ops.mla_decode import (
+        _mla_split,
+        mla_decode_cuda,
+        mla_decode_plain,
+    )
+
+    scale = 192 ** -0.5
+    errs, timing = {}, {}
+    edge = [0, 1, 15, 16, 17, 31, 32, 33, 511, 512, 513, 1023, 1024]
+    with _uncounted():
+        for name, (b, mb, lengths, chunk) in {
+                "edges": (len(edge), 80, edge, None),
+                "ragged": (16, 80, torch.randint(0, 1281, (16,),
+                                                 generator=gen).tolist(),
+                           None),
+                "chunk_32": (6, 8, [0, 31, 32, 64, 100, 128], 32),
+                "chunk_96": (6, 8, [5, 95, 96, 97, 127, 128], 96),
+                "full": (4, 24, [384] * 4, None)}.items():
+            args = _mla_inputs(gen, b, mb, lengths)
+            got = mla_decode_cuda(*args, scale, chunk=chunk)
+            want = mla_decode_plain(*args, scale, 512)
+            torch.cuda.synchronize()
+            errs[name] = max_err(got, want)
+            check(errs[name] <= TOL[torch.bfloat16],
+                  f"mla_decode {name} error {errs[name]}")
+            zero = [i for i, n in enumerate(lengths) if n == 0]
+            check(all(bool((got[i] == 0).all()) for i in zero),
+                  f"mla_decode {name}: a 0-length row is not zero")
+            again = mla_decode_cuda(*args, scale, chunk=chunk)
+            check(same_bits(got, again),
+                  f"mla_decode {name}: two launches differ")
+        # A graph captured on one set of lengths, replayed on another.
+        q, pool, tables, lengths = _mla_inputs(gen, 8, 80, [700] * 8)
+        static = [q.clone(), lengths.clone()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mla_decode_cuda(static[0], pool, tables, static[1], scale)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = mla_decode_cuda(static[0], pool, tables, static[1], scale)
+        new = torch.tensor([1, 16, 513, 1279, 0, 640, 1024, 77],
+                           dtype=torch.int32, device="cuda")
+        static[1].copy_(new)
+        graph.replay()
+        eager = mla_decode_cuda(q, pool, tables, new, scale)
+        torch.cuda.synchronize()
+        check(same_bits(out, eager),
+              "mla_decode: a graph replay differs from the eager launch")
+        for name, n in MLA_LENGTHS.items():
+            args = _mla_inputs(gen, MLA_ROWS, MLA_MB, [n] * MLA_ROWS)
+            err = max_err(mla_decode_cuda(*args, scale),
+                          mla_decode_plain(*args, scale, 512))
+            check(err <= TOL[torch.bfloat16], f"mla_decode {name} error {err}")
+            t = {**timings(lambda: mla_decode_cuda(*args, scale),
+                           lambda: mla_decode_plain(*args, scale, 512)),
+                 "rows": MLA_ROWS, "length": n, "max_abs_err": err}
+            t["bound_ms"], t["bound_by"] = _mla_bound(args)
+            t["floor_pct"] = 100 * t["bound_ms"] / t["ms"]
+            timing[name] = t
+    chunk, n_split = _mla_split(MLA_BS, MLA_MB)
+    emit("mla_decode", errors=errs, tol=TOL[torch.bfloat16],
+         geometry={"chunk": chunk, "n_split": n_split,
+                   "split_ctas": MLA_ROWS * n_split},
+         bitwise_repeatable=True, graph_replay=True, timing=timing)
+    return timing
+
+
+def phase_flash_192(gen: torch.Generator) -> dict:
+    """K1's 192 instance on MLA's expanded prefill (q and k 192 wide, v
+    128, zero-padded by the wrapper) against the plain version, causal,
+    at both CTA heights, ragged and at the cell's admission shape; then
+    its time at one prompt of 2,048 with 16 heads (operations: 2·16·(192
+    + 128) per causal pair; bytes: q, k, v and out once)."""
+    from tpu_composer_torch.ops.attention import (
+        _fwd_rows,
+        flash_fwd_cuda,
+        flash_fwd_plain,
+    )
+
+    def inputs(b, s):
+        return (torch.randn(b, s, 16, 192, generator=gen).to("cuda", dtype),
+                torch.randn(b, s, 16, 192, generator=gen).to("cuda", dtype),
+                torch.randn(b, s, 16, 128, generator=gen).to("cuda", dtype))
+
+    dtype, worst = torch.bfloat16, 0.0
+    with _uncounted():
+        for b, s in ((1, 8), (2, 100), (1, 256), (1, 1024)):
+            q, k, v = inputs(b, s)
+            want, _ = flash_fwd_plain(q, k, v, True)
+            for rows in (16, 64):
+                got, _ = flash_fwd_cuda(q, k, v, True, rows=rows)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape, "flash_fwd 192: out shape")
+                worst = max(worst, max_err(got, want))
+        check(worst <= TOL[dtype], f"flash_fwd 192/128 error {worst}")
+        b, s = 1, 2048
+        q, k, v = inputs(b, s)
+        err = max_err(flash_fwd_cuda(q, k, v, True)[0],
+                      flash_fwd_plain(q, k, v, True)[0])
+        check(err <= TOL[dtype], f"flash_fwd 192/128 at 2048 error {err}")
+        timing = {"shape": [b, s, 16, 192, 128], "rows": _fwd_rows(b, 16, s),
+                  **timings(lambda: flash_fwd_cuda(q, k, v, True),
+                            lambda: flash_fwd_plain(q, k, v, True)),
+                  "max_abs_err": max(err, worst)}
+        timing["by_rows"] = {
+            str(r): dict(zip(("ms", "issue_ms"), timed(
+                lambda r=r: flash_fwd_cuda(q, k, v, True, rows=r))))
+            for r in (16, 64)}
+    pairs = 16 * s * (s + 1) // 2
+    timing["bound_ms"], timing["bound_by"] = bound_ms(
+        2 * s * 16 * (2 * 192 + 2 * 128), pairs * 2 * (192 + 128), dtype)
+    timing["floor_pct"] = 100 * timing["bound_ms"] / timing["ms"]
+    emit("flash_fwd_192", tol=TOL[dtype], **timing)
+    return timing
+
+
 def _bwd_errors(got, want, dtype, case: str, worst: dict) -> None:
     """Check each of dq, dk, dv of one case against its plain value,
     relative to that gradient's own max|ref|, and keep in ``worst`` the
@@ -1405,11 +1577,14 @@ def _set_counts(counts: dict) -> None:
         flash_bwd_dq_cuda,
         flash_fwd_cuda,
     )
+    from tpu_composer_torch.ops.mla_decode import mla_decode_cuda
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
     from tpu_composer_torch.ops.swiglu import swiglu_cuda
 
+    mla_decode_cuda.launches = counts["mla_decode"]
     flash_fwd_cuda.launches = counts["flash_fwd"]
     flash_fwd_cuda.launches_lse = counts["flash_fwd_lse"]
+    flash_fwd_cuda.launches_192 = counts["flash_fwd_192"]
     flash_bwd_dq_cuda.launches = counts["flash_bwd_dq"]
     flash_bwd_dkv_cuda.launches = counts["flash_bwd_dkv"]
     paged_decode_cuda.launches = counts["paged_decode"]
@@ -2050,6 +2225,119 @@ def phase_moe_serve(rng: np.random.Generator, seed: int) -> dict:
         emit("moe_serve_profile", **results["profile"])
         eng.run()
     return results
+
+
+#: The MLA serving path's model: K3's widths (16 heads, entries 512 + 64,
+#: nope 128, v 128) with a small rest, a dense layer then an MoE layer of
+#: 8 experts of width 64, top-2 by sigmoid scores, and one shared expert.
+MLA_SMALL = dict(vocab_size=4096, d_model=256, n_layers=2, n_heads=16,
+                 d_ff=512, max_seq=2048, n_experts=8, top_k=2,
+                 first_k_dense_replace=1, n_shared_experts=1,
+                 routed_scaling_factor=2.446, rope_theta=50000.0,
+                 kv_lora_rank=512, qk_nope_head_dim=128,
+                 qk_rope_head_dim=64)
+MLA_EXPERT_F, MLA_V = 64, 128
+
+
+def _mla_params(cfg, seed: int) -> dict:
+    """Seeded weights of the MLA tree (``models/mla.py``) on the card:
+    matrices N(0, 0.02) in the config's dtype, the router N(0, 0.02) and
+    the selection bias N(0, 0.05) in fp32, norms ones."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    d, h, r, e = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank, cfg.n_experts
+    f, fs = MLA_EXPERT_F, cfg.n_shared_experts * MLA_EXPERT_F
+
+    def w(*shape, dtype=cfg.dtype, std=0.02):
+        return (torch.randn(shape, generator=gen, device=DEVICE)
+                * std).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.float32, device=DEVICE)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        layer = {"ln1": ones(d), "ln2": ones(d), "kv_norm": ones(r),
+                 "wq": w(d, h, cfg.qk_head_dim), "wkva": w(d, cfg.latent_dim),
+                 "wkvb": w(r, h, cfg.qk_nope_head_dim + MLA_V),
+                 "wo": w(h, MLA_V, d)}
+        if i < cfg.first_k_dense_replace:
+            layer.update(w_gate=w(d, cfg.d_ff), w_up=w(d, cfg.d_ff),
+                         w_down=w(cfg.d_ff, d))
+        else:
+            layer.update(w_gate=w(e, d, f), w_up=w(e, d, f),
+                         w_down=w(e, f, d), shared_w_gate=w(d, fs),
+                         shared_w_up=w(d, fs), shared_w_down=w(fs, d),
+                         w_router=w(d, e, dtype=torch.float32),
+                         e_score_correction_bias=w(e, dtype=torch.float32,
+                                                   std=0.05))
+        layers.append(layer)
+    return {"embed": w(cfg.vocab_size, d), "ln_f": ones(d), "layers": layers}
+
+
+def phase_mla_serve(rng: np.random.Generator, seed: int) -> dict:
+    """The MLA engine at K3's widths (``MLA_SMALL``, bf16), built with the
+    engine's default ``attn_impl``: admission through K1's 192 instance,
+    decode through K3 in the decode graph. Each request's first-token
+    logits against the plain expanded forward (``flash_fwd_plain``), and
+    the graphed engine's tokens and routing records against an eager
+    engine's on the same requests."""
+    from tpu_composer_torch.models import mla
+    from tpu_composer_torch.models.mla import MLAConfig
+    from tpu_composer_torch.ops.attention import flash_fwd_plain
+
+    cfg = MLAConfig(dtype=torch.bfloat16, **MLA_SMALL)
+    params = _mla_params(cfg, seed)
+    Engine = _make_recording_engine()
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (40, 17, 200, 513, 96, 300)]
+    new_tokens, kernels = 48, ("flash_fwd_192", "mla_decode")
+
+    def plain(q, k, v, causal):
+        return flash_fwd_plain(q, k, v, causal)[0]
+
+    runs = {}
+    for name, graphed in (("graphed", True), ("eager", False)):
+        before = _counts()
+        # A row's worst case: a 1,024 bucket plus 48 outputs, 67 blocks.
+        eng = Engine(params, cfg, slots=4, num_blocks=320, block_size=16,
+                     blocks_per_row=80, record_routes=True)
+        eng._graphed = graphed
+        eng.first_logits = {}
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launched(before, kernels)
+        check(all(r.done and len(r.tokens) == new_tokens for r in reqs),
+              f"MLA {name} engine left a request unfinished")
+        check(int(eng.cache.free_top) == 320,
+              f"MLA {name} engine pool did not drain")
+        check(all(launches[k] > 0 for k in kernels),
+              f"MLA {name} engine did not launch K1 192 and K3: {launches}")
+        runs[name] = {"tokens": [r.tokens for r in reqs],
+                      "routes": [r.routes.cpu() for r in reqs],
+                      "first": eng.first_logits, "launches": launches,
+                      "wall_s": wall}
+    check(runs["graphed"]["tokens"] == runs["eager"]["tokens"],
+          "MLA graphed engine's tokens differ from the eager engine's")
+    check(all(torch.equal(a, b) for a, b in zip(runs["graphed"]["routes"],
+                                                 runs["eager"]["routes"])),
+          "MLA graphed engine's routing records differ from the eager's")
+    with _uncounted():
+        # Request ids count from 0 in each engine: i is the i-th prompt's.
+        worst = max(max_err(runs["graphed"]["first"][i], mla.forward(
+            params, torch.tensor([p], device=DEVICE), cfg,
+            attn_fn=plain)[0, -1].float().cpu())
+            for i, p in enumerate(prompts))
+    check(worst <= LOGIT_TOL_BF16,
+          f"MLA first-token logits off the plain forward by {worst}")
+    out = {"requests": len(prompts), "tokens_equal": True,
+           "first_logit_err": worst, "tol": LOGIT_TOL_BF16,
+           **{f"{n}_launches": r["launches"] for n, r in runs.items()},
+           **{f"{n}_wall_s": r["wall_s"] for n, r in runs.items()}}
+    emit("mla_serve", **out)
+    return out
 
 
 def phase_speculative(rng: np.random.Generator, seed: int) -> dict:
@@ -5911,6 +6199,8 @@ def main() -> int:
     flash = timed_phase("flash_fwd", phase_flash, gen)
     paged = timed_phase("paged_decode", phase_paged, gen)
     swiglu = timed_phase("swiglu", phase_swiglu, gen)
+    mla_decode = timed_phase("mla_decode", phase_mla_decode, gen)
+    flash_192 = timed_phase("flash_fwd_192", phase_flash_192, gen)
     bwd = timed_phase("flash_bwd", phase_flash_bwd, gen)
 
     # Each main path: every count is set to 0 just before its phases run
@@ -5934,6 +6224,8 @@ def main() -> int:
                  (("moe_serve_exact",
                    lambda: phase_moe_serve_exact(rng, seed)),
                   ("moe_serve", lambda: phase_moe_serve(rng, seed)))),
+                ("mla_serving", ("flash_fwd_192", "mla_decode", "swiglu"),
+                 (("mla_serve", lambda: phase_mla_serve(rng, seed)),)),
                 ("speculative", ("flash_fwd",),
                  (("speculative", lambda: phase_speculative(rng, seed)),)),
                 ("training", train_kernels,
@@ -6047,6 +6339,12 @@ def main() -> int:
             "none: the chain XLA fuses",
             "transformer.py::swiglu_ffn, moe.py::_moe_ffn",
             swiglu["moe_decode"]),
+        row("mla_decode", "tpu_composer_torch/csrc/mla_decode.cu",
+            "none: the JAX package has no latent attention",
+            "paged.py::_mla_decode_forward", mla_decode["mean_3k2"]),
+        row("flash_fwd_192", "tpu_composer_torch/csrc/flash_fwd.cu",
+            "none: the JAX package has no latent attention",
+            "mla.py::expanded_attention", flash_192),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"], "count": card["count"]}}),

@@ -9,9 +9,11 @@ Tolerances (absolute): fp32 1e-4 (other summation order); bf16 2e-2
 (bf16 outputs; K2 keeps P in fp32 where the gather path rounds it to
 bf16); lse 1e-4; int8 pools with fp32 queries 2e-4. The backward
 kernels B3/B4, relative to each gradient's own max|ref|: fp32 1e-4; bf16
-3e-2 (dS is rounded to bf16 before two products). B3 and B4 in bf16 and
-K2 (split pass and merge) are also held to the same bits on two
-launches.
+3e-2 (dS is rounded to bf16 before two products). B3 and B4 in bf16,
+K2 (split pass and merge) and K3 (the latent decode kernel, bf16 only;
+its twin rounds P at the row's max where the kernel rounds at each
+tile's, within the bf16 tolerance) are also held to the same bits on
+two launches.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from tpu_composer_torch.models.decode import quantize_kv
 from tpu_composer_torch.ops import attention as tattn
+from tpu_composer_torch.ops import mla_decode as tmla
 from tpu_composer_torch.ops import paged_attention as tpa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -425,3 +428,78 @@ def test_flash_serving_prefill_shape_matches_plain(card):
     assert lse is None and tattn.flash_fwd_cuda.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=TOL[torch.bfloat16])
+
+
+# -- K3 (latent decode) and K1 at 192/128 (MLA's expanded prefill) ----------
+
+def _mla_case(rng, card, lengths, mb, bs=16):
+    """q (B, 16, 576), a pool of shuffled blocks, tables, lengths."""
+    b = len(lengths)
+    q = _rand(rng, (b, 16, 576), card, torch.bfloat16)
+    pool = _rand(rng, (b * mb + 1, bs, 576), card, torch.bfloat16)
+    tables = torch.from_numpy(rng.permutation(b * mb).astype(np.int32)).view(
+        b, mb).to(card)
+    return q, pool, tables, torch.tensor(lengths, dtype=torch.int32,
+                                         device=card)
+
+
+#: Ragged rows with a 0-length one, a block's last position (15, 31),
+#: tile edges (32, 33), split edges (511, 512, 513) and a full table.
+MLA_LENGTHS = [0, 1, 15, 16, 31, 32, 33, 100, 511, 512, 513, 1023, 1280]
+
+
+@pytest.mark.parametrize("chunk", [None, 32, 96, 1024])
+def test_mla_kernel_matches_its_twin(card, chunk):
+    rng = np.random.default_rng(3)
+    args = _mla_case(rng, card, MLA_LENGTHS, mb=80)
+    scale = 192 ** -0.5
+    before = tmla.mla_decode_cuda.launches
+    got = tmla.mla_decode_cuda(*args, scale, chunk=chunk)
+    want = tmla.mla_decode_plain(*args, scale, 512)
+    torch.cuda.synchronize()
+    assert tmla.mla_decode_cuda.launches == before + 1
+    assert float((got.float() - want.float()).abs().max()) <= TOL[
+        torch.bfloat16]
+    assert bool((got[0] == 0).all())
+    again = tmla.mla_decode_cuda(*args, scale, chunk=chunk)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def test_mla_kernel_replays_from_a_graph(card):
+    """Captured on one set of lengths and replayed on another, K3 gives
+    the eager launch's bits (no host read, fixed shapes)."""
+    rng = np.random.default_rng(4)
+    q, pool, tables, lengths = _mla_case(rng, card, [600] * 8, mb=64)
+    scale = 192 ** -0.5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmla.mla_decode_cuda(q, pool, tables, lengths, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmla.mla_decode_cuda(q, pool, tables, lengths, scale)
+    new = torch.tensor([1, 16, 513, 1023, 0, 640, 1024, 77],
+                       dtype=torch.int32, device=card)
+    lengths.copy_(new)
+    graph.replay()
+    eager = tmla.mla_decode_cuda(q, pool, tables, new, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+
+
+@pytest.mark.parametrize("rows", [16, 64])
+def test_flash_192_128_matches_plain(card, rows):
+    """MLA's expanded prefill: q and k 192 wide, v 128 (the wrapper pads
+    it to 192 and cuts the output back), causal, bf16."""
+    rng = np.random.default_rng(5)
+    for b, s in ((1, 8), (2, 100), (1, 512)):
+        q = _rand(rng, (b, s, 16, 192), card, torch.bfloat16)
+        k = _rand(rng, (b, s, 16, 192), card, torch.bfloat16)
+        v = _rand(rng, (b, s, 16, 128), card, torch.bfloat16)
+        got, _ = tattn.flash_fwd_cuda(q, k, v, True, rows=rows)
+        want, _ = tattn.flash_fwd_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        assert got.shape == (b, s, 16, 128)
+        assert float((got.float() - want.float()).abs().max()) <= TOL[
+            torch.bfloat16]

@@ -523,6 +523,11 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
+// D 192 (bf16 only) is MLA's expanded prefill (models/mla.py): q and k
+// 192 wide (128 + 64 rope), v 128 wide zero-padded to 192 by the caller
+// (ops/attention.py), so the 1/√D factor is the model's 1/√192 and the
+// output's last 64 columns are zeros.
+//
 // dtype: 0 = fp32, 1 = bf16. Layouts: q/o (B, Sq, H, D), k/v (B, Sk, KV, D),
 // lse (B, H, Sq) fp32 or null. rows: query rows per CTA of the bf16
 // kernel, 16 or 64 (the fp32 kernel's CTAs are always 32 rows, and it
@@ -547,5 +552,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return tc::launch<128, 1, 4>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, s);
   if (dtype == 1 && D == 128 && rows == 64)
     return tc::launch<128, 4, 1>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, s);
+  if (dtype == 1 && D == 192 && rows == 16)
+    return tc::launch<192, 1, 4>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, s);
+  if (dtype == 1 && D == 192 && rows == 64)
+    return tc::launch<192, 4, 1>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, s);
   return (int)cudaErrorInvalidValue;
 }

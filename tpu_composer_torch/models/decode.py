@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from tpu_composer_torch.device import DeviceLike, resolve_device
+from tpu_composer_torch.models.mla import MLAConfig
 from tpu_composer_torch.models.moe import MoEConfig, RouteRecord, ffn_delta
 from tpu_composer_torch.models.quant import (
     embedding_lookup,
@@ -114,6 +115,10 @@ def init_kv_cache(config: AnyConfig, batch: int,
                   max_seq: Optional[int] = None, quant: bool = False,
                   device: DeviceLike = "cuda") -> KVCache:
     c = config
+    if isinstance(c, MLAConfig):
+        raise ValueError("an MLA config caches latent entries in the paged"
+                         " pool only (models/paged.py): no contiguous cache,"
+                         " so no solo generate and no speculative decoding")
     dev = resolve_device(device)
     s = max_seq or c.max_seq
     shape = (c.n_layers, batch, s, c.kv_heads, c.head_dim)

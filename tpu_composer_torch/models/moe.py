@@ -32,12 +32,21 @@ routing group, so the capacity rule does not change); the dispatched
 (E, B_local, C, D) expert inputs go to the experts' owners by an
 all-to-all over 'ep' and come back the same way.
 
+A config may instead route as DeepSeek-V3 does (``scoring_func=
+"sigmoid"``, :func:`_route_sigmoid`): sigmoid scores, a per-layer
+selection bias (``e_score_correction_bias``, (E,) fp32, in the layer's
+tree), gates normalised over the chosen and scaled; its MoE layers may
+follow leading dense ones and add shared experts (``shared_w_gate``,
+``shared_w_up``, ``shared_w_down``: one SwiGLU every token takes), and
+its experts may be narrower than the dense FFN.
+
 While a ``runtime/tracing`` tree is the thread's (a serving engine's
-step), each MoE layer records four spans in it: ``moe.route``,
-``moe.dispatch``, ``moe.experts`` (args ``rows``, the E × B × C rows the
-expert products compute, and ``real``, the B × S × k (token, choice)
-pairs routed, both from shapes; ``fused``, 1 where SwiGLU's step ran
-the kernel ``csrc/swiglu.cu``, else 0) and ``moe.combine``. They time
+step), each MoE layer records its spans in it: ``moe.route`` (arg
+``score``, ``softmax`` or ``sigmoid``), ``moe.dispatch``, ``moe.experts``
+(args ``rows``, the E × B × C rows the expert products compute, and
+``real``, the B × S × k (token, choice) pairs routed, both from shapes;
+``fused``, 1 where SwiGLU's step ran the kernel ``csrc/swiglu.cu``, else
+0), ``moe.combine`` and, with shared experts, ``moe.shared``. They time
 the host's issue of each phase, not the device's work.
 """
 
@@ -92,6 +101,17 @@ class MoEConfig:
     capacity_factor: Optional[float] = 1.25  # None = dropless
     moe_period: int = 2  # every moe_period-th layer is MoE (1 = all)
     router_aux_weight: float = 1e-2
+    # DeepSeek-V3's block (its config.json keys): the first
+    # ``first_k_dense_replace`` layers are dense, the experts are as wide
+    # as their weights say (not necessarily d_ff) beside
+    # ``n_shared_experts`` shared ones that every token takes (one SwiGLU
+    # of their summed width), and ``scoring_func="sigmoid"`` routes as
+    # :func:`_route_sigmoid` does, the gates scaled by
+    # ``routed_scaling_factor``. The defaults are Mixtral's block.
+    first_k_dense_replace: int = 0
+    n_shared_experts: int = 0
+    scoring_func: str = "softmax"  # softmax | sigmoid
+    routed_scaling_factor: float = 1.0
 
     @property
     def head_dim(self) -> int:
@@ -107,7 +127,8 @@ class MoEConfig:
         return kv
 
     def is_moe_layer(self, i: int) -> bool:
-        return i % self.moe_period == self.moe_period - 1
+        return (i >= self.first_k_dense_replace
+                and i % self.moe_period == self.moe_period - 1)
 
     @property
     def dropless(self) -> bool:
@@ -223,19 +244,46 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int):
         masks.append(mask)
         masked = masked * (1.0 - mask)
     denom = sum(gates) + 1e-9
+    frac = masks[0].mean(dim=1)  # (B, E) fraction routed (top-1)
+    pmass = probs.mean(dim=1)    # (B, E) mean router probability
+    aux = e * (frac * pmass).sum(dim=-1).mean()
+    return (torch.stack(experts, -1), _queue_slots(masks, capacity),
+            torch.stack([g / denom for g in gates], -1), aux)
+
+
+def _queue_slots(masks, capacity: int) -> torch.Tensor:
+    """Each choice's place in its expert's queue, (B, S, K) int64, −1
+    past ``capacity``, from the choices' one-hot masks (B, S, E) fp32 in
+    choice order: the k-th choices queue behind every earlier claim,
+    each row on its own."""
+    b, _, e = masks[0].shape
     claimed = torch.zeros((b, 1, e), dtype=torch.float32,
-                          device=logits.device)
+                          device=masks[0].device)
     slots = []
     for mask in masks:
         pos = torch.cumsum(mask, dim=1) - mask + claimed
         claimed = claimed + mask.sum(dim=1, keepdim=True)
         queue = (pos * mask).sum(dim=-1)  # the chosen expert's position
         slots.append(torch.where(queue < capacity, queue.long(), -1))
-    frac = masks[0].mean(dim=1)  # (B, E) fraction routed (top-1)
-    pmass = probs.mean(dim=1)    # (B, E) mean router probability
-    aux = e * (frac * pmass).sum(dim=-1).mean()
-    return (torch.stack(experts, -1), torch.stack(slots, -1),
-            torch.stack([g / denom for g in gates], -1), aux)
+    return torch.stack(slots, -1)
+
+
+def _route_sigmoid(logits: torch.Tensor, bias: torch.Tensor, top_k: int,
+                   capacity: int, scale: float):
+    """DeepSeek-V3's routing (``noaux_tc`` with one group), by index, in
+    :func:`_route`'s outputs: scores s = sigmoid(logits) (B, S, E) fp32;
+    the top-k of s + ``bias`` (E,) fp32 are chosen, the bias moving
+    selection only; the gates are the chosen s over their sum, times
+    ``scale``. No aux loss (the bias replaces it)."""
+    e = logits.shape[-1]
+    scores = torch.sigmoid(logits)
+    experts = torch.topk(scores + bias.float(), top_k, dim=-1).indices
+    chosen = scores.gather(-1, experts)
+    gates = chosen / chosen.sum(dim=-1, keepdim=True) * scale
+    masks = [F.one_hot(experts[..., j], e).to(torch.float32)
+             for j in range(top_k)]
+    return (experts, _queue_slots(masks, capacity), gates,
+            torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
 def _top_k_routing(logits: torch.Tensor, top_k: int, capacity: int
@@ -296,10 +344,10 @@ class _Phases:
 
     __slots__ = ("tree",)
 
-    def __init__(self):
+    def __init__(self, **args):
         self.tree = tracing.current_tree()
         if self.tree is not None:
-            self.tree.begin("moe.route")
+            self.tree.begin("moe.route", **args)
 
     def next(self, name: str, **args) -> None:
         if self.tree is not None:
@@ -333,9 +381,14 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     cap = capacity if capacity is not None else c.capacity(s)
     ep_mesh = mesh if layer["w_gate"].shape[0] < e else None
     tp_mesh = ffn_mesh(layer, c, mesh)
-    phases = _Phases()
+    phases = _Phases(score=c.scoring_func)
     logits = torch.einsum("bsd,de->bse", x.float(), layer["w_router"].float())
-    experts, slots, gates, aux = _route(logits, k, cap)
+    if c.scoring_func == "sigmoid":
+        experts, slots, gates, aux = _route_sigmoid(
+            logits, layer["e_score_correction_bias"], k, cap,
+            c.routed_scaling_factor)
+    else:
+        experts, slots, gates, aux = _route(logits, k, cap)
     if record is not None:
         record(experts)
     phases.next("moe.dispatch")
@@ -378,6 +431,13 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     out = weight[:, 0] * picked[:, 0]
     for j in range(1, k):
         out = out + weight[:, j] * picked[:, j]
+    if c.n_shared_experts:
+        # The shared experts as one SwiGLU, added in fp32 before the one
+        # rounding of the layer's output.
+        phases.next("moe.shared")
+        shared = {n: layer["shared_" + n] for n in ("w_gate", "w_up",
+                                                    "w_down")}
+        out = out + swiglu_ffn(x, shared, c.dtype).float().reshape(b * s, d)
     phases.end()
     return out.to(c.dtype).reshape(b, s, d), aux
 

@@ -28,6 +28,19 @@ How the port differs from the JAX functions it mirrors, and why:
 - Tables stay int32 (the kernel reads them); indices become int64 only
   for torch's advanced indexing.
 
+An MLA config (``models/mla.py``) keeps one LATENT pool: ``k_pool``
+holds each position's entry ``[RMSNorm(c_kv) | RoPE(k_pe)]``,
+``(n_layers, num_blocks + 1, block_size, kv_lora_rank + rope width)``
+in the model dtype, and ``v_pool`` is None (values are the entries'
+first ``kv_lora_rank`` dims). The tables, the sink and the ``ok``
+contract are the same. A prefill writes the entries and attends in the
+expanded form through ``flash_attention`` (K1 at 192/128 on the card);
+a decode step reads them in the absorbed form through
+``mla_decode_attention`` (``ops/mla_decode.py``): the latent decode
+kernel K3 on the card, its plain twin on the CPU, whatever
+``attn_impl`` says. Such a pool is never int8, and decodes one token a
+step (no chunks).
+
 Routing records (``routes``): a serving engine may pass a
 ``(slots, n_layers, positions + 1, top_k)`` uint8 buffer, and the MoE
 layers of a prefill or a decode step then write, on the device, the
@@ -51,6 +64,8 @@ from tpu_composer_torch.models.decode import (
     pads_route,
     quantize_kv,
 )
+from tpu_composer_torch.models import mla
+from tpu_composer_torch.models.mla import MLAConfig
 from tpu_composer_torch.models.moe import RouteRecord
 from tpu_composer_torch.models.quant import embedding_lookup, resolve
 from tpu_composer_torch.models.transformer import (
@@ -58,7 +73,9 @@ from tpu_composer_torch.models.transformer import (
     _select_attn,
     _tied_logits,
 )
+from tpu_composer_torch.ops.mla_decode import mla_decode_attention
 from tpu_composer_torch.ops.paged_attention import paged_decode_attention
+from tpu_composer_torch.runtime import tracing
 from tpu_composer_torch.runtime.tracing import host_sync
 
 ATTN_IMPLS = ("gather", "kernel")
@@ -68,7 +85,8 @@ class PagedKVCache(NamedTuple):
     """Shared block pool + per-row block tables.
 
     - ``k_pool``/``v_pool``: (L, N + 1, Bs, KV, Dh): N blocks, then the
-      sink.
+      sink. A latent pool (MLA): ``k_pool`` (L, N + 1, Bs, entry width),
+      ``v_pool`` None.
     - ``block_tables``: (B, MB) int32; slot ``j`` holds the row's
       positions ``[j*Bs, (j+1)*Bs)``. Unassigned slots keep stale ids:
       reads mask by ``length``, never by table content.
@@ -134,6 +152,12 @@ def init_paged_cache(config: AnyConfig, batch: int, num_blocks: int,
         free_top=torch.tensor(num_blocks, **i32),
         refcount=torch.zeros(num_blocks, **i32),
     )
+    if isinstance(c, MLAConfig):
+        if quant:
+            raise ValueError("an MLA config's latent pool has no int8 form")
+        return PagedKVCache(k_pool=torch.zeros(
+            shape[:3] + (c.latent_dim,), dtype=c.dtype, device=dev),
+            v_pool=None, **common)
     if not quant:
         return PagedKVCache(
             k_pool=torch.zeros(shape, dtype=c.dtype, device=dev),
@@ -490,6 +514,9 @@ def _prefill_forward(params: Dict, tokens: torch.Tensor,
     alone. Returns the final-normed hidden states (R, S, D)."""
     attn = _select_attn(c, None)
     x = embedding_lookup(params["embed"], tokens, c.dtype)
+    if isinstance(c, MLAConfig):
+        return _mla_prefill_forward(params, x, positions, c, cache, index,
+                                    record, attn)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _project_qkv(layer, x, positions, c)
         _write_kv_layer(cache, li, index, k, v)
@@ -498,6 +525,52 @@ def _prefill_forward(params: Dict, tokens: torch.Tensor,
         x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
                            record=record)
     return _rmsnorm(x, params["ln_f"])
+
+
+def _mla_prefill_forward(params: Dict, x: torch.Tensor,
+                         positions: torch.Tensor, c: MLAConfig,
+                         cache: PagedKVCache, index, record, attn
+                         ) -> torch.Tensor:
+    """:func:`_prefill_forward` of an MLA config from the embeddings x:
+    each layer's latent entries written into the pool at ``index``, then
+    the expanded causal attention over the prompt."""
+    for li, layer in enumerate(params["layers"]):
+        q_nope, q_pe, latent = mla.project(layer, x, positions, c)
+        if index is not None:
+            _paged_write(cache.k_pool[li], index, latent)
+        o = mla.expanded_attention(layer, q_nope, q_pe, latent, c, attn)
+        x = mla.out_proj(layer, x, o, c)
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
+                           record=record)
+    return _rmsnorm(x, params["ln_f"])
+
+
+def _mla_decode_forward(params: Dict, x: torch.Tensor,
+                        positions: torch.Tensor, c: MLAConfig,
+                        cache: PagedKVCache, index, lengths: torch.Tensor,
+                        record) -> torch.Tensor:
+    """One decode step of an MLA config from the embeddings x (B, 1, D):
+    each layer's new entry written at ``index``, then the absorbed read
+    of the row's ``lengths`` entries (K3 on the card, its twin on the
+    CPU). Returns the hidden states before the final norm."""
+    scale = c.qk_head_dim ** -0.5
+    # The spans' key count, read on the host only where the lengths are
+    # there: on the card a decode step is a CUDA graph and records none.
+    keys = (int(lengths.sum()) if tracing.current_tree() is not None
+            and not lengths.is_cuda else None)
+    for li, layer in enumerate(params["layers"]):
+        q_nope, q_pe, latent = mla.project(layer, x, positions, c)
+        _paged_write(cache.k_pool[li], index, latent)
+        q = mla.absorb_query(layer, q_nope, q_pe, c)[:, 0]
+        with mla.attend("absorb", keys):
+            o_lat = mla_decode_attention(q, cache.k_pool[li],
+                                         cache.block_tables, lengths, scale,
+                                         c.kv_lora_rank)
+        o = mla.absorbed_output(layer, o_lat, c)[:, None]
+        x = mla.out_proj(layer, x, o, c)
+        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
+                           drop_free=True, record=record)
+    return x
 
 
 def paged_decode_chunk(params: Dict, cache: PagedKVCache,
@@ -512,7 +585,8 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
     into the sink and the logits are meaningless. ``active`` (B,) masks
     rows: idle slots compute garbage logits, write into the sink and never
     advance. ``attn_impl="kernel"`` reads through the paged decode kernel
-    on T=1 steps; chunks read through the gather path. MoE layers route
+    on T=1 steps; chunks read through the gather path. An MLA config
+    reads through its own dispatcher, whatever ``attn_impl``. MoE layers route
     drop-free, each row its own group, so idle rows never displace live
     ones. ``routes``: the engine's routing record (B = its slots), written
     at the active rows' positions."""
@@ -521,6 +595,10 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
                          f"{attn_impl!r}")
     c = config
     b, t = tokens.shape
+    mla_step = isinstance(c, MLAConfig)
+    if mla_step and t != 1:
+        raise ValueError("an MLA config decodes one token a step: chunked"
+                         " prefill and speculative chunks are not supported")
     active = _active_rows(cache, active)
     cache, ok = _extend_for_write(cache, t, active)
     active = active & ok
@@ -533,22 +611,27 @@ def paged_decode_chunk(params: Dict, cache: PagedKVCache,
     record = _route_writer(routes, torch.arange(b, device=tokens.device),
                            positions, active)
     x = embedding_lookup(params["embed"], tokens, c.dtype)
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = _project_qkv(layer, x, positions, c)
-        kp, vp, ksp, vsp = _write_kv_layer(cache, li, index, k, v)
-        if use_kernel:
-            o = paged_decode_attention(q[:, 0], kp, vp, tables, pos + 1,
-                                       k_scale=ksp, v_scale=vsp)[:, None]
-        else:
-            o = _cached_attention(
-                q, _paged_read(kp, tables), _paged_read(vp, tables),
-                pos + t, c, q_positions=positions,
-                k_scale=None if ksp is None else _paged_read(ksp, tables),
-                v_scale=None if vsp is None else _paged_read(vsp, tables),
-            )
-        x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
-        x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
-                           drop_free=True, record=record)
+    if mla_step:
+        # Idle rows read no entry: their stale tables are never walked.
+        x = _mla_decode_forward(params, x, positions, c, cache, index,
+                                torch.where(active, pos + 1, 0), record)
+    else:
+        for li, layer in enumerate(params["layers"]):
+            q, k, v = _project_qkv(layer, x, positions, c)
+            kp, vp, ksp, vsp = _write_kv_layer(cache, li, index, k, v)
+            if use_kernel:
+                o = paged_decode_attention(q[:, 0], kp, vp, tables, pos + 1,
+                                           k_scale=ksp, v_scale=vsp)[:, None]
+            else:
+                o = _cached_attention(
+                    q, _paged_read(kp, tables), _paged_read(vp, tables),
+                    pos + t, c, q_positions=positions,
+                    k_scale=None if ksp is None else _paged_read(ksp, tables),
+                    v_scale=None if vsp is None else _paged_read(vsp, tables),
+                )
+            x = x + torch.einsum("bshk,hkd->bsd", o, resolve(layer["wo"], c.dtype))
+            x = x + _ffn_delta(_rmsnorm(x, layer["ln2"]), layer, li, c,
+                               drop_free=True, record=record)
     x = _rmsnorm(x, params["ln_f"])
     logits = _tied_logits(x, params["embed"], c.dtype)
     return logits, cache._replace(length=torch.where(active, pos + t, pos)), ok

@@ -38,6 +38,11 @@ by its expert products, runs eagerly. CPU engines run everything
 eagerly. Chunked admission and prefixes read the pool's ok where they
 branch on it.
 
+An MLA engine (``models/mla.py``) keeps one latent pool, admits by
+bucketed prefill (eagerly, as MoE does; the expanded form through K1)
+and decodes through the latent kernel K3 inside its decode graph; it
+takes no int8 pool, no chunked admission and so no prefixes.
+
 An MoE engine may keep a routing record (``record_routes=True``): on the
 device, the top-k expert ids of every layer at every position it
 computed for a request, prompt and generated alike, read from the
@@ -59,6 +64,7 @@ from tpu_composer_torch.models.decode import (
     pads_route,
     sample_categorical,
 )
+from tpu_composer_torch.models.mla import MLAConfig
 from tpu_composer_torch.models.moe import MoEConfig
 from tpu_composer_torch.models.paged import (
     admit,
@@ -74,6 +80,7 @@ from tpu_composer_torch.models.paged import (
 )
 from tpu_composer_torch.models.quant import QTensor
 from tpu_composer_torch.ops.attention import flash_fwd_cuda
+from tpu_composer_torch.ops.mla_decode import mla_decode_cuda
 from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
 from tpu_composer_torch.ops.swiglu import swiglu_cuda
 from tpu_composer_torch.runtime import tracing
@@ -198,6 +205,11 @@ class ContinuousBatchingEngine:
                 "forward routing would let pads affect real tokens)"
             )
         moe = isinstance(config, MoEConfig)
+        self._latent = isinstance(config, MLAConfig)
+        if self._latent and (kv_quant or prefill_chunk is not None):
+            raise ValueError("an MLA engine admits by bucketed prefill into"
+                             " a bf16 latent pool: no kv_quant, no"
+                             " prefill_chunk (and so no prefixes)")
         if record_routes and not (moe and config.n_experts <= 256):
             raise ValueError("record_routes needs an MoE config of at most"
                              " 256 experts (uint8 ids)")
@@ -735,7 +747,12 @@ class ContinuousBatchingEngine:
         decode forward, from the call until the logits return), each with
         args ``graph`` (1 where its forward is a CUDA graph's replay, 0
         where it runs eagerly) and ``swiglu_fused`` (the SwiGLU products
-        of its forward that ran the kernel ``csrc/swiglu.cu``), then
+        of its forward that ran the kernel ``csrc/swiglu.cu``); an MLA
+        engine's ``serving.decode`` also carries ``latent_positions``
+        (the latent entries its attention reads: Σ over decoded rows of
+        their lengths, times the layers, from the host's own counts) and
+        ``k3`` (its forward's launches of K3, a replay's counted at its
+        capture), then
         ``serving.emit`` (emitting the tokens and freeing finished
         slots), and a ``serving.sync`` leaf (arg ``what``) for each host
         sync, in whichever phase it falls."""
@@ -766,11 +783,19 @@ class ContinuousBatchingEngine:
                 tree.begin("serving.decode", graph=1, **self._graph_args)
             else:
                 tree.begin("serving.decode", graph=0)
+            if self._latent:
+                tree.note(latent_positions=self.config.n_layers * sum(
+                    len(r.prompt) + len(r.tokens)
+                    for s, r in enumerate(self._slot_req) if active[s]))
         launched = swiglu_cuda.launches
+        launched_k3 = mla_decode_cuda.launches
         logits, cache, ok = self._decode(
             *upload(self.device, self._next_token, active))
         if tree is not None:
             tree.note(swiglu_fused=self._fused(launched, self._graph))
+            if self._latent:
+                tree.note(k3=mla_decode_cuda.launches - launched_k3
+                          if self._graph is None else self._graph.k3)
             tree.end()
         if all(g is None for g in self._slot_gen):
             picks = torch.argmax(logits, dim=-1)
@@ -918,10 +943,17 @@ class _Graph:
 
 class _DecodeGraph(_Graph):
     """An engine's decode step at its fixed ``(slots,)`` shape, on the
-    step's tokens and active mask; it raises K2's launch counts."""
+    step's tokens and active mask; it raises K3's and K2's launch
+    counts."""
 
-    COUNTERS = _Graph.COUNTERS + ((paged_decode_cuda, "launches"),
+    COUNTERS = _Graph.COUNTERS + ((mla_decode_cuda, "launches"),
+                                  (paged_decode_cuda, "launches"),
                                   (paged_decode_cuda, "launches_int8"))
+
+    @property
+    def k3(self) -> int:
+        """The K3 launches of the captured forward."""
+        return self.launches[1]
 
 
 class _PrefillGraph(_Graph):

@@ -138,7 +138,21 @@ def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False,
     (default :func:`_fwd_rows`); the fp32 kernel always takes 32.
     ``flash_fwd_cuda.launches`` counts launches without lse (the serving
     prefill), ``flash_fwd_cuda.launches_lse`` those with it (the training
-    forward)."""
+    forward).
+
+    MLA's expanded prefill (bf16, q and k 192 wide, v (B, Sk, KV, 128))
+    runs the kernel's 192 instance on v zero-padded to 192, and its
+    output is cut back to 128: the padding costs the P·V product and
+    the reads of v a half more. Such a launch counts in
+    ``flash_fwd_cuda.launches`` (or ``launches_lse``) and in
+    ``flash_fwd_cuda.launches_192`` too."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] == 192
+            and v.shape[-1] == 128 and v.shape[:-1] == k.shape[:-1]):
+        out, lse = flash_fwd_cuda(
+            q, k, torch.nn.functional.pad(v, (0, 64)), causal, with_lse,
+            rows)
+        flash_fwd_cuda.launches_192 += 1
+        return out[..., :128], lse
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
@@ -156,8 +170,9 @@ def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False,
             f" v {tuple(v.shape)}")
     if h % kv:
         raise ValueError(f"kv heads {kv} must divide query heads {h}")
-    if d not in (64, 128):
-        raise ValueError(f"flash kernel supports head_dim 64 or 128, got {d}")
+    if d not in (64, 128) and (d, q.dtype) != (192, torch.bfloat16):
+        raise ValueError(f"flash kernel supports head_dim 64 or 128 (and"
+                         f" 192 in bf16), got {d}")
     rows = _fwd_rows(b, h, sq) if rows is None else rows
     if rows not in (16, 64):
         raise ValueError(f"rows must be 16 or 64, got {rows}")
@@ -185,6 +200,7 @@ def flash_fwd_cuda(q, k, v, causal: bool = False, with_lse: bool = False,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.launches_lse = 0
+flash_fwd_cuda.launches_192 = 0
 
 
 def flash_bwd_plain(q, k, v, out, lse, do, g_lse=None, causal: bool = False

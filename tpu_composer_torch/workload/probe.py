@@ -138,6 +138,7 @@ def kernel_launches() -> Dict[str, int]:
         flash_bwd_dq_cuda,
         flash_fwd_cuda,
     )
+    from tpu_composer_torch.ops.mla_decode import mla_decode_cuda
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
     from tpu_composer_torch.ops.swiglu import swiglu_cuda
 
@@ -147,7 +148,9 @@ def kernel_launches() -> Dict[str, int]:
             "flash_bwd_dkv": flash_bwd_dkv_cuda.launches,
             "paged_decode": paged_decode_cuda.launches,
             "paged_decode_int8": paged_decode_cuda.launches_int8,
-            "swiglu": swiglu_cuda.launches}
+            "swiglu": swiglu_cuda.launches,
+            "mla_decode": mla_decode_cuda.launches,
+            "flash_fwd_192": flash_fwd_cuda.launches_192}
 
 
 def launch_record(before: Dict[str, int]) -> Dict[str, Any]:
