@@ -89,6 +89,17 @@ nonzero. Phases, in order:
 4c. ``flash_fwd_192``: K1's 192 instance (MLA's expanded prefill: q and
    k 192 wide, v 128 zero-padded) against the plain version, causal, at
    both CTA heights; its time at one 2,048 prompt of 16 heads.
+4d. ``moe_grouped``: the grouped MoE kernels (``csrc/moe_grouped.cu``)
+   against their twins at the two MoE cells' decode shapes (128 tokens:
+   Moonlight's 64 experts top-6 of 2,048 × 1,408, Mixtral's 8 top-2 of
+   4,096 × 14,336) and a 1,024-token admission of each: the grouping
+   exactly, the products within 1e-2 of the twin's largest value, the
+   combine bit for bit, two gate/up launches the same bits; then the
+   device time of gate/up, down and the whole layer beside the bound
+   (every expert weight once plus the routed rows' x, h and y, or the
+   operations), the twin's and the (E, B, C) chain's (``bmm`` over
+   every expert and token, the SwiGLU kernel) it replaces; the grouping's
+   and the combine's beside their bytes.
 5. ``flash_bwd``: kernels B3 (dQ) and B4 (dK/dV) against
    ``flash_bwd_plain`` over B in {1, 2}, S in {8, 64, 256, 512} at D=64
    and S=100 at D=128, H=8 over KV in {2, 8}, causal or not, fp32 and
@@ -124,13 +135,17 @@ nonzero. Phases, in order:
    the engine's chunks, reference attention);
    tokens/s, decode step p50, a profile of 8 decode steps with the MoE
    FFN's share; K2 mid-flight against the gather path, as in ``serve``.
+   The engines' chunks and decode steps route drop-free (capacity S),
+   so their MoE layers run the grouped kernels (``csrc/moe_grouped.cu``),
+   as does the plain path's ``decode_chunk``.
 9a. ``mla_serve``: the MLA engine at K3's widths (16 heads, latent
    entries 512 + 64, nope 128, v 128; d_model 256, a dense layer then
    an MoE layer of 8 experts top-2 by sigmoid scores and one shared) in
    bf16, built with the engine's default ``attn_impl``, 6 greedy
    requests of 17-513 tokens and 48 outputs on 4 slots, once with the
-   decode graph and once eagerly: K1's 192 instance and K3 must launch
-   in each; each request's first-token logits against the plain
+   decode graph and once eagerly: K1's 192 instance, K3 and the grouped
+   MoE kernels must launch in each; each request's first-token logits
+   against the plain
    expanded forward (``flash_fwd_plain``, 5e-2), and the graphed
    engine's tokens and routing records equal the eager engine's.
 10. ``speculative``: the MoE flagship in fp32 (prefill through K1) as
@@ -673,7 +688,7 @@ def phase_build() -> None:
     host.start()
     try:
         seconds = _build.build(["flash_fwd", "paged_decode", "flash_bwd",
-                                "swiglu", "mla_decode"])
+                                "swiglu", "mla_decode", "moe_grouped"])
     finally:
         host.join()
     if native_err:
@@ -1208,6 +1223,149 @@ def phase_swiglu(gen: torch.Generator) -> dict:
     return timing
 
 
+#: The grouped MoE kernels' shapes (E, k, D, F, tokens): the two MoE
+#: cells' decode steps (128 rows) and one 1,024-token admission of each.
+MOE_GROUPED_SHAPES = {"moonlight_decode": (64, 6, 2048, 1408, 128),
+                      "mixtral_decode": (8, 2, 4096, 14336, 128),
+                      "moonlight_admit": (64, 6, 2048, 1408, 1024),
+                      "mixtral_admit": (8, 2, 4096, 14336, 1024)}
+
+
+#: The grouped products against their twins, relative to the twin's
+#: largest value: a bf16 rounding (2^-8) of other sums, with room.
+MOE_GROUPED_TOL = 1e-2
+
+
+def _moe_grouped_inputs(gen: torch.Generator, e, k, d, f, t) -> dict:
+    """x N(0, 1), expert stacks N(0, 0.02), the top-k of uniform scores and
+    uniform gates, a shared output N(0, 0.1); bf16 on the card."""
+    def w(*shape, std=0.02):
+        return (torch.randn(*shape, generator=gen) * std).to("cuda",
+                                                             torch.bfloat16)
+
+    return {"x": w(t, d, std=1.0),
+            "experts": torch.rand(t, e, generator=gen).topk(
+                k, dim=-1).indices.cuda(),
+            "gates": torch.rand(t, k, generator=gen).cuda(),
+            "wg": w(e, d, f), "wu": w(e, d, f), "wd": w(e, f, d),
+            "shared": w(t, d, std=0.1)}
+
+
+def phase_moe_grouped(gen: torch.Generator) -> dict:
+    """The grouped MoE kernels (``csrc/moe_grouped.cu``) against their
+    twins at the cells' shapes (the grouping exactly, the products within
+    bf16 tolerance, the combine bit for bit), then each product's device
+    time beside its bound (every expert weight once, the routed rows' x,
+    h and y; or the operations), its twin's and the (E, B, C) chain's it
+    replaces (two ``bmm`` and the SwiGLU kernel, and the down ``bmm``,
+    over E × T rows), and the whole layer's grouped kernels."""
+    from tpu_composer_torch.ops import moe_grouped as G
+    from tpu_composer_torch.ops.swiglu import swiglu_cuda
+
+    out = {}
+    with _uncounted():
+        for name, (e, k, d, f, t) in MOE_GROUPED_SHAPES.items():
+            a = _moe_grouped_inputs(gen, e, k, d, f, t)
+            x, wg, wu, wd = a["x"], a["wg"], a["wu"], a["wd"]
+            offsets, tok, row = G.group_cuda(a["experts"], e)
+            want = G.group_plain(a["experts"], e)
+            check(all(torch.equal(p, q) for p, q in zip(
+                (offsets, tok, row), want)),
+                f"moe_grouped {name}: the grouping differs from its twin")
+            off_cpu = offsets.cpu()
+            # Off the twin (cuBLAS over each expert's rows) relative to the
+            # twin's largest value: the products sum in another order.
+            h = G.gate_up_cuda(x, tok, wg, wu, offsets)
+            want = G.gate_up_plain(x, tok, wg, wu, off_cpu)
+            h_abs = max_err(h, want)
+            h_err = h_abs / float(want.float().abs().max())
+            y = G.down_cuda(h, wd, offsets)
+            want = G.down_plain(h, wd, off_cpu)
+            y_abs = max_err(y, want)
+            y_err = y_abs / float(want.float().abs().max())
+            check(h_err <= MOE_GROUPED_TOL and y_err <= MOE_GROUPED_TOL,
+                  f"moe_grouped {name}: gate/up off its twin by {h_err},"
+                  f" down by {y_err} (relative)")
+            check(same_bits(G.combine_cuda(y, row, a["gates"], a["shared"]),
+                            G.combine_plain(y, row, a["gates"],
+                                            a["shared"])),
+                  f"moe_grouped {name}: the combine differs from its twin")
+            check(same_bits(G.gate_up_cuda(x, tok, wg, wu, offsets), h),
+                  f"moe_grouped {name}: two gate/up launches differ")
+            # The (E, B, C) layout's rows: every expert over every token.
+            xin = x.expand(e, t, d).contiguous()
+            h_ebc = swiglu_cuda(torch.bmm(xin, wg), torch.bmm(xin, wu))
+            live = int((offsets.diff() > 0).sum())
+            n = t * k
+
+            def layer():
+                off, tk, rw = G.group_cuda(a["experts"], e)
+                return G.combine_cuda(G.down_cuda(G.gate_up_cuda(
+                    x, tk, wg, wu, off), wd, off), rw, a["gates"],
+                    a["shared"])
+
+            def ebc_gate_up():
+                return swiglu_cuda(torch.bmm(xin, wg), torch.bmm(xin, wu))
+
+            # The twins loop over the experts on the host (hundreds of
+            # launches a call): one call a timing.
+            rows = {
+                "gate_up": dict(zip(("ms", "issue_ms"), timed(
+                    lambda: G.gate_up_cuda(x, tok, wg, wu, offsets))),
+                    plain_ms=timed(lambda: G.gate_up_plain(
+                        x, tok, wg, wu, off_cpu), iters=1, warmup=2)[0],
+                    library_ms=timed(ebc_gate_up, iters=20)[0]),
+                "down": dict(zip(("ms", "issue_ms"), timed(
+                    lambda: G.down_cuda(h, wd, offsets))),
+                    plain_ms=timed(lambda: G.down_plain(h, wd, off_cpu),
+                                   iters=1, warmup=2)[0],
+                    library_ms=timed(lambda: torch.bmm(h_ebc, wd),
+                                     iters=20)[0]),
+                "layer": dict(zip(("ms", "issue_ms"), timed(layer)),
+                              plain_ms=None,
+                              library_ms=timed(lambda: torch.bmm(
+                                  ebc_gate_up(), wd), iters=20)[0]),
+            }
+            w_bytes = live * d * f * 2
+            bounds = {"gate_up": (2 * w_bytes + n * (d + f) * 2,
+                                  4 * n * d * f),
+                      "down": (w_bytes + n * (f + d) * 2, 2 * n * f * d),
+                      "layer": (3 * w_bytes + n * (3 * d + 2 * f) * 2
+                                + 2 * t * d * 2, 6 * n * d * f)}
+            for r, (n_bytes, n_ops) in bounds.items():
+                rows[r]["bound_ms"], rows[r]["bound_by"] = bound_ms(
+                    n_bytes, n_ops, torch.bfloat16)
+                rows[r]["floor_pct"] = (100 * rows[r]["bound_ms"]
+                                        / rows[r]["ms"])
+            rows["gate_up"].update(max_abs_err=h_abs, rel_err=h_err)
+            rows["down"].update(max_abs_err=y_abs, rel_err=y_err)
+            rows["layer"]["max_abs_err"] = 0.0
+            # The grouping and the combine: bytes bound (ids in, offsets,
+            # tok and row out; y, the gates, row, shared in and out), no
+            # floor share, since their inputs sit in L2 at these sizes.
+            # The grouping's twin reads its counts back (``bincount``), so
+            # ``timed`` cannot queue it: no plain time.
+            for r, fn, plain, n_bytes in (
+                    ("group", lambda: G.group_cuda(a["experts"], e), None,
+                     n * (8 + 4 + 4) + (e + 1) * 4),
+                    ("combine", lambda: G.combine_cuda(
+                        y, row, a["gates"], a["shared"]),
+                     lambda: G.combine_plain(y, row, a["gates"],
+                                             a["shared"]),
+                     n * (d * 2 + 4 + 4) + 2 * t * d * 2)):
+                rows[r] = dict(zip(("ms", "issue_ms"), timed(fn)),
+                               plain_ms=plain and timed(plain, iters=5)[0],
+                               library_ms=None, max_abs_err=0.0)
+                rows[r]["bound_ms"], rows[r]["bound_by"] = bound_ms(
+                    n_bytes, 0, torch.bfloat16)
+            out[name] = rows
+            emit("moe_grouped", shape=name, experts=e, top_k=k, d=d, f=f,
+                 tokens=t, experts_with_rows=live, **rows)
+            del a, x, wg, wu, wd, xin, h_ebc, h, y
+            torch.cuda.empty_cache()
+    return out
+
+
 #: K3's inputs on the MLA cell's decode step: 128 rows, 16 heads, entries
 #: of 576 (512 + 64 rope), blocks of 16, 512 table slots a row (8,192
 #: positions); live lengths about the cell's mean and near its end.
@@ -1577,6 +1735,7 @@ def _set_counts(counts: dict) -> None:
         flash_bwd_dq_cuda,
         flash_fwd_cuda,
     )
+    from tpu_composer_torch.ops import moe_grouped
     from tpu_composer_torch.ops.mla_decode import mla_decode_cuda
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
     from tpu_composer_torch.ops.swiglu import swiglu_cuda
@@ -1590,6 +1749,10 @@ def _set_counts(counts: dict) -> None:
     paged_decode_cuda.launches = counts["paged_decode"]
     paged_decode_cuda.launches_int8 = counts["paged_decode_int8"]
     swiglu_cuda.launches = counts["swiglu"]
+    moe_grouped.group_cuda.launches = counts["moe_group"]
+    moe_grouped.gate_up_cuda.launches = counts["moe_gate_up"]
+    moe_grouped.down_cuda.launches = counts["moe_down"]
+    moe_grouped.combine_cuda.launches = counts["moe_combine"]
 
 
 def _reset_counts() -> None:
@@ -6199,6 +6362,7 @@ def main() -> int:
     flash = timed_phase("flash_fwd", phase_flash, gen)
     paged = timed_phase("paged_decode", phase_paged, gen)
     swiglu = timed_phase("swiglu", phase_swiglu, gen)
+    grouped = timed_phase("moe_grouped", phase_moe_grouped, gen)
     mla_decode = timed_phase("mla_decode", phase_mla_decode, gen)
     flash_192 = timed_phase("flash_fwd_192", phase_flash_192, gen)
     bwd = timed_phase("flash_bwd", phase_flash_bwd, gen)
@@ -6220,11 +6384,15 @@ def main() -> int:
                              "paged_decode_int8"),
                  (("serve_exact", lambda: phase_serve_exact(rng, seed)),
                   ("serve", lambda: phase_serve(rng, seed)))),
-                ("moe_serving", ("paged_decode", "paged_decode_int8"),
+                ("moe_serving", ("paged_decode", "paged_decode_int8",
+                                 "moe_group", "moe_gate_up", "moe_down",
+                                 "moe_combine"),
                  (("moe_serve_exact",
                    lambda: phase_moe_serve_exact(rng, seed)),
                   ("moe_serve", lambda: phase_moe_serve(rng, seed)))),
-                ("mla_serving", ("flash_fwd_192", "mla_decode", "swiglu"),
+                ("mla_serving", ("flash_fwd_192", "mla_decode", "swiglu",
+                                 "moe_group", "moe_gate_up", "moe_down",
+                                 "moe_combine"),
                  (("mla_serve", lambda: phase_mla_serve(rng, seed)),)),
                 ("speculative", ("flash_fwd",),
                  (("speculative", lambda: phase_speculative(rng, seed)),)),
@@ -6345,6 +6513,18 @@ def main() -> int:
         row("flash_fwd_192", "tpu_composer_torch/csrc/flash_fwd.cu",
             "none: the JAX package has no latent attention",
             "mla.py::expanded_attention", flash_192),
+        row("moe_group", "tpu_composer_torch/csrc/moe_grouped.cu",
+            "none: the JAX package dispatches by one-hot einsums",
+            "moe.py::_grouped_ffn", grouped["moonlight_decode"]["group"]),
+        row("moe_gate_up", "tpu_composer_torch/csrc/moe_grouped.cu",
+            "none: the JAX package dispatches by one-hot einsums",
+            "moe.py::_grouped_ffn", grouped["moonlight_decode"]["gate_up"]),
+        row("moe_down", "tpu_composer_torch/csrc/moe_grouped.cu",
+            "none: the JAX package dispatches by one-hot einsums",
+            "moe.py::_grouped_ffn", grouped["moonlight_decode"]["down"]),
+        row("moe_combine", "tpu_composer_torch/csrc/moe_grouped.cu",
+            "none: the JAX package dispatches by one-hot einsums",
+            "moe.py::_grouped_ffn", grouped["moonlight_decode"]["combine"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"], "count": card["count"]}}),

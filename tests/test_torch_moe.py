@@ -178,6 +178,59 @@ def test_moe_ffn_matches_jax(dtype, atol, capacity):
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("capacity_factor,capacity", [(2.0, None), (1.25, 12)],
+                         ids=["rule", "drop-free"])
+def test_grouped_moe_ffn_matches_jax(dtype, atol, capacity_factor, capacity,
+                                     monkeypatch):
+    """The grouped path (its plain twins, forced on: on the CPU the rule
+    keeps the (E, B, C) path) against the JAX package's ``_moe_ffn`` where
+    no token can drop: the config's rule gives S slots, or the call passes
+    the drop-free capacity S. The same tolerances as the (E, B, C) path."""
+    jc, jp, tc, tp = moe_world(5, dtype=dtype,
+                               capacity_factor=capacity_factor)
+    x = np.random.default_rng(6).standard_normal((2, 12, 32)).astype(
+        np.float32)
+    jx = jnp.asarray(x, jc.dtype)
+    assert (capacity or tc.capacity(12)) >= 12
+    want, jaux = jmoe._moe_ffn(jx, jp["layers"][1], jc, capacity=capacity)
+    grouped_ffn, calls = tmoe._grouped_ffn, []
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return grouped_ffn(*args)
+
+    monkeypatch.setattr(tmoe, "_grouped_reason", lambda *a: None)
+    monkeypatch.setattr(tmoe, "_grouped_ffn", counted)
+    got, taux = tmoe._moe_ffn(t(n(jx)).to(tc.dtype), tp["layers"][1], tc,
+                              capacity=capacity)
+    assert calls == [(2, 12, 32)]
+    assert got.dtype == tc.dtype
+    np.testing.assert_allclose(n(got), n(want), atol=atol)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+
+
+def _jax_golden() -> np.ndarray:
+    """The JAX package's bf16 ``_moe_ffn`` on
+    ``tests/test_torch_moe_grouped.golden_layer``, as float32; written to
+    ``tests/data/moe_grouped_jax.npy`` with ``np.save``."""
+    from tests.test_torch_moe_grouped import GOLDEN_FIELDS, golden_layer
+    x, layer = golden_layer()
+    jc = jmoe.MoEConfig(dtype=jnp.bfloat16, **GOLDEN_FIELDS)
+    jl = {k: jnp.asarray(v, jnp.float32 if k == "w_router" else jnp.bfloat16)
+          for k, v in layer.items()}
+    out, _ = jmoe._moe_ffn(jnp.asarray(x, jnp.bfloat16), jl, jc,
+                           capacity=x.shape[1])
+    return np.asarray(out.astype(jnp.float32))
+
+
+def test_the_jax_golden_is_the_jax_output():
+    """The kept output that the grouped path's card test reads is what the
+    JAX package gives now."""
+    from tests.test_torch_moe_grouped import GOLDEN_FILE
+    np.testing.assert_array_equal(np.load(GOLDEN_FILE), _jax_golden())
+
+
 @pytest.mark.parametrize("n_kv_heads,attn_impl",
                          [(None, "reference"), (2, "flash")])
 def test_forward_logits_and_aux_match_jax(n_kv_heads, attn_impl):

@@ -264,6 +264,8 @@ def test_the_spans_count_no_fused_products_on_the_cpu(ring, kind):
     c, steps, experts = _spans(kind, "cpu", torch.bfloat16)
     assert {e["name"] for e in steps} == {"serving.admit", "serving.decode"}
     assert [e["args"]["swiglu_fused"] for e in steps] == [0] * len(steps)
+    if kind == "moe":
+        assert [e["args"]["moe_grouped"] for e in steps] == [0] * len(steps)
     assert len(experts) == (2 * len(steps) if kind == "moe" else 0)
     assert all(e["args"]["fused"] == 0 for e in experts)
 
@@ -340,15 +342,28 @@ def test_a_captured_kernel_replays_the_eager_result_on_the_card():
 @pytest.mark.parametrize("graphed", [True, False], ids=["graph", "eager"])
 @pytest.mark.parametrize("kind", sorted(ENGINES))
 def test_the_spans_count_every_layer_fused_on_the_card(ring, kind, graphed):
-    """A bf16 engine on the card runs every layer's SwiGLU through the
-    kernel: each admission and decode span reads ``swiglu_fused`` equal
-    to the layer count, replayed or eager, and each ``moe.experts`` span
-    ``fused`` 1."""
+    """A bf16 engine on the card runs every dense layer's SwiGLU through
+    the kernel, and every MoE layer's inside the grouped path's gate/up
+    kernel (``csrc/moe_grouped.cu``): each admission and decode span
+    reads ``swiglu_fused`` equal to the dense layers and ``moe_grouped``
+    to the MoE layers, replayed or eager, and each ``moe.experts`` span
+    ``fused`` 0 and ``grouped`` 1."""
     dev = _card()
     c, steps, experts = _spans(kind, dev.type, torch.bfloat16, graphed)
+    n_moe = sum(map(getattr(c, "is_moe_layer", lambda i: False),
+                    range(c.n_layers)))
     assert {e["name"] for e in steps} == {"serving.admit", "serving.decode"}
     assert [e["args"]["swiglu_fused"] for e in steps] == (
-        [c.n_layers] * len(steps))
-    assert all(e["args"]["fused"] == 1 for e in experts)
+        [c.n_layers - n_moe] * len(steps))
+    assert all(e["args"]["fused"] == 0 and e["args"]["grouped"] == 1
+               for e in experts)
     if kind == "moe":
-        assert experts
+        assert n_moe == 2 and experts
+        assert [e["args"]["moe_grouped"] for e in steps] == (
+            [n_moe] * len(steps))
+        # A replay's rows are the captured layers' B·S·k, as its real.
+        replays = [e["args"] for e in steps if e["args"]["graph"]
+                   and e["name"] == "serving.decode"]
+        assert bool(replays) == graphed
+        assert all(a["rows"] == a["real"] == 3 * c.top_k * n_moe
+                   for a in replays)

@@ -24,6 +24,20 @@ combine weights rounded to the model dtype before the top-k sum, which
 runs in fp32 in choice order and is rounded once.
 :func:`_top_k_routing` still returns the dense tensors, for the tests.
 
+Two paths compute the experts, and :func:`_grouped_reason` picks one per
+call. The GROUPED path (:func:`_grouped_ffn`) runs where no token can be
+dropped (a dropless config, or a call that passes ``drop_free``:
+capacity ≥ S), with no mesh, on bf16 contiguous CUDA operands outside
+autograd: the serving engines' admissions and decode steps on the card.
+It routes as the other path does but asks for no queue slots, groups
+the routed (token, choice) pairs by expert and runs each expert's
+products over its own rows only, through the hand-written kernels of
+``csrc/moe_grouped.cu`` (``ops/moe_grouped``); it never builds the
+(E, B, C) layout. Every other call (training, the CPU, a capacity-routed
+forward, the ep/tp mesh) lays the expert inputs out as (E, B, C), each
+expert computing every slot of every row, as below. The two differ only
+in the order of the sums inside the products.
+
 Layout (``param_specs``): expert stacks (E, D, F) with E over 'ep' and F
 over 'tp'; attention and dense layers as ``models/transformer.py``; the
 router (D, E) replicated, in fp32. Over a mesh the batch rows are
@@ -43,11 +57,13 @@ its experts may be narrower than the dense FFN.
 While a ``runtime/tracing`` tree is the thread's (a serving engine's
 step), each MoE layer records its spans in it: ``moe.route`` (arg
 ``score``, ``softmax`` or ``sigmoid``), ``moe.dispatch``, ``moe.experts``
-(args ``rows``, the E × B × C rows the expert products compute, and
-``real``, the B × S × k (token, choice) pairs routed, both from shapes;
-``fused``, 1 where SwiGLU's step ran the kernel ``csrc/swiglu.cu``, else
-0), ``moe.combine`` and, with shared experts, ``moe.shared``. They time
-the host's issue of each phase, not the device's work.
+(args ``rows``, the rows the expert products compute: E × B × C, or
+B × S × k on the grouped path; ``real``, the B × S × k (token, choice)
+pairs routed, both from shapes; ``fused``, 1 where SwiGLU's step ran the
+kernel ``csrc/swiglu.cu``, else 0; ``grouped``, 1 on the grouped path,
+else 0), ``moe.combine`` and, with shared experts, ``moe.shared`` (on
+the grouped path before ``moe.combine``, which adds it). They time the
+host's issue of each phase, not the device's work.
 """
 
 from __future__ import annotations
@@ -72,6 +88,7 @@ from tpu_composer_torch.models.transformer import (
     full_embedding,
     swiglu_ffn,
 )
+from tpu_composer_torch.ops import moe_grouped
 from tpu_composer_torch.ops.swiglu import swiglu, swiglu_cuda
 from tpu_composer_torch.parallel.collectives import (
     all_reduce,
@@ -220,10 +237,11 @@ def param_specs(config: MoEConfig) -> Dict:
     return {"embed": ("tp", None), "layers": layers, "ln_f": ()}
 
 
-def _route(logits: torch.Tensor, top_k: int, capacity: int):
+def _route(logits: torch.Tensor, top_k: int, capacity: Optional[int]):
     """Top-k routing by index. logits (B, S, E) fp32 -> (expert (B, S, K)
     int64, slot (B, S, K) int64: the place in the expert's queue, −1 when
-    the token is dropped, gate (B, S, K) fp32 normalised over the K
+    the token is dropped, or None where ``capacity`` is None (the grouped
+    path needs no slots), gate (B, S, K) fp32 normalised over the K
     choices, the Switch load-balancing aux loss).
 
     The reference's ops in its order: softmax as exp(x − max) / Σ; the
@@ -247,7 +265,8 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int):
     frac = masks[0].mean(dim=1)  # (B, E) fraction routed (top-1)
     pmass = probs.mean(dim=1)    # (B, E) mean router probability
     aux = e * (frac * pmass).sum(dim=-1).mean()
-    return (torch.stack(experts, -1), _queue_slots(masks, capacity),
+    slots = None if capacity is None else _queue_slots(masks, capacity)
+    return (torch.stack(experts, -1), slots,
             torch.stack([g / denom for g in gates], -1), aux)
 
 
@@ -269,7 +288,7 @@ def _queue_slots(masks, capacity: int) -> torch.Tensor:
 
 
 def _route_sigmoid(logits: torch.Tensor, bias: torch.Tensor, top_k: int,
-                   capacity: int, scale: float):
+                   capacity: Optional[int], scale: float):
     """DeepSeek-V3's routing (``noaux_tc`` with one group), by index, in
     :func:`_route`'s outputs: scores s = sigmoid(logits) (B, S, E) fp32;
     the top-k of s + ``bias`` (E,) fp32 are chosen, the bias moving
@@ -280,9 +299,12 @@ def _route_sigmoid(logits: torch.Tensor, bias: torch.Tensor, top_k: int,
     experts = torch.topk(scores + bias.float(), top_k, dim=-1).indices
     chosen = scores.gather(-1, experts)
     gates = chosen / chosen.sum(dim=-1, keepdim=True) * scale
-    masks = [F.one_hot(experts[..., j], e).to(torch.float32)
-             for j in range(top_k)]
-    return (experts, _queue_slots(masks, capacity), gates,
+    slots = None
+    if capacity is not None:
+        masks = [F.one_hot(experts[..., j], e).to(torch.float32)
+                 for j in range(top_k)]
+        slots = _queue_slots(masks, capacity)
+    return (experts, slots, gates,
             torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
@@ -379,18 +401,22 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     b, s, d = x.shape
     e, k = c.n_experts, c.top_k
     cap = capacity if capacity is not None else c.capacity(s)
-    ep_mesh = mesh if layer["w_gate"].shape[0] < e else None
-    tp_mesh = ffn_mesh(layer, c, mesh)
+    grouped = _grouped_reason(x, layer, cap, mesh) is None
     phases = _Phases(score=c.scoring_func)
     logits = torch.einsum("bsd,de->bse", x.float(), layer["w_router"].float())
+    route_cap = None if grouped else cap
     if c.scoring_func == "sigmoid":
         experts, slots, gates, aux = _route_sigmoid(
-            logits, layer["e_score_correction_bias"], k, cap,
+            logits, layer["e_score_correction_bias"], k, route_cap,
             c.routed_scaling_factor)
     else:
-        experts, slots, gates, aux = _route(logits, k, cap)
+        experts, slots, gates, aux = _route(logits, k, route_cap)
     if record is not None:
         record(experts)
+    if grouped:
+        return _grouped_ffn(x, layer, c, experts, gates, phases), aux
+    ep_mesh = mesh if layer["w_gate"].shape[0] < e else None
+    tp_mesh = ffn_mesh(layer, c, mesh)
     phases.next("moe.dispatch")
 
     # Slot ids in the (E, B, C) layout of the expert inputs; -1 = dropped.
@@ -412,7 +438,7 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
     xin = all_to_all(xin.reshape(e, b, cap, d), ep_mesh, "ep", 0, 1)
     e_local = xin.shape[0]
     xin = enter_parallel(xin.reshape(e_local, -1, d), tp_mesh, "tp")
-    phases.next("moe.experts", rows=n_slots, real=b * s * k)
+    phases.next("moe.experts", rows=n_slots, real=b * s * k, grouped=0)
     h_gate = torch.bmm(xin, resolve(layer["w_gate"], c.dtype))
     h_up = torch.bmm(xin, resolve(layer["w_up"], c.dtype))
     launched = swiglu_cuda.launches
@@ -440,6 +466,53 @@ def _moe_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
         out = out + swiglu_ffn(x, shared, c.dtype).float().reshape(b * s, d)
     phases.end()
     return out.to(c.dtype).reshape(b, s, d), aux
+
+
+def _grouped_reason(x: torch.Tensor, layer: Dict, capacity: int, mesh
+                    ) -> Optional[str]:
+    """Why :func:`_moe_ffn` runs the (E, B, C) path on this call
+    (``"capacity"``: fewer slots than the row has tokens, so one can be
+    dropped; ``"mesh"``; or what ``ops/moe_grouped.kernel_reason`` finds
+    against the operands: autograd, dtype, layout, device, shape), or
+    None where it runs :func:`_grouped_ffn`."""
+    if capacity < x.shape[1]:
+        return "capacity"
+    if mesh is not None:
+        return "mesh"
+    return moe_grouped.kernel_reason(x, layer["w_gate"], layer["w_up"],
+                                     layer["w_down"])
+
+
+def _grouped_ffn(x: torch.Tensor, layer: Dict, config: MoEConfig,
+                 experts: torch.Tensor, gates: torch.Tensor,
+                 phases: _Phases) -> torch.Tensor:
+    """The experts over the routed (token, choice) pairs alone: x (B, S, D)
+    and the routing's (B, S, k) ids and gates -> the layer's output
+    (B, S, D). The pairs are grouped by expert, each expert's gate/up
+    (with SwiGLU's step) and down products run over its own rows, and the
+    combine sums each token's k rows with the shared experts' output
+    (``ops/moe_grouped``: the kernels on the card, their twins on the
+    CPU). Nothing is dropped and no (E, B, C) tensor is built."""
+    c = config
+    b, s, d = x.shape
+    t, k = b * s, c.top_k
+    phases.next("moe.dispatch")
+    offsets, tok, row = moe_grouped.group(
+        experts.reshape(t, k).contiguous(), c.n_experts)
+    phases.next("moe.experts", rows=t * k, real=t * k, fused=0, grouped=1)
+    h = moe_grouped.gate_up(x.reshape(t, d), tok, layer["w_gate"],
+                            layer["w_up"], offsets)
+    y = moe_grouped.down(h, layer["w_down"], offsets)
+    shared = None
+    if c.n_shared_experts:
+        phases.next("moe.shared")
+        shared = swiglu_ffn(x, {n: layer["shared_" + n] for n in (
+            "w_gate", "w_up", "w_down")}, c.dtype).reshape(t, d)
+    phases.next("moe.combine")
+    out = moe_grouped.combine(y, row, gates.reshape(t, k).contiguous(),
+                              shared)
+    phases.end()
+    return out.reshape(b, s, d)
 
 
 #: Writes a MoE layer's expert ids: ``record(layer_idx, experts (B, S, k))``.

@@ -81,6 +81,12 @@ from tpu_composer_torch.models.paged import (
 from tpu_composer_torch.models.quant import QTensor
 from tpu_composer_torch.ops.attention import flash_fwd_cuda
 from tpu_composer_torch.ops.mla_decode import mla_decode_cuda
+from tpu_composer_torch.ops.moe_grouped import (
+    combine_cuda,
+    down_cuda,
+    gate_up_cuda,
+    group_cuda,
+)
 from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
 from tpu_composer_torch.ops.swiglu import swiglu_cuda
 from tpu_composer_torch.runtime import tracing
@@ -245,14 +251,9 @@ class ContinuousBatchingEngine:
             (slots, config.n_layers, self.cache.capacity_per_row + 1,
              config.top_k), dtype=torch.uint8, device=self.device)
             if record_routes else None)
-        # What a replayed decode step's expert products compute, for its
-        # span: rows (E x slots per MoE layer) and routed (token, choice)
-        # pairs, as the eager step's ``moe.experts`` spans say.
-        n_moe = (sum(map(config.is_moe_layer, range(config.n_layers)))
-                 if moe else 0)
-        self._graph_args = ({"rows": n_moe * config.n_experts * slots,
-                             "real": n_moe * slots * config.top_k}
-                            if moe else {})
+        self._moe = moe
+        self._n_moe = (sum(map(config.is_moe_layer, range(config.n_layers)))
+                       if moe else 0)
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._next_token = np.zeros(slots, np.int32)
         self._reserved = np.zeros(slots, np.int64)  # blocks held per slot
@@ -523,11 +524,10 @@ class ContinuousBatchingEngine:
         tree.begin("serving.admit", req_id=req.req_id,
                    prompt=len(req.prompt), padded=pad,
                    graph=int(self._admit_graphed))
-        launched = swiglu_cuda.launches
+        launched = self._launch_counts()
         events = self._prefill(slot, req, pad, worst)
-        tree.note(swiglu_fused=self._fused(
-            launched, self._admit_graphs.get(pad + 2)
-            if self._admit_graphed else None))
+        self._note_kernels(tree, launched, self._admit_graphs.get(pad + 2)
+                           if self._admit_graphed else None)
         tree.end()
         return events
 
@@ -633,9 +633,9 @@ class ContinuousBatchingEngine:
         tree.begin("serving.admit", req_id=st["req"].req_id,
                    prompt=min(c_sz, st["tail"] - st["consumed"]),
                    padded=c_sz, graph=0)
-        launched = swiglu_cuda.launches
+        launched = self._launch_counts()
         events = self._chunk(st)
-        tree.note(swiglu_fused=self._fused(launched, None))
+        self._note_kernels(tree, launched, None)
         tree.end()
         return events
 
@@ -747,7 +747,13 @@ class ContinuousBatchingEngine:
         decode forward, from the call until the logits return), each with
         args ``graph`` (1 where its forward is a CUDA graph's replay, 0
         where it runs eagerly) and ``swiglu_fused`` (the SwiGLU products
-        of its forward that ran the kernel ``csrc/swiglu.cu``); an MLA
+        of its forward that ran the kernel ``csrc/swiglu.cu``); an MoE
+        engine's also carry ``moe_grouped`` (the MoE layers of its
+        forward that ran the grouped path, ``models/moe._grouped_ffn``; a
+        replay's counted at its capture), and its replayed
+        ``serving.decode`` the step's ``rows`` and ``real`` (what the
+        eager step's ``moe.experts`` spans carry, summed over the
+        captured layers); an MLA
         engine's ``serving.decode`` also carries ``latent_positions``
         (the latent entries its attention reads: Σ over decoded rows of
         their lengths, times the layers, from the host's own counts) and
@@ -779,23 +785,26 @@ class ContinuousBatchingEngine:
         if not active.any():
             return events, 0
         if tree is not None:
-            if self._graphed:
-                tree.begin("serving.decode", graph=1, **self._graph_args)
-            else:
-                tree.begin("serving.decode", graph=0)
+            tree.begin("serving.decode", graph=int(self._graphed))
             if self._latent:
                 tree.note(latent_positions=self.config.n_layers * sum(
                     len(r.prompt) + len(r.tokens)
                     for s, r in enumerate(self._slot_req) if active[s]))
-        launched = swiglu_cuda.launches
-        launched_k3 = mla_decode_cuda.launches
+        launched = self._launch_counts()
         logits, cache, ok = self._decode(
             *upload(self.device, self._next_token, active))
         if tree is not None:
-            tree.note(swiglu_fused=self._fused(launched, self._graph))
+            grouped = self._note_kernels(tree, launched, self._graph)
             if self._latent:
-                tree.note(k3=mla_decode_cuda.launches - launched_k3
-                          if self._graph is None else self._graph.k3)
+                tree.note(k3=self._ran(mla_decode_cuda, launched,
+                                       self._graph))
+            if self._graph is not None and self._moe:
+                # A replay records no ``moe.experts`` span: its sums go
+                # here, the rows as the captured layers computed them.
+                c, rows = self.config, self.slots
+                tree.note(rows=rows * (grouped * c.top_k + (
+                    self._n_moe - grouped) * c.n_experts),
+                    real=self._n_moe * rows * c.top_k)
             tree.end()
         if all(g is None for g in self._slot_gen):
             picks = torch.argmax(logits, dim=-1)
@@ -823,13 +832,31 @@ class ContinuousBatchingEngine:
         return events, len(rows)
 
     @staticmethod
-    def _fused(launched: int, graph: Optional["_Graph"]) -> int:
-        """How many of the SwiGLU products of the forward just run took
-        the kernel (``swiglu_fused`` on its span): a replayed graph's,
-        counted at its capture; an eager forward's, the kernel's launches
-        since ``launched``."""
-        return swiglu_cuda.launches - launched if graph is None else (
-            graph.fused)
+    def _launch_counts() -> Dict[Any, int]:
+        """The launch counts of the kernels a forward's span reports."""
+        return {fn: fn.launches for fn in (swiglu_cuda, group_cuda,
+                                           mla_decode_cuda)}
+
+    @staticmethod
+    def _ran(fn, launched: Dict[Any, int], graph: Optional["_Graph"]
+             ) -> int:
+        """The launches of ``fn`` in the forward just run: a replayed
+        graph's, counted at its capture; an eager forward's, since the
+        counts ``launched``."""
+        return fn.launches - launched[fn] if graph is None else (
+            graph.count(fn))
+
+    def _note_kernels(self, tree: tracing.Tree, launched: Dict[Any, int],
+                      graph: Optional["_Graph"]) -> int:
+        """Note on the open span ``swiglu_fused`` (the SwiGLU products of
+        the forward just run that took ``csrc/swiglu.cu``) and, for an
+        MoE engine, ``moe_grouped`` (its MoE layers that ran the grouped
+        path, ``csrc/moe_grouped.cu``); returns the latter."""
+        tree.note(swiglu_fused=self._ran(swiglu_cuda, launched, graph))
+        grouped = self._ran(group_cuda, launched, graph)
+        if self._moe:
+            tree.note(moe_grouped=grouped)
+        return grouped
 
     def _decode(self, token: torch.Tensor, active: torch.Tensor):
         """The decode step's (logits, cache, ok), ``ok`` on the device:
@@ -893,10 +920,12 @@ class _Graph:
     side stream; ``pool`` is a memory pool shared with other graphs that
     never replay at once. The kernels' launch counts (``COUNTERS``),
     which a capture raises without running anything, are put back and
-    raised by as much at each replay; the first is the SwiGLU kernel's
-    (:attr:`fused`)."""
+    raised by as much at each replay (:meth:`count`)."""
 
-    COUNTERS: Tuple[Tuple[Any, str], ...] = ((swiglu_cuda, "launches"),)
+    COUNTERS: Tuple[Tuple[Any, str], ...] = (
+        (swiglu_cuda, "launches"), (group_cuda, "launches"),
+        (gate_up_cuda, "launches"), (down_cuda, "launches"),
+        (combine_cuda, "launches"))
 
     def __init__(self, eng: "ContinuousBatchingEngine", body,
                  args: Tuple[torch.Tensor, ...], pool=None):
@@ -920,11 +949,10 @@ class _Graph:
             setattr(fn, name, was)
         self.replays = 0
 
-    @property
-    def fused(self) -> int:
-        """The SwiGLU products of the captured forward that run the
-        kernel."""
-        return self.launches[0]
+    def count(self, fn, name: str = "launches") -> int:
+        """The launches of ``fn`` (its counter ``name``) in the captured
+        forward."""
+        return self.launches[self.COUNTERS.index((fn, name))]
 
     def replay(self, cache, *args):
         """The forward from ``cache`` on ``args``: (logits, cache, ok)."""
@@ -949,11 +977,6 @@ class _DecodeGraph(_Graph):
     COUNTERS = _Graph.COUNTERS + ((mla_decode_cuda, "launches"),
                                   (paged_decode_cuda, "launches"),
                                   (paged_decode_cuda, "launches_int8"))
-
-    @property
-    def k3(self) -> int:
-        """The K3 launches of the captured forward."""
-        return self.launches[1]
 
 
 class _PrefillGraph(_Graph):

@@ -138,6 +138,7 @@ def kernel_launches() -> Dict[str, int]:
         flash_bwd_dq_cuda,
         flash_fwd_cuda,
     )
+    from tpu_composer_torch.ops import moe_grouped
     from tpu_composer_torch.ops.mla_decode import mla_decode_cuda
     from tpu_composer_torch.ops.paged_attention import paged_decode_cuda
     from tpu_composer_torch.ops.swiglu import swiglu_cuda
@@ -150,7 +151,11 @@ def kernel_launches() -> Dict[str, int]:
             "paged_decode_int8": paged_decode_cuda.launches_int8,
             "swiglu": swiglu_cuda.launches,
             "mla_decode": mla_decode_cuda.launches,
-            "flash_fwd_192": flash_fwd_cuda.launches_192}
+            "flash_fwd_192": flash_fwd_cuda.launches_192,
+            "moe_group": moe_grouped.group_cuda.launches,
+            "moe_gate_up": moe_grouped.gate_up_cuda.launches,
+            "moe_down": moe_grouped.down_cuda.launches,
+            "moe_combine": moe_grouped.combine_cuda.launches}
 
 
 def launch_record(before: Dict[str, int]) -> Dict[str, Any]:
